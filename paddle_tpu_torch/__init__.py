@@ -1,0 +1,18 @@
+"""paddle_tpu_torch: the PyTorch and CUDA port of ``paddle_tpu``, for NVIDIA Hopper.
+
+It mirrors the JAX package's module paths and names. Entry points run on
+the card unless the caller asks for the CPU, with ``set_device("cpu")`` or
+a ``device="cpu"`` argument; without CUDA the default device raises. The
+package imports torch and never jax or ``paddle_tpu``.
+"""
+from __future__ import annotations
+
+from . import models, nn  # noqa: F401
+from .core.flags import get_flags, set_flags  # noqa: F401
+from .core.place import CPUPlace, CUDAPlace, get_device, set_device  # noqa: F401
+from .core.random import seed  # noqa: F401
+
+__all__ = [
+    "CPUPlace", "CUDAPlace", "get_device", "get_flags", "models", "nn", "seed",
+    "set_device", "set_flags",
+]

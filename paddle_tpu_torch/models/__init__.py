@@ -1,0 +1,8 @@
+from .gpt import (  # noqa: F401
+    GPTConfig,
+    GPTForPretraining,
+    GPTModel,
+    gpt2_345m,
+    gpt2_medium,
+    gpt2_small,
+)

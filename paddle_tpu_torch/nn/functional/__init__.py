@@ -1,0 +1,67 @@
+"""``paddle.nn.functional`` for the port: the functions the GPT path calls.
+
+``scaled_dot_product_attention`` picks the lowering as
+``paddle_tpu/nn/functional/__init__.py:677`` does: the flash path when
+``FLAGS_use_flash_attention`` is on, there is no mask, no dropout and the
+shape is eligible; the dense path otherwise. (The JAX selector also keeps
+sharded meshes on the dense path; the port runs on one card.)
+"""
+from __future__ import annotations
+
+from ...core import flags as _flags
+from ...core import random as _random
+from ...ops import nn_ops as _nn
+
+
+def linear(x, weight, bias=None, name=None):
+    return _nn.linear(x, weight, bias)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=None):
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    begin = x.dim() - len(normalized_shape)
+    return _nn.layer_norm(x, weight, bias, epsilon=epsilon, begin_norm_axis=begin)
+
+
+def gelu(x, approximate=False, name=None):
+    return _nn.gelu(x, approximate=approximate)
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    out = _nn.softmax(x, axis=axis)
+    return out if dtype is None else out.to(dtype)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    return _nn.embedding(x, weight, padding_idx=padding_idx)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=None):
+    if axis is not None:
+        raise NotImplementedError("dropout with an axis is not ported yet")
+    if not training or p == 0.0:
+        return x
+    return _nn.dropout(x, _random.generator(x.device), p=p, mode=mode)
+
+
+def scaled_dot_product_attention(
+    query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
+    training=True, name=None,
+):
+    dropout_gen = (
+        _random.generator(query.device) if (dropout_p > 0.0 and training) else None
+    )
+    if (
+        _flags.flag("use_flash_attention")
+        and attn_mask is None
+        and dropout_gen is None
+        and _nn.flash_attention_eligible(query.shape, key.shape, value.shape)
+    ):
+        return _nn.flash_scaled_dot_product_attention(
+            query, key, value, is_causal=is_causal
+        )
+    return _nn.scaled_dot_product_attention(
+        query, key, value, attn_mask, dropout_gen, is_causal=is_causal,
+        dropout_p=dropout_p,
+    )

@@ -1,0 +1,136 @@
+"""Neural-network ops on torch tensors: the subset of ``paddle_tpu/ops/nn_ops.py``
+that the GPT inference path runs.
+
+Each function keeps the JAX function's layout (weights ``[in, out]``,
+attention over ``[batch, seq, heads, head_dim]``) and its operation order,
+so the two packages compute the same thing step by step.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .kernels import flash_attention as _flash
+
+
+def linear(x, weight, bias=None):
+    """y = x @ W (+ b) with the Paddle weight layout ``[in, out]``."""
+    out = torch.matmul(x, weight)
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def layer_norm(x, weight=None, bias=None, *, epsilon=1e-5, begin_norm_axis=-1):
+    """Biased variance over the trailing axes from ``begin_norm_axis``."""
+    if begin_norm_axis < 0:
+        begin_norm_axis = x.dim() + begin_norm_axis
+    axes = tuple(range(begin_norm_axis, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, unbiased=False, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def gelu(x, *, approximate=False):
+    """``approximate=True`` is the tanh form, written as ``jax.nn.gelu`` writes it."""
+    if approximate:
+        cdf = 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * (x ** 3))))
+        return x * cdf
+    return torch.nn.functional.gelu(x)
+
+
+def softmax(x, *, axis=-1):
+    return torch.softmax(x, dim=axis)
+
+
+def embedding(x, weight, *, padding_idx=None):
+    out = weight[x.long()]
+    if padding_idx is not None:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
+
+
+def dropout(x, generator, *, p=0.5, mode="upscale_in_train"):
+    """``generator`` draws the keep mask (the JAX op takes a key)."""
+    if p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - p)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return torch.where(keep, x, torch.zeros_like(x))
+
+
+def scaled_dot_product_attention(
+    q, k, v, mask=None, dropout_generator=None, *, scale=None, is_causal=False,
+    dropout_p=0.0,
+):
+    """Dense attention over ``[batch, seq, heads, head_dim]``.
+
+    The causal mask fills with ``finfo(dtype).min`` over ``tril(k=kl-ql)``.
+    Dropout applies to the probabilities when a generator is given."""
+    d = q.shape[-1]
+    s = scale if scale is not None else 1.0 / (d ** 0.5)
+    qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))  # [b, h, s, d]
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * s
+    if is_causal:
+        ql, kl = logits.shape[-2], logits.shape[-1]
+        causal = torch.ones(ql, kl, dtype=torch.bool, device=logits.device).tril(kl - ql)
+        logits = logits.masked_fill(~causal, torch.finfo(logits.dtype).min)
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0 and dropout_generator is not None:
+        probs = dropout(probs, dropout_generator, p=dropout_p)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
+    return out.transpose(1, 2)
+
+
+def cached_attention(q, k_cache, v_cache, k_new, v_new, cur_len, *, scale):
+    """One KV-cache attention step over a PREALLOCATED ``[b, max_len, h, d]`` cache.
+
+    Unlike the JAX op, which returns updated copies, this writes ``k_new`` /
+    ``v_new`` into the caches IN PLACE at ``cur_len`` (no copy of the whole
+    cache per step) and returns the same cache tensors. Token i of the new
+    chunk attends cache positions ``j <= cur_len + i`` (prefix + causal
+    mask, filled with -1e30); the output is cast to q's dtype.
+
+    Returns ``(out [b, s_new, h, d], k_cache, v_cache)``."""
+    cur = int(cur_len)
+    s_new = q.shape[1]
+    k_cache[:, cur:cur + s_new] = k_new.to(k_cache.dtype)
+    v_cache[:, cur:cur + s_new] = v_new.to(v_cache.dtype)
+    L = k_cache.shape[1]
+    # the JAX op scales by an f32 scalar, which promotes bf16 logits to f32:
+    # the softmax and the P·V product run in f32 there, and so they do here
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k_cache).float() * scale
+    allowed = (
+        torch.arange(L, device=q.device)[None, :]
+        <= (cur + torch.arange(s_new, device=q.device))[:, None]
+    )  # [s_new, L]
+    logits = logits.masked_fill(~allowed[None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.float())
+    return out.to(q.dtype), k_cache, v_cache
+
+
+def flash_scaled_dot_product_attention(q, k, v, *, scale=None, is_causal=False):
+    """Flash path: the hand-written kernel on a CUDA tensor, its plain
+    version on a CPU tensor. No mask or dropout: the functional selector
+    takes the dense path for those."""
+    d = q.shape[-1]
+    s = scale if scale is not None else 1.0 / (d ** 0.5)
+    return _flash.flash_attention(q, k, v, scale=s, causal=is_causal)
+
+
+def flash_attention_eligible(q_shape, k_shape, v_shape) -> bool:
+    return (
+        tuple(q_shape) == tuple(k_shape) == tuple(v_shape)
+        and len(q_shape) == 4
+        and _flash.supports(q_shape[1], q_shape[3])
+    )

@@ -35,3 +35,6 @@ def _seed_everything():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: spawns real subprocesses")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc; skips without CUDA"
+    )

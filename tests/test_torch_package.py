@@ -1,0 +1,115 @@
+"""Package boundaries of the PyTorch port: it runs without jax, paddle_tpu or nvcc,
+and its default device is the card."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.models import gpt as tgpt
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+TINY = dict(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2, max_seq_len=16)
+
+
+def _run(code, **env):
+    full = dict(os.environ, PYTHONPATH=str(ROOT), **env)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=full,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_import_and_cpu_forward_load_neither_jax_nor_paddle_tpu():
+    out = _run(
+        "import sys, torch\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForPretraining\n"
+        "pt.set_device('cpu')\n"
+        f"m = GPTForPretraining(GPTConfig(**{TINY!r})).eval()\n"
+        "with torch.no_grad():\n"
+        "    y = m(torch.zeros(1, 8, dtype=torch.int64))\n"
+        "assert y.shape == (1, 8, 32)\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
+
+
+def test_sources_import_neither_jax_nor_paddle_tpu():
+    files = list((ROOT / "paddle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "paddle_tpu"), (path, name)
+
+
+def test_default_device_is_the_card_and_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    previous = pt.get_device()
+    try:
+        pt.set_device("gpu")
+        assert pt.get_device() == "gpu:0"
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tgpt.GPTForPretraining(tgpt.GPTConfig(**TINY))
+        # the CPU is an opt-in: by argument, or by set_device
+        assert tgpt.GPTForPretraining(tgpt.GPTConfig(**TINY), device="cpu")
+        pt.set_device("cpu")
+        model = tgpt.GPTForPretraining(tgpt.GPTConfig(**TINY))
+        assert model.gpt.final_ln.weight.device.type == "cpu"
+    finally:
+        pt.set_device(previous)
+    with pytest.raises(ValueError, match="unknown device"):
+        pt.set_device("tpu")
+
+
+def test_kernel_module_imports_and_runs_on_cpu_without_nvcc(tmp_path):
+    out = _run(
+        "import os, torch\n"
+        "from paddle_tpu_torch.ops.kernels import _build, flash_attention as fa\n"
+        "q = torch.randn(1, 16, 2, 8)\n"
+        "o, lse = fa.flash_attention_fwd(q, q, q, 0.5, True)\n"
+        "assert o.shape == q.shape and lse.shape == (1, 2, 16)\n"
+        "assert not _build._loaded and fa.flash_attention_fwd.launches == 0\n"
+        "if not os.path.isfile('/usr/local/cuda/bin/nvcc'):\n"
+        "    try:\n"
+        "        _build.nvcc()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'nvcc not found' in str(e)\n"
+        "    else:\n"
+        "        raise AssertionError('nvcc() found a compiler on an empty PATH')\n"
+        "print('ok')\n",
+        PATH=str(tmp_path), CUDA_HOME=str(tmp_path / "no-cuda"),
+    )
+    assert out.strip() == "ok"
+
+
+def test_flags_registry():
+    assert pt.get_flags("FLAGS_use_flash_attention") == {"FLAGS_use_flash_attention": True}
+    try:
+        pt.set_flags({"FLAGS_use_flash_attention": "off"})
+        assert pt.get_flags(["use_flash_attention"]) == {"FLAGS_use_flash_attention": False}
+    finally:
+        pt.set_flags({"FLAGS_use_flash_attention": True})
+    with pytest.raises(ValueError, match="unknown flag"):
+        pt.set_flags({"FLAGS_no_such_flag": 1})
+
+
+def test_dtype_names():
+    from paddle_tpu_torch.core.dtype import to_torch_dtype
+
+    assert [to_torch_dtype(n) for n in ("float32", "bfloat16", "float16", "int64")] == [
+        torch.float32, torch.bfloat16, torch.float16, torch.int64]
+    assert to_torch_dtype(torch.bfloat16) is torch.bfloat16
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        to_torch_dtype("complex64")
