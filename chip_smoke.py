@@ -15,7 +15,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      then once in bf16;
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
-  6. one JSON line of per-kernel numbers, then the result line.
+  6. hold the two flash backward kernels against their plain version on the
+     card, at the training step's shape and at ragged, non-causal, wide-head
+     and tiny ones, check that a second backward is bitwise equal, and time
+     kernels, plain version and the PyTorch library backward;
+  7. train GPT-2 345M (random weights from a seed) at 8 x 1024 tokens under
+     AMP O2 bf16 with AdamW through ``jit.compile_train_step``: two eager
+     warm-up steps, the capture of the whole step as one CUDA graph, then 10
+     timed replays, against an eager copy of the model stepped with
+     ``loss.backward(); opt.step(); opt.clear_grad()``;
+  8. a ``torch.profiler`` trace of one replayed step: the top device
+     operations, the flash kernels' share of the step, the device idle share;
+  9. one JSON line of per-kernel numbers, then the result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result. It imports nothing of JAX or of ``paddle_tpu``.
@@ -24,6 +35,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -38,6 +50,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # Tolerances of tests/test_flash_attention.py for the kernel against its plain
 # version, on O and on lse.
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# ... and on the gradients (tests/test_flash_attention.py:48 in f32)
+GRAD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 
 # Flash vs dense logits of the 345M forward: f32 throughout with TF32 off, but
 # the kernel sums the softmax online over 64-key tiles while the dense path
@@ -89,6 +103,285 @@ def attention_bound_ms(b, s, h, d, dtype_name, causal):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def bwd_bound_ms(kernel, b, s, h, d, dtype_name, causal):
+    """Least time for one backward kernel: max(operations / peak, bytes / HBM rate).
+
+    Operations per attended (query, key) pair: 8·D for dkv (Q·Kᵀ, dO·Vᵀ,
+    pᵀ·dO, dSᵀ·Q), 6·D for dq (Q·Kᵀ, dO·Vᵀ, dS·K). Bytes: q, k, v, dO read
+    once, lse and delta (f32) read once, the gradients written once (dK and
+    dV, or dQ)."""
+    elem = 4 if dtype_name == "float32" else 2
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = (8 if kernel == "dkv" else 6) * d * pairs * b * h
+    n_out = 2 if kernel == "dkv" else 1
+    nbytes = (4 + n_out) * b * s * h * d * elem + 2 * b * h * s * 4
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def qkv_on_card(shape, dtype, layout, gen, dev):
+    """q, k, v on the card: strided views of one [b, s, h, 3, d] qkv, as GPT
+    makes them (``fused``), or three contiguous tensors."""
+    import torch
+
+    b, s, h, d = shape
+    if layout == "fused":
+        qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
+        return qkv.unbind(dim=3)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3)]
+
+
+BWD_MAIN_SHAPE = (8, 1024, 16, 64)  # the 345M training step: batch 8 x 1024, 16 heads of 64
+
+# Eager copy vs graph replays of the 345M step, on the loss. Both run the
+# same kernels on the same data in the same order, so they are expected
+# equal to the bit; the tolerance admits a library kernel (cuBLAS) that picks
+# another algorithm for another memory layout of its workspace, which moves
+# bf16 weights by an ulp here and there and the f32 loss (about 10.8) by far
+# less than 1e-2. A wrong update (lr, bias correction, decay) moves the loss
+# of the later steps by more than 1e-2.
+TOL_EAGER_VS_GRAPH = 1e-2
+
+
+def check_backward_kernels(torch, fa, gen, dev):
+    """Phase 6: both backward kernels against ``bwd_plain``; timings at the
+    main shape in f32 and bf16. Returns {dtype: {kernel: numbers}}."""
+    print("[6] flash_attention_bwd_dkv / _dq vs plain")
+    cases = [  # (shape, causal, dtype, layout)
+        (BWD_MAIN_SHAPE, True, torch.bfloat16, "fused"),
+        (BWD_MAIN_SHAPE, True, torch.float32, "fused"),
+        ((1, 600, 2, 24), True, torch.float32, "fused"),
+        ((1, 128, 2, 32), False, torch.float32, "contiguous"),
+        ((1, 200, 2, 160), True, torch.float32, "contiguous"),
+        ((1, 7, 1, 5), True, torch.float32, "contiguous"),
+    ]
+    out = {}
+    for shape, causal, dtype, layout in cases:
+        b, s, h, d = shape
+        dname = str(dtype).replace("torch.", "")
+        q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
+        do = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+        delta = fa.bwd_delta(o, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+        ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
+        torch.cuda.synchronize()
+        errs = [(g.float() - r.float()).abs().max().item() for g, r in zip((dq, dk, dv), ref)]
+        bitwise = all(torch.equal(a, c) for a, c in zip((dq, dk, dv), (dq2, dk2, dv2)))
+        ok = max(errs) <= GRAD_TOL[dname] and bitwise
+        size = max(r.float().abs().max().item() for r in ref)
+        print(f"  {shape} causal={causal} {dname} {layout}: max|d dQ|={errs[0]:.3e} "
+              f"max|d dK|={errs[1]:.3e} max|d dV|={errs[2]:.3e} tol={GRAD_TOL[dname]:g} "
+              f"(largest gradient {size:.3f}); second backward bitwise equal: {bitwise} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"backward kernels disagree with their plain version at {shape} {dname}")
+        check(all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv)),
+              f"non-finite gradients at {shape}")
+        if shape != BWD_MAIN_SHAPE:
+            continue
+        kernel = {
+            "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal),
+            "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal),
+        }
+        plain_ms = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, causal),
+                           reps=10)
+        # the yardstick: PyTorch's fused attention backward, dq, dk and dv in one call
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        o_lib = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale)
+        do_t = do.transpose(1, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                                         retain_graph=True))
+        out[dname] = {}
+        for name, err in (("dkv", max(errs[1], errs[2])), ("dq", errs[0])):
+            bound_ms, bound_by = bwd_bound_ms(name, b, s, h, d, dname, causal)
+            ms = time_ms(kernel[name])
+            out[dname][name] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                # SDPA's backward computes the pair: stated once, on the dkv row
+                library_ms=library_ms if name == "dkv" else None, max_abs_err=err)
+            print(f"  {shape} {dname} {name}: kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}); kernel at {bound_ms / ms:.1%} of bound")
+        print(f"  {shape} {dname}: plain_ms={plain_ms:.4f} (dQ, dK, dV together) "
+              f"library_ms={library_ms:.4f} (torch SDPA backward, dQ, dK, dV together)")
+        del qt, kt, vt, o_lib
+    return out
+
+
+def train_345m(torch, pt, fa, gen, dev):
+    """Phases 7 and 8: the 345M training step as one CUDA graph, against an
+    eager copy, then a profiler trace of one replay. Returns the launches of
+    each flash kernel over the training path."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    print("[7] GPT-2 345M training step, 8 x 1024 tokens, AMP O2 bf16, AdamW, one CUDA graph")
+    batch, warmup, replays = 8, pt.jit.WARMUP_STEPS, 10
+    torch.cuda.reset_peak_memory_stats(dev)
+    pt.seed(SEED)
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    model = GPTForPretraining(cfg, device=dev)
+    eager = copy.deepcopy(model)  # before decorate: the wrapped forward is per model
+    model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    eager = pt.amp.decorate(eager, level="O2", dtype="bfloat16")
+    criterion = GPTPretrainingCriterion(cfg)
+
+    def loss_fn(logits, labels):
+        return criterion(logits.float(), labels)
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                             weight_decay=0.01)
+    step = pt.jit.compile_train_step(model, loss_fn, opt)
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
+                        device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    kernels = {"fwd": fa.flash_attention_fwd, "dkv": fa.flash_attention_bwd_dkv,
+               "dq": fa.flash_attention_bwd_dq}
+    for fn in kernels.values():
+        fn.launches = 0  # the training path's count starts here
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = {n: fn.launches for n, fn in kernels.items()}
+    t0 = time.perf_counter()
+    losses.append(step(x, y))  # capture, then the first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    in_capture = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    print(f"  {warmup} eager warm-up steps {warm_s:.2f} s; capture + first replay "
+          f"{capture_s:.2f} s; flash launches in the captured step: {in_capture}")
+    for n, got in in_capture.items():
+        check(got == cfg.num_layers,
+              f"expected {cfg.num_layers} launches of the {n} kernel in the captured step, "
+              f"got {got}")
+    before = {n: fn.launches for n, fn in kernels.items()}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(replays):
+        losses.append(step(x, y))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / replays
+    step_ms = start.elapsed_time(end) / replays
+    launches = {n: fn.launches for n, fn in kernels.items()}  # the training path's count ends here
+    # replays that went through the Python wrappers would have counted
+    check(launches == before, "the replays did not run the captured graph")
+    tokens = batch * cfg.max_seq_len
+    mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  {replays} replays: step {step_ms:.2f} ms (CUDA events), {host_ms:.2f} ms "
+          f"(host clock), {tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
+          f"allocated {mem_gb:.1f} GB")
+    values = [float(v) for v in losses]
+    print("  losses: " + " ".join(f"{v:.4f}" for v in values))
+    check(all(math.isfinite(v) for v in values), "non-finite training loss")
+    check(values[-1] < values[0], "the loss does not fall on a fixed batch")
+    check(opt._step_count == len(values), "the optimizer's step count is off")
+
+    opt_e = pt.optimizer.AdamW(learning_rate=1e-4, parameters=eager.parameters(),
+                               weight_decay=0.01)
+    eager_values = []
+    for i in range(len(values)):
+        if i == len(values) - replays:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss = loss_fn(eager(x), y)
+        loss.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        eager_values.append(loss.detach())
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / replays
+    eager_values = [float(v) for v in eager_values]
+    print(f"  eager steps (the last {replays}): {eager_ms:.2f} ms per step (host clock), "
+          f"{tokens / eager_ms * 1e3:.0f} tokens/s")
+    diff = max(abs(a - c) for a, c in zip(values, eager_values))
+    print(f"  eager copy (loss.backward(); opt.step(); opt.clear_grad()) vs graph: "
+          f"max|d loss|={diff:.3e} over {len(values)} steps, bitwise equal: "
+          f"{values == eager_values}, tol={TOL_EAGER_VS_GRAPH:g}")
+    check(diff <= TOL_EAGER_VS_GRAPH, "the eager copy and the graph replays disagree")
+    del eager, opt_e, loss
+
+    profile_replay(torch, step, x, y, cfg.num_layers)
+    return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3}
+
+
+# Kinds of device operation in the training step's trace, first match wins.
+OP_KINDS = [
+    ("flash kernels", r"::(fwd|dkv|dq)_kernel<"),
+    ("matmul", r"nvjet|gemm|cutlass|xmma"),
+    ("softmax / log_softmax", r"softmax"),
+    ("reduction", r"reduce_kernel"),
+    ("index / gather / scatter", r"index|gather|scatter"),
+    ("elementwise", r"elementwise_kernel"),
+    ("copy / fill", r"Memcpy|Memset|copy|fill"),
+]
+
+
+def profile_replay(torch, step, x, y, n_layers):
+    """Phase 8: a torch.profiler trace of one replayed step."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print("[8] torch.profiler trace of one replayed step")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    check(spans, "the profiler recorded no device activity in a replayed step")
+    spans.sort()
+    window = spans[-1][1] - spans[0][0]
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for a, e, _ in spans[1:]:  # union of the device intervals
+        if a > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = a, e
+        else:
+            cur_end = max(cur_end, e)
+    busy += cur_end - cur_start
+    by_name = {}
+    for a, e, name in spans:
+        total, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + e - a, n + 1)
+    print(f"  {len(spans)} device operations over {window / 1e3:.2f} ms of device time "
+          f"({wall_ms:.2f} ms host clock, profiler on); device idle share "
+          f"{1 - busy / window:.1%} of that window")
+    print("  top device operations by time:")
+    for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"    {total / 1e3:8.3f} ms {total / window:6.1%} x{n:<5d} {name[:110]}")
+    groups = {}  # kind of device operation -> (ms, count)
+    for name, (total, n) in by_name.items():
+        kind = next((k for k, pattern in OP_KINDS if re.search(pattern, name)), "other")
+        ms, count = groups.get(kind, (0.0, 0))
+        groups[kind] = (ms + total / 1e3, count + n)
+    print("  by kind: " + "; ".join(
+        f"{k} {ms:.2f} ms ({ms * 1e3 / window:.1%}, x{n})"
+        for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    for label, pattern in (("fwd", r"::fwd_kernel<"), ("dkv", r"::dkv_kernel<"),
+                           ("dq", r"::dq_kernel<")):
+        hits = [(total, n) for name, (total, n) in by_name.items() if re.search(pattern, name)]
+        total = sum(t for t, _ in hits)
+        count = sum(n for _, n in hits)
+        print(f"  flash {label}: {count} launches in the replay, {total / 1e3:.3f} ms, "
+              f"{total / window:.1%} of the step")
+        check(count == n_layers,
+              f"the replayed step ran the {label} kernel {count} times, not {n_layers}")
+
+
 def main() -> int:
     import torch
 
@@ -119,7 +412,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = _build.build([fa.KERNEL_NAME])
+    logs = _build.build([fa.KERNEL_NAME, fa.BWD_KERNEL_NAME])
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():  # ptxas -v: each instantiation, its registers and spills
@@ -142,11 +435,7 @@ def main() -> int:
     for shape, causal, dtype, layout in cases:
         b, s, h, d = shape
         dname = str(dtype).replace("torch.", "")
-        if layout == "fused":  # q, k, v as strided views of one [b, s, h, 3, d] qkv, as GPT makes them
-            qkv = torch.randn((b, s, h, 3, d), generator=gen, device=dev).to(dtype)
-            q, k, v = qkv.unbind(dim=3)
-        else:
-            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+        q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
         scale = d ** -0.5
         o_k, lse_k = fa.flash_attention_fwd(q, k, v, scale, causal)
         o_p, lse_p = fa.fwd_plain(q, k, v, scale, causal)
@@ -248,11 +537,16 @@ def main() -> int:
           f"(top-2 margin < {TOL_LOGITS:g}), min margin {margin.min().item():.3e}")
     check(unexcused == 0, f"{unexcused} generated tokens disagree with the kernel path")
     launches = fa.flash_attention_fwd.launches  # the main path's count ends here
+    del model, full, out, again
 
-    # 6. per-kernel numbers, then the result
+    bwd = check_backward_kernels(torch, fa, gen, dev)
+    train = train_345m(torch, pt, fa, gen, dev)
+
+    # 9. per-kernel numbers, then the result
     f32 = timings["float32"]
     print(f"bf16 at {main_shape}: " + json.dumps(timings["bfloat16"]))
-    print(json.dumps({"kernels": [{
+    print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd["float32"]))
+    rows = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -264,7 +558,23 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-    }]}))
+    }]
+    for kernel, line in (("dkv", 151), ("dq", 197)):
+        t = bwd["bfloat16"][kernel]
+        rows.append({
+            "name": f"flash_attention_bwd_{kernel}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": train["launches"][kernel],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -223,9 +223,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
                    Strides os, float scale, int causal, cudaStream_t stream) {
   constexpr int DO = 16 * NJ;
   const int smem = smem_floats<NJ>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  // set at the instantiation's first launch only, so a launch inside CUDA-graph
+  // capture makes no call but the launch itself
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const int BH = B * H;
   const long long n_qt = (S + BQ - 1) / BQ;
   dim3 grid((unsigned)(n_qt * BH), (unsigned)((D + DO - 1) / DO));

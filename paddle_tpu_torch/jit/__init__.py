@@ -1,0 +1,137 @@
+"""``paddle.jit`` for the port: the compiled training step
+(``paddle_tpu/jit/__init__.py:339`` ``CompiledTrainStep``, ``:793``
+``compile_train_step``).
+
+``step(*batch)`` runs forward, loss, backward and the optimizer's update as
+one training step and returns the loss. The last batch argument is the loss
+function's label; the others go to the model. It keeps the JAX contract of
+``__call__``: the learning rate is read from ``optimizer.get_lr()`` on every
+call, gradients are cast to their parameter's dtype, ``opt._step_count`` and
+``opt._accumulators`` stay the source of truth, and the optimizer's own rule
+does the update (``optimizer.apply_update``, shared with the eager
+``step()``).
+
+On a card the step is ONE CUDA graph per batch signature. The first
+``WARMUP_STEPS`` calls of a signature run eagerly, on a side stream: they are real
+training steps, and they build and load every kernel library and set every
+kernel attribute before capture. The next call captures the whole step over
+static input buffers, then replays it; later calls copy their batch into
+those buffers and replay. Parameters and optimizer state are updated in
+place by the graph: that is the analogue of the JAX step's buffer donation.
+The learning rate and the beta-pow accumulators are device scalars the graph
+reads, so a new ``set_lr()`` or a loaded state dict takes effect at the next
+replay. Rebinding a parameter or a state tensor to new storage after capture
+is not seen by the graph.
+
+On the CPU the same step function runs eagerly on every call. That is the
+path the tests take, not a fallback: there is no graph on the CPU.
+
+Not ported yet (ROADMAP, open items, queue 1 items 8 and 13): meshes and
+input shardings, ``grad_input_idx``, the memory plan, and a random generator
+registered with the graph (dropout inside the captured step).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from ..optimizer.optimizer import apply_update
+
+__all__ = ["CompiledTrainStep", "compile_train_step"]
+
+WARMUP_STEPS = 2  # eager steps per batch signature before its graph is captured
+
+
+class _Captured:
+    """One batch signature's graph and its static buffers."""
+
+    def __init__(self):
+        self.eager_steps = 0
+        self.graph = None
+        self.inputs = None
+        self.loss = None
+
+
+class CompiledTrainStep:
+    """Forward, backward and update as one step: one CUDA graph per batch
+    signature on a card, eager on the CPU."""
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self._params = [p for p in model.parameters() if p.requires_grad]
+        self._captured: Dict[tuple, _Captured] = {}
+        self._lr = None  # the device scalar a captured graph reads
+
+    def _states(self):
+        return [self.optimizer._state_of(p) for p in self._params]
+
+    def _step_fn(self, batch, lr, states):
+        """The whole step: loss, gradients, then the in-place update."""
+        model = self.model
+        with torch.enable_grad():
+            out = model(*batch[:-1]) if len(batch) > 1 else model(batch[0])
+            loss = self.loss_fn(out, batch[-1]) if self.loss_fn is not None else out
+            grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        apply_update(self.optimizer, self._params, grads, lr, states)
+        return loss.detach()
+
+    def _device(self):
+        return self._params[0].device if self._params else torch.device("cpu")
+
+    def __call__(self, *batch):
+        device = self._device()
+        batch = [torch.as_tensor(b).to(device) for b in batch]
+        states = self._states()
+        if device.type == "cuda":
+            loss = self._cuda_step(device, batch, states)
+        else:
+            lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32, device=device)
+            loss = self._step_fn(batch, lr, states)
+        self.optimizer._step_count += 1
+        return loss
+
+    def _cuda_step(self, device, batch, states):
+        if self._lr is None:
+            self._lr = torch.empty((), dtype=torch.float32, device=device)
+        self._lr.fill_(self.optimizer.get_lr())
+        sig = tuple((tuple(b.shape), b.dtype, b.device) for b in batch)
+        entry = self._captured.setdefault(sig, _Captured())
+        if entry.graph is None and entry.eager_steps < WARMUP_STEPS:
+            # eager warm-up on a side stream, as torch.cuda.graphs asks
+            side = torch.cuda.Stream(device=device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                loss = self._step_fn(batch, self._lr, states)
+            torch.cuda.current_stream(device).wait_stream(side)
+            entry.eager_steps += 1
+            return loss
+        if entry.graph is None:
+            entry.inputs = [b.clone() for b in batch]
+            graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize(device)
+            with torch.cuda.graph(graph):
+                entry.loss = self._step_fn(entry.inputs, self._lr, states)
+            entry.graph = graph
+        for buf, b in zip(entry.inputs, batch):
+            buf.copy_(b)
+        entry.graph.replay()
+        # the static loss is overwritten by the next replay: hand out a copy
+        return entry.loss.clone()
+
+
+def compile_train_step(model, loss_fn, optimizer, mesh=None, in_shardings=None,
+                       grad_input_idx=(), memory_plan=None):
+    """``CompiledTrainStep`` over ``model``; the JAX function's mesh,
+    sharding, input-gradient and memory-plan arguments are not ported yet."""
+    for given, what in ((mesh is not None, "mesh"), (in_shardings is not None, "in_shardings"),
+                        (bool(grad_input_idx), "grad_input_idx"),
+                        (memory_plan is not None, "memory_plan")):
+        if given:
+            raise NotImplementedError(
+                f"compile_train_step({what}=...) is not ported yet (ROADMAP, open "
+                "items, queue 1 items 8 and 13)"
+            )
+    return CompiledTrainStep(model, loss_fn, optimizer)

@@ -2,6 +2,7 @@ from .gpt import (  # noqa: F401
     GPTConfig,
     GPTForPretraining,
     GPTModel,
+    GPTPretrainingCriterion,
     gpt2_345m,
     gpt2_medium,
     gpt2_small,

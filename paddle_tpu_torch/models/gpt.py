@@ -13,9 +13,12 @@ Same configuration, parameter names and layouts as the JAX model, so a
     (``ops/nn_ops.cached_attention``);
   - the LM head is tied to the word embeddings: ``h @ W_embᵀ``.
 
+``GPTPretrainingCriterion`` is the training loss: token cross-entropy,
+masked mean.
+
 Not ported yet: the paged KV-cache view (the serving engine's), ring and
-ulysses sequence parallelism (multi-GPU), and recompute (the training
-step). Each raises NotImplementedError when asked for.
+ulysses sequence parallelism (multi-GPU), and recompute (ROADMAP queue 1
+item 5). Each raises NotImplementedError when asked for.
 """
 from __future__ import annotations
 
@@ -160,7 +163,8 @@ class GPTDecoderLayer(torch.nn.Module):
     def forward(self, x, cache=None):
         if self.cfg.use_recompute and cache is None:
             raise NotImplementedError(
-                "recompute is not ported yet: it comes with the training step"
+                "recompute is not ported yet (ROADMAP, open items, queue 1 "
+                "item 5: recompute)"
             )
         x = x + self.dropout(self.attn(self.ln1(x), cache=cache))
         return x + self.dropout(self.mlp(self.ln2(x)))
@@ -293,6 +297,21 @@ class GPTForPretraining(torch.nn.Module):
         finally:
             if was_training:
                 self.train()
+
+
+class GPTPretrainingCriterion(torch.nn.Module):
+    """Cross-entropy of the LM logits against the shifted labels; with a
+    ``loss_mask``, the mean over the positions it keeps."""
+
+    def __init__(self, cfg: Optional[GPTConfig] = None):
+        super().__init__()
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = F.cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            loss = loss * loss_mask
+            return loss.sum() / loss_mask.sum().clamp(min=1.0)
+        return loss.mean()
 
 
 def gpt2_small(**kw) -> GPTConfig:

@@ -1,4 +1,5 @@
-"""``paddle.nn.functional`` for the port: the functions the GPT path calls.
+"""``paddle.nn.functional`` for the port: the functions the GPT path calls,
+in inference and in training (``cross_entropy``).
 
 ``scaled_dot_product_attention`` picks the lowering as
 ``paddle_tpu/nn/functional/__init__.py:677`` does: the flash path when
@@ -65,3 +66,38 @@ def scaled_dot_product_attention(
         query, key, value, attn_mask, dropout_gen, is_causal=is_causal,
         dropout_p=dropout_p,
     )
+
+
+def cross_entropy(
+    input, label, weight=None, ignore_index=-100, reduction="mean",
+    soft_label=False, axis=-1, use_softmax=True, label_smoothing=0.0, name=None,
+):
+    """Softmax cross-entropy over hard labels (``paddle_tpu/nn/functional/__init__.py:440``).
+
+    The mean or sum is folded into the one loss op unless the mean must
+    divide by the count of labels that are not ``ignore_index``. The other
+    branches of the JAX function are not ported yet and raise."""
+    for unported, what in (
+        (label_smoothing > 0.0, "label_smoothing"),
+        (weight is not None, "a class weight"),
+        (not use_softmax, "use_softmax=False"),
+        (soft_label, "soft labels"),
+    ):
+        if unported:
+            raise NotImplementedError(
+                f"cross_entropy with {what} is not ported yet (ROADMAP, open "
+                "items, queue 1 item 4: the loss layers)"
+            )
+    # mean with a real ignore_index divides by the VALID count
+    mean_needs_valid_count = reduction == "mean" and ignore_index != -100
+    if reduction in ("mean", "sum") and not mean_needs_valid_count:
+        return _nn.softmax_with_cross_entropy(
+            input, label, ignore_index=ignore_index, axis=axis, reduction=reduction
+        )
+    loss = _nn.softmax_with_cross_entropy(input, label, ignore_index=ignore_index, axis=axis)
+    if loss.dim() > max(input.dim() - 1, 1):
+        loss = loss.squeeze(axis)
+    if mean_needs_valid_count:
+        valid = (label != ignore_index).to(loss.dtype)
+        return loss.sum() / valid.sum().clamp(min=1.0)
+    return loss  # reduction "none": a mean or sum was folded into the op above

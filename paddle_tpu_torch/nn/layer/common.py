@@ -14,10 +14,20 @@ from .. import functional as F
 from .. import initializer as I
 
 
+_param_count = [0]
+
+
 def create_parameter(shape, initializer, device=None, dtype=torch.float32):
-    """A parameter of ``shape`` on ``device``, filled by ``initializer``."""
+    """A parameter of ``shape`` on ``device``, filled by ``initializer``.
+
+    It carries its Paddle name, ``param_<n>`` from one process-wide counter
+    as in the JAX package, as ``param_name`` (torch reserves ``Tensor.name``);
+    the optimizer keys its state by it."""
     t = torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=torch_device(device))
-    return torch.nn.Parameter(initializer(t))
+    param = torch.nn.Parameter(initializer(t))
+    _param_count[0] += 1
+    param.param_name = f"param_{_param_count[0]}"
+    return param
 
 
 def _init_of(attr, default):

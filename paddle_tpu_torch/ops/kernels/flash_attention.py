@@ -1,15 +1,22 @@
-"""Flash attention forward: the port of ``paddle_tpu/ops/pallas/flash_attention.py``.
+"""Flash attention, forward and backward: the port of ``paddle_tpu/ops/pallas/flash_attention.py``.
 
-``flash_attention_fwd`` computes O and the row logsumexp of (causal or full)
-attention over ``[batch, seq, heads, head_dim]`` inputs. On a CUDA tensor it
-launches the hand-written Hopper kernel in ``csrc/flash_attention_fwd.cu``
-(built with nvcc at first use, see ``_build``) and counts the launch in
-``flash_attention_fwd.launches``; on a CPU tensor it runs ``fwd_plain``,
-the plain PyTorch version the kernel is held against. Any other device
-raises. There is no fallback from the kernel to the plain version.
+Three kernels over ``[batch, seq, heads, head_dim]`` inputs, each behind a
+wrapper that launches the hand-written Hopper kernel on a CUDA tensor (built
+with nvcc at first use, see ``_build``) and counts the launch in its
+``launches``, and runs the plain PyTorch version the kernel is held against
+on a CPU tensor. Any other device raises. There is no fallback from a kernel
+to its plain version.
 
-The backward kernels (``_bwd_dkv_kernel``, ``_bwd_dq_kernel``) come with the
-training slice; until then ``FlashAttention.backward`` raises.
+  - ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``): O and the row
+    logsumexp; plain version ``fwd_plain``.
+  - ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``
+    (``csrc/flash_attention_bwd.cu``): dK, dV and dQ from the saved lse and
+    ``delta = rowsum(dO∘O)``; plain version ``bwd_plain``.
+
+``FlashAttention`` is the autograd function over them, the port of the
+``_flash`` custom_vjp: the forward saves ``(q, k, v, o, lse)``; the backward
+computes delta in f32 with torch ops (the JAX package computes it outside any
+Pallas kernel too), then launches the dkv kernel and the dq kernel.
 """
 from __future__ import annotations
 
@@ -22,19 +29,31 @@ from . import _build
 
 NEG_INF = -1e30
 KERNEL_NAME = "flash_attention_fwd"
+BWD_KERNEL_NAME = "flash_attention_bwd"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def supports(seq_len: int, head_dim: int) -> bool:
-    """Shapes the kernel accepts.
+    """Shapes the kernels accept, forward and backward alike.
 
-    The kernel masks a ragged tail of both the sequence (64-row query and
+    The kernels mask a ragged tail of both the sequence (64-row query and
     key tiles) and the head dim (32-wide staging chunks, 128-wide output
     slices), so every ``seq_len >= 1`` and ``head_dim >= 1`` is accepted.
     That is a superset of the JAX ``supports()``, which needs an exact
     tiling of the sequence, ``seq_len >= 8`` and ``head_dim % 8 == 0``."""
     return seq_len >= 1 and head_dim >= 1
+
+
+def _scores(q, k, scale: float, causal: bool):
+    """``[b, h, s, s]`` f32 scores, scaled, the causal mask filled with -1e30."""
+    s = torch.matmul(q.transpose(1, 2).float(), k.transpose(1, 2).float().transpose(-1, -2))
+    s = s * scale
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, NEG_INF)
+    return s
 
 
 def fwd_plain(q, k, v, scale: float, causal: bool):
@@ -43,51 +62,108 @@ def fwd_plain(q, k, v, scale: float, causal: bool):
     Mirrors the kernel's arithmetic: scores in f32, masked to -1e30, p
     rounded to the input type before P·V, ``l == 0`` guarded. Returns
     ``(o [b, s, h, d] in q's dtype, lse [b, h, s] f32)``."""
-    qf, kf, vf = (x.transpose(1, 2).float() for x in (q, k, v))  # [b, h, s, d]
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if causal:
-        n = s.shape[-1]
-        keep = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
-        s = s.masked_fill(~keep, NEG_INF)
+    s = _scores(q, k, scale, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
-    acc = torch.matmul(p.to(q.dtype).float(), vf)
+    acc = torch.matmul(p.to(q.dtype).float(), v.transpose(1, 2).float())
     o = (acc / safe_l).to(q.dtype).transpose(1, 2)
     lse = (m + torch.log(safe_l)).squeeze(-1)
     return o, lse
+
+
+def bwd_delta(o, do):
+    """``delta = rowsum(dO∘O)`` in f32, ``[b, h, s]`` contiguous (``_bwd``:240)."""
+    return (do.float() * o.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def bwd_plain(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """Plain PyTorch version of both backward kernels: dense scores
+    recomputed from lse, with the kernels' roundings.
+
+    p = exp(s − lse) in f32, rounded to dO's type before pᵀ·dO;
+    dS = p∘(dP − delta)·scale, rounded to q's (k's) type before dSᵀ·Q (dS·K);
+    every product summed in f32. Returns ``(dq, dk, dv)``, ``[b, s, h, d]``
+    in q's, k's and v's dtypes."""
+    p = torch.exp(_scores(q, k, scale, causal) - lse.unsqueeze(-1))  # [b, h, sq, sk]
+    dof = do.transpose(1, 2).float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.transpose(1, 2).float().transpose(-1, -2))
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.transpose(1, 2).float())
+    dq = torch.matmul(ds.to(k.dtype).float(), k.transpose(1, 2).float())
+    return (dq.to(q.dtype).transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+            dv.to(v.dtype).transpose(1, 2))
 
 
 def _strides(x):
     return [ctypes.c_longlong(s) for s in x.stride()]
 
 
-def _kernel():
-    fn = _build.load(KERNEL_NAME).paddle_flash_attention_fwd
+def _bind(lib_name: str, symbol: str, n_ptr: int, n_strided: int):
+    """The C entry ``symbol`` of ``csrc/<lib_name>.cu`` with its argtypes set:
+    ``n_ptr`` pointers, dtype, B, H, S, D, four strides for each of
+    ``n_strided`` tensors, scale, causal, stream."""
+    fn = getattr(_build.load(lib_name), symbol)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 16
+            [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * (4 * n_strided)
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
     return fn
 
 
-def _fwd_cuda(q, k, v, scale: float, causal: bool):
+def _check_inputs(name, tensors):
+    """One dtype the kernels take, one device, one [b, s, h, d] shape."""
+    q = tensors[0]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(
-            f"flash_attention_fwd: dtype {q.dtype} is not supported on CUDA "
-            "(float32, bfloat16, float16)"
+            f"{name}: dtype {q.dtype} is not supported on CUDA (float32, bfloat16, float16)"
         )
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("flash_attention_fwd: q, k and v must share one dtype")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k and v must be on one device")
+    if any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{name}: q, k, v (and dO) must share one dtype")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on one device")
     b, s, h, d = q.shape
     if not supports(s, d):
-        raise ValueError(f"flash_attention_fwd: unsupported shape {tuple(q.shape)}")
-    fn = _kernel()
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+
+
+def _check_launch(name, err, q):
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: kernel launch failed with cudaError_t {err} "
+            f"at shape {tuple(q.shape)} {q.dtype}"
+        )
+
+
+def _check_shapes(name, tensors):
+    q = tensors[0]
+    if q.dim() != 4 or any(t.shape != q.shape for t in tensors):
+        raise ValueError(
+            f"{name}: q, k, v (and dO) must share one [b, s, h, d] shape, got "
+            + ", ".join(str(tuple(t.shape)) for t in tensors)
+        )
+
+
+def _row_stats(name, lse, delta, q):
+    b, s, h, _ = q.shape
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, s)
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(
+                f"{name}: {what} must be a contiguous float32 [b, h, s] = "
+                f"{(b, h, s)} tensor on {q.device}"
+            )
+
+
+def _fwd_cuda(q, k, v, scale: float, causal: bool):
+    _check_inputs("flash_attention_fwd", (q, k, v))
+    b, s, h, d = q.shape
+    fn = _bind(KERNEL_NAME, "paddle_flash_attention_fwd", 5, 4)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -98,11 +174,7 @@ def _fwd_cuda(q, k, v, scale: float, causal: bool):
             *_strides(q), *_strides(k), *_strides(v), *_strides(o),
             ctypes.c_float(scale), int(bool(causal)), stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention_fwd: kernel launch failed with cudaError_t {err} "
-            f"at shape {tuple(q.shape)} {q.dtype}"
-        )
+    _check_launch("flash_attention_fwd", err, q)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -111,11 +183,7 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool):
     """O and lse of attention over ``[b, s, h, d]`` q, k, v of one shape.
 
     CUDA tensors launch the kernel; CPU tensors run ``fwd_plain``."""
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(
-            "flash_attention_fwd: q, k, v must share one [b, s, h, d] shape, got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
-        )
+    _check_shapes("flash_attention_fwd", (q, k, v))
     if q.device.type == "cuda":
         return _fwd_cuda(q, k, v, scale, causal)
     if q.device.type == "cpu":
@@ -126,23 +194,99 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool):
 flash_attention_fwd.launches = 0
 
 
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
+    name = "flash_attention_bwd_dkv"
+    _check_inputs(name, (q, k, v, do))
+    _row_stats(name, lse, delta, q)
+    b, s, h, d = q.shape
+    fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dkv", 8, 6)
+    dk = torch.empty((b, s, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, s, h, d), dtype=v.dtype, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dk),
+            *_strides(dv), ctypes.c_float(scale), int(bool(causal)), stream,
+        )
+    _check_launch(name, err, q)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """dK and dV of attention over ``[b, s, h, d]`` q, k, v, dO of one shape,
+    from the forward's lse and ``bwd_delta``, both ``[b, h, s]`` f32.
+
+    CUDA tensors launch the kernel; CPU tensors run ``bwd_plain``."""
+    _check_shapes("flash_attention_bwd_dkv", (q, k, v, do))
+    if q.device.type == "cuda":
+        return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal)
+    if q.device.type == "cpu":
+        return bwd_plain(q, k, v, do, lse, delta, scale, causal)[1:]
+    raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
+    name = "flash_attention_bwd_dq"
+    _check_inputs(name, (q, k, v, do))
+    _row_stats(name, lse, delta, q)
+    b, s, h, d = q.shape
+    fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dq", 7, 5)
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(do), *_strides(dq),
+            ctypes.c_float(scale), int(bool(causal)), stream,
+        )
+    _check_launch(name, err, q)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """dQ of attention, with the inputs of ``flash_attention_bwd_dkv``.
+
+    CUDA tensors launch the kernel; CPU tensors run ``bwd_plain``."""
+    _check_shapes("flash_attention_bwd_dq", (q, k, v, do))
+    if q.device.type == "cuda":
+        return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+    if q.device.type == "cpu":
+        return bwd_plain(q, k, v, do, lse, delta, scale, causal)[0]
+    raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")
+
+
+flash_attention_bwd_dq.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
-    """The autograd shell around the forward; the backward kernels are the
-    training slice's work."""
+    """The ``_flash`` custom_vjp: the forward kernel, then delta and the two
+    backward kernels. On CPU tensors the plain versions run instead."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        o, _ = flash_attention_fwd(q, k, v, scale, causal)
+        o, lse = flash_attention_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "flash attention backward (_bwd_dkv_kernel, _bwd_dq_kernel) is not "
-            "ported yet: it comes with the training step; run the forward under "
-            "torch.no_grad() or set FLAGS_use_flash_attention=False to train "
-            "through the dense path"
-        )
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = bwd_delta(o, do)
+        if q.device.type == "cpu":  # one dense pass for all three gradients
+            dq, dk, dv = bwd_plain(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        else:
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, scale=None, causal=True):

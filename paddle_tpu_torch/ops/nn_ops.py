@@ -1,5 +1,5 @@
 """Neural-network ops on torch tensors: the subset of ``paddle_tpu/ops/nn_ops.py``
-that the GPT inference path runs.
+that the GPT inference and training paths run.
 
 Each function keeps the JAX function's layout (weights ``[in, out]``,
 attention over ``[batch, seq, heads, head_dim]``) and its operation order,
@@ -117,6 +117,32 @@ def cached_attention(q, k_cache, v_cache, k_new, v_new, cur_len, *, scale):
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.float())
     return out.to(q.dtype), k_cache, v_cache
+
+
+def softmax_with_cross_entropy(
+    logits, label, *, soft_label=False, ignore_index=-100, axis=-1, reduction="none",
+):
+    """Log-softmax cross-entropy, with the mean or sum folded in when asked.
+
+    Hard labels are clipped below at 0 before the gather, and positions whose
+    label is ``ignore_index`` give 0. With ``reduction="none"`` the loss keeps
+    the class axis with size 1, as the JAX op does."""
+    logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        loss = -torch.sum(label * logp, dim=axis, keepdim=True)
+    else:
+        lab = label
+        if lab.dim() == logits.dim():
+            lab = lab.squeeze(axis)
+        picked = torch.gather(logp, axis, lab.clamp(min=0).long().unsqueeze(axis))
+        loss = -picked
+        valid = (lab != ignore_index).unsqueeze(axis)
+        loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def flash_scaled_dot_product_attention(q, k, v, *, scale=None, is_causal=False):

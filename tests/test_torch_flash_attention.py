@@ -4,11 +4,13 @@ Inputs are made with numpy from a seed and fed to both packages. On the CPU
 the JAX kernel runs in interpret mode and the port runs its plain version
 (the CUDA kernel has no CPU mode; tests/test_torch_cuda_kernels.py holds it
 against the same plain version on the card). Tolerances are
-tests/test_flash_attention.py's: 2e-5 in f32, 3e-2 in bf16.
+tests/test_flash_attention.py's: 2e-5 in f32 and 3e-2 in bf16 on the forward,
+2e-3 in f32 and 3e-2 in bf16 on the gradients.
 """
 import importlib
 import itertools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+GRAD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}  # tests/test_flash_attention.py:48
 CASES = [
     ((2, 128, 4, 64), True, "float32"),
     ((1, 128, 2, 32), False, "float32"),
@@ -106,11 +109,24 @@ def test_cpu_wrapper_runs_plain_and_counts_nothing():
         tfa.flash_attention_fwd(q, k[:, :32], v, 0.25, True)
 
 
-def test_backward_is_not_ported_yet():
-    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _inputs((1, 16, 1, 8), seed=3))
-    out = tfa.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="training step"):
-        out.sum().backward()
+@pytest.mark.parametrize("shape,causal,dtype", CASES)
+def test_backward_matches_pallas_kernel(shape, causal, dtype):
+    """The gradients of the port's FlashAttention (plain backward on the CPU)
+    against jax.vjp through the Pallas ``_flash`` (interpret mode), for one
+    random cotangent."""
+    q, k, v = _inputs(shape, seed=3)
+    g = np.random.default_rng(4).standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a, causal=causal),
+                     *(_jax(x, dtype) for x in (q, k, v)))
+    ref = vjp(_jax(g, dtype))
+    tq, tk, tv = (_torch(x, dtype).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal)
+    grads = torch.autograd.grad(out, (tq, tk, tv), _torch(g, dtype))
+    for got, want in zip(grads, ref):
+        assert got.dtype == tq.dtype and tuple(got.shape) == shape
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want, np.float32), atol=GRAD_TOL[dtype], rtol=0
+        )
 
 
 def test_selector_takes_dense_path_for_mask_dropout_and_flag():

@@ -25,6 +25,7 @@ def _run(code, **env):
 
 
 def test_import_and_cpu_forward_load_neither_jax_nor_paddle_tpu():
+    # the inference forward and one O2 AdamW training step, in a fresh process
     out = _run(
         "import sys, torch\n"
         "import paddle_tpu_torch as pt\n"
@@ -34,6 +35,13 @@ def test_import_and_cpu_forward_load_neither_jax_nor_paddle_tpu():
         "with torch.no_grad():\n"
         "    y = m(torch.zeros(1, 8, dtype=torch.int64))\n"
         "assert y.shape == (1, 8, 32)\n"
+        "from paddle_tpu_torch.models import GPTPretrainingCriterion\n"
+        "m = pt.amp.decorate(m, level='O2', dtype='bfloat16')\n"
+        "opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=m.parameters())\n"
+        "crit = GPTPretrainingCriterion()\n"
+        "step = pt.jit.compile_train_step(m, lambda lo, lb: crit(lo.float(), lb), opt)\n"
+        "ids = torch.zeros(1, 9, dtype=torch.int64)\n"
+        "assert torch.isfinite(step(ids[:, :-1], ids[:, 1:]))\n"
         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
     )
     assert out.strip() == "[]"
@@ -80,7 +88,12 @@ def test_kernel_module_imports_and_runs_on_cpu_without_nvcc(tmp_path):
         "q = torch.randn(1, 16, 2, 8)\n"
         "o, lse = fa.flash_attention_fwd(q, q, q, 0.5, True)\n"
         "assert o.shape == q.shape and lse.shape == (1, 2, 16)\n"
+        "delta = fa.bwd_delta(o, q)\n"
+        "dk, dv = fa.flash_attention_bwd_dkv(q, q, q, q, lse, delta, 0.5, True)\n"
+        "dq = fa.flash_attention_bwd_dq(q, q, q, q, lse, delta, 0.5, True)\n"
+        "assert dq.shape == dk.shape == dv.shape == q.shape\n"
         "assert not _build._loaded and fa.flash_attention_fwd.launches == 0\n"
+        "assert fa.flash_attention_bwd_dkv.launches == fa.flash_attention_bwd_dq.launches == 0\n"
         "if not os.path.isfile('/usr/local/cuda/bin/nvcc'):\n"
         "    try:\n"
         "        _build.nvcc()\n"
