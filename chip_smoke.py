@@ -26,7 +26,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      ``loss.backward(); opt.step(); opt.clear_grad()``;
   8. a ``torch.profiler`` trace of one replayed step: the top device
      operations, the flash kernels' share of the step, the device idle share;
-  9. one JSON line of per-kernel numbers, then the result line.
+  9. hold the three fused-update kernels (Adam, Momentum, SGD) against their
+     plain versions bit for bit, at sizes from 1 element to GPT-2 345M's tied
+     word embedding, with the sentinel gate off, clear and set, with and
+     without weight decay, and time kernel, plain version and PyTorch's
+     fused optimizer call at the embedding's size;
+ 10. train GPT-2 345M in f32 (random weights from a seed) at 8 x 1024 tokens
+     with eager ``loss.backward(); opt.step()``: Adam with L2Decay(0.01),
+     ClipGradByGlobalNorm(1.0), LinearWarmup into CosineAnnealingDecay,
+     ``FLAGS_numeric_rescue="skip"`` and a NaN-poisoned gradient at one step,
+     with ``FLAGS_pallas_fused_update`` on, against a deep copy stepped with
+     the flag off: bitwise-equal losses, parameters and moments, one Adam
+     kernel launch per parameter per step, and ``opt.step()`` timed both ways;
+ 11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
+     full width and 4 layers, 3 steps each;
+ 12. one JSON line of per-kernel numbers, then the result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result. It imports nothing of JAX or of ``paddle_tpu``.
@@ -34,6 +48,7 @@ and prints no result. It imports nothing of JAX or of ``paddle_tpu``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -382,6 +397,311 @@ def profile_replay(torch, step, x, y, n_layers):
               f"the replayed step ran the {label} kernel {count} times, not {n_layers}")
 
 
+# The 345M embedding, the largest parameter, and the sizes the update kernels
+# are held to their plain versions at: one element, ragged, one TPU tile, a
+# float4 tail, 2^20 + 3.
+EMBED_NUMEL = 50304 * 1024
+UPDATE_SIZES = [1, 1000, 1024, 4097, 2 ** 20 + 3, EMBED_NUMEL]
+# Per element: f32 buffers read and written (p, g and the state read, p and
+# the state written) and floating-point operations with weight decay on.
+UPDATE_BYTES = {"adam": 28, "momentum": 20, "sgd": 12}
+UPDATE_FLOPS = {"adam": 14, "momentum": 8, "sgd": 4}
+
+
+def update_bound_ms(kind, n):
+    """Least time for one fused update of n f32 elements: max(bytes / HBM
+    rate, operations / the f32 peak). Bytes: each buffer read once and each
+    output written once, plus lr and the sentinel."""
+    t_bytes = (UPDATE_BYTES[kind] * n + 5) / PEAK_BYTES_PER_S * 1e3
+    t_ops = UPDATE_FLOPS[kind] * n / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def check_update_kernels(torch, fu, gen, dev):
+    """Phase 9: the three fused-update kernels against their plain versions,
+    bitwise, and their times at the embedding's size."""
+    print("[9] fused_update kernels vs plain, bitwise")
+    lr = torch.full((), 3e-4, device=dev)
+    gates = {"off": None, "clear": torch.tensor(False, device=dev),
+             "set": torch.tensor(True, device=dev)}
+    cases = [("sgd", None), ("momentum", False), ("momentum", True), ("adam", None)]
+
+    def run(kind, nesterov, bufs, wd, bad, plain):
+        p, g, m, v = bufs
+        if plain:
+            if kind == "sgd":
+                return (fu.sgd_plain(p, g, lr, wd=wd, bad=bad),)
+            if kind == "momentum":
+                return fu.momentum_plain(p, g, m, lr, mu=0.9, nesterov=nesterov, wd=wd, bad=bad)
+            return fu.adam_plain(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=wd, bad=bad)
+        if kind == "sgd":
+            fu.fused_sgd(p, g, lr, wd=wd, bad=bad)
+            return (p,)
+        if kind == "momentum":
+            fu.fused_momentum(p, g, m, lr, mu=0.9, nesterov=nesterov, wd=wd, bad=bad)
+            return p, m
+        fu.fused_adam(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=wd, bad=bad)
+        return p, m, v
+
+    checked = 0
+    max_err = {"sgd": 0.0, "momentum": 0.0, "adam": 0.0}
+    for n in UPDATE_SIZES:
+        bufs = [torch.randn(n, generator=gen, device=dev) for _ in range(3)]
+        bufs.append(torch.rand(n, generator=gen, device=dev))
+        for kind, nesterov in cases:
+            for wd in (0.0, 0.01):
+                for gate, bad in gates.items():
+                    got = run(kind, nesterov, [b.clone() for b in bufs], wd, bad, plain=False)
+                    want = run(kind, nesterov, bufs, wd, bad, plain=True)
+                    torch.cuda.synchronize()
+                    ok = all(torch.equal(a, b) for a, b in zip(got, want))
+                    max_err[kind] = max([max_err[kind]] + [(a - b).abs().max().item()
+                                                           for a, b in zip(got, want)])
+                    if gate == "set":  # p, then the state: m (velocity) and v
+                        ok = ok and all(torch.equal(a, bufs[i])
+                                        for a, i in zip(got, (0, 2, 3)))
+                    check(ok, f"fused_update {kind} nesterov={nesterov} n={n} wd={wd} "
+                              f"gate={gate}: kernel and plain version differ")
+                    checked += 1
+        print(f"  n={n}: {len(cases) * 2 * len(gates)} cases bitwise equal "
+              f"(sgd, momentum, momentum nesterov, adam x wd 0, 0.01 x gate off, clear, set)")
+        del bufs
+    print(f"  {checked} cases, every one bitwise equal on p and every state tensor; "
+          f"a set gate leaves every buffer as it was")
+
+    # times at the embedding's size, the sentinel clear (the main path's gate)
+    n = EMBED_NUMEL
+    p, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.rand(n, generator=gen, device=dev)
+    bad = gates["clear"]
+    step = torch.ones((), device=dev)
+    kernel = {
+        "adam": lambda: fu.fused_adam(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.01,
+                                      bad=bad),
+        "momentum": lambda: fu.fused_momentum(p, g, m, lr, mu=0.9, nesterov=True, wd=1e-4,
+                                              bad=bad),
+        "sgd": lambda: fu.fused_sgd(p, g, lr, wd=0.01, bad=bad),
+    }
+    plain = {
+        "adam": lambda: fu.adam_plain(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.01,
+                                      bad=bad),
+        "momentum": lambda: fu.momentum_plain(p, g, m, lr, mu=0.9, nesterov=True, wd=1e-4,
+                                              bad=bad),
+        "sgd": lambda: fu.sgd_plain(p, g, lr, wd=0.01, bad=bad),
+    }
+    # the yardsticks, never called by the port: torch.optim's fused updates.
+    # SGD's is the same formula for SGD and Momentum; Adam's puts eps after
+    # dividing sqrt(v) by sqrt(1 - b2^t), so it is not the same function.
+    library = {
+        "adam": lambda: torch._fused_adam_(
+            [p], [g], [m], [v], [], [step], lr=3e-4, beta1=0.9, beta2=0.999,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+        "momentum": lambda: torch._fused_sgd_(
+            [p], [g], [m], weight_decay=1e-4, momentum=0.9, lr=3e-4, dampening=0.0,
+            nesterov=True, maximize=False, is_first_step=False),
+        "sgd": lambda: torch._fused_sgd_(
+            [p], [g], [], weight_decay=0.01, momentum=0.0, lr=3e-4, dampening=0.0,
+            nesterov=False, maximize=False, is_first_step=False),
+    }
+    out = {}
+    for kind in ("adam", "momentum", "sgd"):
+        before = fu.KERNELS[kind].launches
+        ms = time_ms(kernel[kind])
+        plain_ms = time_ms(plain[kind])
+        library_ms = time_ms(library[kind])
+        check(fu.KERNELS[kind].launches == before + 23, f"{kind}: timed launches not counted")
+        bound_ms, bound_by = update_bound_ms(kind, n)
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, max_abs_err=max_err[kind])
+        print(f"  {kind} n={n}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+              f"{UPDATE_BYTES[kind]} B/elem); kernel at {bound_ms / ms:.1%} of bound, "
+              f"{UPDATE_BYTES[kind] * n / ms / 1e6:.0f} GB/s")
+    del p, g, m, v
+    return out
+
+
+def bitwise_same(torch, model_a, model_b, opt_a, opt_b):
+    """Whether two models' parameters and their optimizers' states are equal
+    to the bit."""
+    for a, b in zip(model_a.parameters(), model_b.parameters()):
+        if not torch.equal(a, b):
+            return False
+        sa, sb = opt_a._accumulators[id(a)], opt_b._accumulators[id(b)]
+        if sorted(sa) != sorted(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            return False
+    return True
+
+
+def train_f32_adam(torch, pt, fu, gen, dev):
+    """Phase 10: eager f32 GPT-2 345M with Adam through the fused kernel,
+    against a flag-off copy. Returns {"adam": launches over the path}."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    batch, steps, nan_at = 8, 6, 2
+    print(f"[10] GPT-2 345M f32 eager training, {batch} x 1024 tokens, Adam + L2Decay(0.01) + "
+          f"ClipGradByGlobalNorm(1.0) + LinearWarmup(CosineAnnealingDecay), "
+          f"numeric_rescue=skip, NaN gradient at step {nan_at}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    pt.seed(SEED)
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    model = GPTForPretraining(cfg, device=dev)
+    copy_off = copy.deepcopy(model)  # before any step
+    n_params = len(list(model.parameters()))
+    numel = sum(p.numel() for p in model.parameters())
+    largest = max(p.numel() for p in model.parameters())
+    print(f"  {n_params} parameters, {numel} f32 elements, largest {largest}")
+    criterion = GPTPretrainingCriterion(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
+                        device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    pt.set_flags({"FLAGS_numeric_rescue": "skip"})
+
+    def run(m, flag):
+        sched = pt.optimizer.lr.LinearWarmup(
+            pt.optimizer.lr.CosineAnnealingDecay(1e-4, T_max=10), warmup_steps=2,
+            start_lr=1e-5, end_lr=1e-4)
+        opt = pt.optimizer.Adam(learning_rate=sched, parameters=m.parameters(),
+                                weight_decay=pt.regularizer.L2Decay(0.01),
+                                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+        pt.set_flags({"FLAGS_pallas_fused_update": flag})
+        pt.resilience.rescue.reset_counters()
+        losses, step_ms, per_step = [], [], []
+        for i in range(steps):
+            loss = criterion(m(x), y)
+            loss.backward()
+            snap = None
+            if i == nan_at:
+                first = next(m.parameters())
+                first.grad.fill_(float("nan"))
+                snap = ([p.detach().clone() for p in m.parameters()],
+                        [{k: t.clone() for k, t in opt._accumulators[id(p)].items()}
+                         for p in m.parameters()])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = fu.fused_adam.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            opt.step()
+            end.record()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            per_step.append(fu.fused_adam.launches - before)
+            if i not in (0, nan_at):  # the first creates the state; the NaN step is rescued
+                step_ms.append((start.elapsed_time(end), host))
+            opt.clear_grad()
+            sched.step()
+            losses.append(loss.item())
+            if snap is not None:
+                same = all(torch.equal(a, b) for a, b in zip(m.parameters(), snap[0])) and all(
+                    torch.equal(opt._accumulators[id(p)][k], st[k])
+                    for p, st in zip(m.parameters(), snap[1]) for k in st)
+                check(same, f"flag {flag}: the NaN step changed params or optimizer state")
+                del snap
+        check(pt.resilience.rescue.counters["numeric_rescues"] == 1,
+              f"flag {flag}: numeric_rescues is "
+              f"{pt.resilience.rescue.counters['numeric_rescues']}, not 1")
+        return opt, losses, step_ms, per_step
+
+    for kernel in fu.KERNELS.values():
+        kernel.launches = 0  # the f32 Adam path's count starts here
+    t0 = time.perf_counter()
+    opt_on, losses_on, ms_on, per_step_on = run(model, True)
+    on_s = time.perf_counter() - t0
+    opt_off, losses_off, ms_off, per_step_off = run(copy_off, False)
+    launches = fu.fused_adam.launches  # ... and ends here
+    pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_numeric_rescue": ""})
+    mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  flag on: {steps} steps in {on_s:.1f} s; Adam kernel launches per step "
+          f"{per_step_on}; flag off: {per_step_off}; peak memory allocated {mem_gb:.1f} GB "
+          f"(both models)")
+    check(all(n == n_params for n in per_step_on), "not one Adam launch per parameter per step")
+    check(all(n == 0 for n in per_step_off), "the flag-off run launched the kernel")
+    check(launches == n_params * steps, "Adam launches over the path")
+    check(fu.fused_momentum.launches == fu.fused_sgd.launches == 0,
+          "Adam's path launched another update kernel")
+    print("  losses (flag on):  " + " ".join(f"{v:.6f}" for v in losses_on))
+    print("  losses (flag off): " + " ".join(f"{v:.6f}" for v in losses_off))
+    check(all(math.isfinite(v) for v in losses_on), "non-finite f32 training loss")
+    check(losses_on[-1] < losses_on[0], "the f32 loss does not fall on a fixed batch")
+    same = bitwise_same(torch, model, copy_off, opt_on, opt_off)
+    print(f"  flag on vs flag off: losses bitwise equal {losses_on == losses_off}; every "
+          f"parameter, moment and beta-pow bitwise equal {same}; NaN step rescued in both, "
+          f"leaving params, moments and beta-pows unchanged")
+    check(losses_on == losses_off and same, "the fused kernel and the rule disagree")
+    med = {name: (statistics.median(d for d, _ in t), statistics.median(h for _, h in t))
+           for name, t in (("on", ms_on), ("off", ms_off))}
+    print(f"  opt.step() (clip, sentinel, update, host read of the sentinel), median of "
+          f"{len(ms_on)} steps: flag on {med['on'][0]:.2f} ms (CUDA events), "
+          f"{med['on'][1]:.2f} ms (host clock); flag off {med['off'][0]:.2f} ms, "
+          f"{med['off'][1]:.2f} ms")
+    del model, copy_off, opt_on, opt_off
+    torch.cuda.empty_cache()
+    return {"adam": launches}
+
+
+def train_momentum_sgd(torch, pt, fu, gen, dev):
+    """Phase 11: Momentum (Nesterov) and SGD at full width and 4 layers, flag
+    on against flag off. Returns their kernels' launches over the path."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    batch, steps = 8, 3
+    cfg = dataclasses.replace(gpt2_345m(dropout=0.0, attn_dropout=0.0), num_layers=4)
+    print(f"[11] Momentum (Nesterov, L2Decay(1e-4)) and SGD, f32, full width, "
+          f"{cfg.num_layers} layers, {batch} x 1024 tokens, {steps} steps each")
+    criterion = GPTPretrainingCriterion(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
+                        device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    makers = {
+        "momentum": lambda ps: pt.optimizer.Momentum(
+            learning_rate=1e-3, momentum=0.9, parameters=ps, use_nesterov=True,
+            weight_decay=pt.regularizer.L2Decay(1e-4)),
+        "sgd": lambda ps: pt.optimizer.SGD(learning_rate=1e-2, parameters=ps),
+    }
+    pt.set_flags({"FLAGS_numeric_rescue": "skip"})
+    launches = {}
+    for kind, make in makers.items():
+        pt.seed(SEED)
+        model = GPTForPretraining(cfg, device=dev)
+        copy_off = copy.deepcopy(model)
+        n_params = len(list(model.parameters()))
+        for kernel in fu.KERNELS.values():
+            kernel.launches = 0  # this optimizer's path starts here
+        results = []
+        for m, flag in ((model, True), (copy_off, False)):
+            pt.set_flags({"FLAGS_pallas_fused_update": flag})
+            opt = make(m.parameters())
+            losses = []
+            for _ in range(steps):
+                loss = criterion(m(x), y)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses.append(loss.item())
+            results.append((opt, losses, fu.KERNELS[kind].launches))
+        launches[kind] = fu.KERNELS[kind].launches  # ... and ends here
+        pt.set_flags({"FLAGS_pallas_fused_update": False})
+        (opt_on, l_on, n_on), (opt_off, l_off, n_off) = results
+        same = bitwise_same(torch, model, copy_off, opt_on, opt_off)
+        others = sum(k.launches for name, k in fu.KERNELS.items() if name != kind)
+        print(f"  {kind}: launches {n_on} in the flag-on run ({n_params} parameters x "
+              f"{steps} steps), {n_off - n_on} with the flag off; losses "
+              + " ".join(f"{v:.6f}" for v in l_on)
+              + f"; flag on vs off: losses bitwise equal {l_on == l_off}, params and state "
+              f"bitwise equal {same}")
+        check(n_on == n_params * steps and n_off == n_on and others == 0,
+              f"{kind}: expected {n_params * steps} launches, got {n_on} ({n_off - n_on} "
+              f"flag-off, {others} other kernels)")
+        check(all(math.isfinite(v) for v in l_on), f"{kind}: non-finite loss")
+        check(l_on == l_off and same, f"{kind}: the fused kernel and the rule disagree")
+        del model, copy_off, opt_on, opt_off, results
+    pt.set_flags({"FLAGS_numeric_rescue": ""})
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -394,6 +714,7 @@ def main() -> int:
     from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt2_345m
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_update as fu
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -412,7 +733,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = _build.build([fa.KERNEL_NAME, fa.BWD_KERNEL_NAME])
+    logs = _build.build([fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, fu.KERNEL_NAME])
     print(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():  # ptxas -v: each instantiation, its registers and spills
@@ -541,8 +862,12 @@ def main() -> int:
 
     bwd = check_backward_kernels(torch, fa, gen, dev)
     train = train_345m(torch, pt, fa, gen, dev)
+    torch.cuda.empty_cache()
+    update = check_update_kernels(torch, fu, gen, dev)
+    launches_f32 = train_f32_adam(torch, pt, fu, gen, dev)
+    launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
 
-    # 9. per-kernel numbers, then the result
+    # 12. per-kernel numbers, then the result
     f32 = timings["float32"]
     print(f"bf16 at {main_shape}: " + json.dumps(timings["bfloat16"]))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd["float32"]))
@@ -567,6 +892,21 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": train["launches"][kernel],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):
+        t = update[kind]
+        rows.append({
+            "name": f"fused_update_{kind}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_update.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
+            "launches": launches_f32[kind],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

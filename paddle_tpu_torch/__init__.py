@@ -7,12 +7,12 @@ package imports torch and never jax or ``paddle_tpu``.
 """
 from __future__ import annotations
 
-from . import amp, jit, models, nn, optimizer  # noqa: F401
+from . import amp, jit, models, nn, optimizer, regularizer, resilience  # noqa: F401
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, get_device, set_device  # noqa: F401
 from .core.random import seed  # noqa: F401
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "amp", "get_device", "get_flags", "jit", "models", "nn",
-    "optimizer", "seed", "set_device", "set_flags",
+    "optimizer", "regularizer", "resilience", "seed", "set_device", "set_flags",
 ]

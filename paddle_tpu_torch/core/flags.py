@@ -80,3 +80,34 @@ define_flag(
     "route scaled_dot_product_attention through the flash kernel when "
     "shapes/mask allow",
 )
+define_flag(
+    "pallas_fused_update", False,
+    "route the fused optimizer update (optimizer.make_fused_update, the one "
+    "applier behind the eager step()) through the hand-written fused-update "
+    "kernels for Adam / SGD / Momentum: each parameter's whole elementwise "
+    "update chain, gated by the step's non-finite sentinel, runs as one "
+    "kernel pass (one read and one write per buffer) on the card. On CPU "
+    "tensors the kernels' plain PyTorch versions run; unsupported rules and "
+    "dtypes keep the rule's torch ops unchanged",
+)
+define_flag(
+    "pallas_update_interpret", False,
+    "accepted for parity with the JAX package, where it runs the Pallas "
+    "fused-update kernel in interpreter mode on the CPU. The port reads it "
+    "nowhere: on a CPU tensor the fused update always runs the kernels' "
+    "plain versions, on a CUDA tensor it always launches the kernels",
+)
+define_flag(
+    "numeric_rescue", "",
+    "step-level numeric rescue policy: '' (off), 'skip' (drop steps with "
+    "non-finite gradients; params/optimizer state untouched), 'lr_backoff' "
+    "(skip + multiply lr by FLAGS_numeric_rescue_lr_factor), or 'abort' "
+    "(raise FloatingPointError). Detection is one device scalar computed in "
+    "the fused update, which gates the update on the device; the host reads "
+    "it once per step",
+)
+define_flag(
+    "numeric_rescue_lr_factor", 0.5,
+    "lr multiplier applied by the 'lr_backoff' numeric-rescue policy on "
+    "each rescued step",
+)

@@ -7,9 +7,11 @@ one training step and returns the loss. The last batch argument is the loss
 function's label; the others go to the model. It keeps the JAX contract of
 ``__call__``: the learning rate is read from ``optimizer.get_lr()`` on every
 call, gradients are cast to their parameter's dtype, ``opt._step_count`` and
-``opt._accumulators`` stay the source of truth, and the optimizer's own rule
-does the update (``optimizer.apply_update``, shared with the eager
-``step()``).
+``opt._accumulators`` stay the source of truth, the optimizer's
+``grad_clip`` clips the gradients first (as the JAX ``_make_step_fn``:473
+does), and the optimizer's own rule does the update
+(``optimizer.apply_update``: the rule alone, as the JAX step calls it; the
+fused-update kernels belong to the eager ``step()``).
 
 On a card the step is ONE CUDA graph per batch signature. The first
 ``WARMUP_STEPS`` calls of a signature run eagerly, on a side stream: they are real
@@ -75,6 +77,9 @@ class CompiledTrainStep:
             out = model(*batch[:-1]) if len(batch) > 1 else model(batch[0])
             loss = self.loss_fn(out, batch[-1]) if self.loss_fn is not None else out
             grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        clip = self.optimizer._grad_clip
+        if clip is not None:
+            grads = [g for _, g in clip(list(zip(self._params, grads)))]
         apply_update(self.optimizer, self._params, grads, lr, states)
         return loss.detach()
 

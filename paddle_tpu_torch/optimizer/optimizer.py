@@ -1,20 +1,29 @@
-"""Optimizer base, Adam and AdamW: the port of ``paddle_tpu/optimizer/optimizer.py``.
+"""Optimizer base, SGD, Momentum, Adam and AdamW: the port of
+``paddle_tpu/optimizer/optimizer.py``.
 
 Every optimizer defines a per-parameter update rule
 ``_update(p, g, lr, state, **hyper) -> (new_p, new_state)`` over tensors,
-with the JAX rule's formulas in the same operand order. ``apply_update``
-applies it to a list of parameters and writes the results IN PLACE into the
-parameters and into the state tensors. The eager ``step()`` and the compiled
-training step (``paddle_tpu_torch.jit``) both go through ``apply_update``, so
-they share the optimizer's arithmetic, and a CUDA graph captured over it
-keeps reading and writing the same storage.
+with the JAX rule's formulas in the same operand order. Two appliers write
+its results IN PLACE into the parameters and the state tensors:
 
+  - ``make_fused_update`` is the eager ``step()``'s, as in the JAX package:
+    with ``FLAGS_pallas_fused_update`` on, a parameter of a stock SGD,
+    Momentum or Adam rule goes through its hand-written fused-update kernel
+    (``ops/kernels/fused_update.py``); with ``FLAGS_numeric_rescue`` set it
+    folds the step's non-finite sentinel over every grad and gates the whole
+    update on it on the device;
+  - ``apply_update`` is the rule alone, the compiled training step's
+    (``paddle_tpu_torch.jit``), as the JAX ``_make_step_fn`` calls the rule
+    directly. A CUDA graph captured over it keeps reading and writing the
+    same storage.
+
+``step()`` applies the optimizer's ``grad_clip`` first and reads the lr
+through ``get_lr()``, which calls an ``LRScheduler`` when one was given.
 State is one dict of tensors per parameter, on the parameter's device, in
 ``_accumulators`` keyed by ``id(param)``. ``lr`` reaches the rule as a 0-d
 float32 tensor on that device. Not ported yet (ROADMAP, open items, queue 1
-item 6): SGD, Momentum and the other optimizers, ``optimizer/lr.py``
-schedulers, grad clip, and the lazy, offload and resilience hooks of
-``step()``.
+items 6, 9, 11 and 12): the other optimizers, the lazy whole-step capture
+and offload hooks of ``step()``, and the fused telemetry output.
 """
 from __future__ import annotations
 
@@ -22,11 +31,28 @@ from typing import Dict, List
 
 import torch
 
+from ..ops.kernels import fused_update as _fu
+from ..resilience import rescue as _rescue
+from .lr import LRScheduler
+
 
 def param_name(p):
     """The parameter's Paddle name (``param_<n>``), or None for a tensor the
     port's layers did not make."""
     return getattr(p, "param_name", None)
+
+
+def _rule_update(opt, p, g, lr, st, hyper, bad=None):
+    """``opt``'s rule over one parameter, written in place into p and its
+    state; with a sentinel ``bad``, where-gated so that a set one keeps
+    every old value."""
+    new_p, new_st = type(opt)._update(opt, p, g, lr, st, **hyper)
+    if bad is not None:
+        new_p = torch.where(bad, p, new_p)
+        new_st = {k: torch.where(bad, st[k], v) for k, v in new_st.items()}
+    p.copy_(new_p)
+    for key, value in new_st.items():
+        st[key].copy_(value)
 
 
 @torch.no_grad()
@@ -37,17 +63,54 @@ def apply_update(opt, params, grads, lr, states):
     unused parameter; a gradient of another dtype is cast to the
     parameter's. ``lr`` is a 0-d float32 tensor; ``states[i]`` is the state
     dict of ``params[i]``, overwritten in place."""
-    rule = type(opt)._update
     hyper = opt._hyper()
     for p, g, st in zip(params, grads, states):
         if g is None:
             g = torch.zeros_like(p)
         if g.dtype != p.dtype:
             g = g.to(p.dtype)
-        new_p, new_st = rule(opt, p, g, lr, st, **dict(hyper, **opt._per_param_hyper(p)))
-        p.copy_(new_p)
-        for key, value in new_st.items():
-            st[key].copy_(value)
+        _rule_update(opt, p, g, lr, st, dict(hyper, **opt._per_param_hyper(p)))
+
+
+def make_fused_update(opt, params, sentinel=False, telemetry=False):
+    """The eager step's in-place multi-tensor update applier,
+    ``(params, grads, lr, states) -> bad``, over ``opt``'s rule for ``params``
+    (``paddle_tpu/optimizer/optimizer.py:30``).
+
+    Per parameter the grad is cast to the parameter's dtype, then either
+    the fused kernel runs (``FLAGS_pallas_fused_update`` on, a stock SGD,
+    Momentum or Adam rule, and ``supported()``), or the rule's torch ops.
+    With ``sentinel=True`` the applier first folds ``any(~isfinite(g))``
+    over every grad into one 0-d device bool and returns it: the kernel
+    gates its own writes on it, and the rule's results are where-gated, so
+    a non-finite step leaves every parameter and state tensor as it was.
+    Without the sentinel it returns None. ``telemetry`` is not ported."""
+    if telemetry:
+        raise NotImplementedError(
+            "make_fused_update(telemetry=True) is not ported yet (ROADMAP, open "
+            "items, queue 1 item 12: the profiler's fused numerics telemetry)"
+        )
+    hypers = [dict(opt._hyper(), **opt._per_param_hyper(p)) for p in params]
+    kind = _fu.rule_kind(type(opt)) if _fu.enabled() else None
+
+    @torch.no_grad()
+    def apply(params, grads, lr, states):
+        bad = None
+        if sentinel:
+            bad = torch.zeros((), dtype=torch.bool, device=lr.device)
+            for g in grads:
+                bad = bad | ~torch.isfinite(g).all()
+        for p, g, st, hy in zip(params, grads, states, hypers):
+            if g.dtype != p.dtype:
+                g = g.to(p.dtype)
+            if kind is not None and _fu.supported(kind, p, g, st):
+                # gated inside the kernel: not gated again here
+                _fu.param_update(kind, p, g, lr, st, hy, wd=opt._weight_decay, bad=bad)
+            else:
+                _rule_update(opt, p, g, lr, st, hy, bad)
+        return bad
+
+    return apply
 
 
 class Optimizer:
@@ -60,17 +123,9 @@ class Optimizer:
         name=None,
         multi_precision=False,
     ):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "a learning-rate scheduler is not ported yet (ROADMAP, open "
-                "items, queue 1 item 6: optimizer/lr.py); pass a number and "
-                "call set_lr()"
-            )
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad clip is not ported yet (ROADMAP, open items, queue 1 item 4: nn/clip.py)"
-            )
-        self._lr = float(learning_rate)
+        self._lr = (learning_rate if isinstance(learning_rate, LRScheduler)
+                    else float(learning_rate))
+        self._grad_clip = grad_clip
         self._parameters = list(parameters) if parameters is not None else None
         self._weight_decay = self._parse_wd(weight_decay)
         # per-parameter optimizer state: id(param) -> dict[str, torch.Tensor]
@@ -89,9 +144,15 @@ class Optimizer:
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return float(self._lr)
 
     def set_lr(self, value):
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError(
+                "optimizer's learning rate is an LRScheduler; call scheduler.step()"
+            )
         self._lr = float(value)
 
     # -- state rules (override per optimizer) --------------------------------
@@ -119,35 +180,62 @@ class Optimizer:
     # -- main API ------------------------------------------------------------
     @torch.no_grad()
     def step(self):
-        """Update every parameter that has a gradient, in place."""
-        params = [p for p in self._param_list() if p.requires_grad and p.grad is not None]
+        """Update every parameter that has a gradient, in place: the grad
+        clip, then the fused update (``make_fused_update``), then the
+        numeric-rescue policy when ``FLAGS_numeric_rescue`` is set."""
+        params_grads = [(p, p.grad) for p in self._param_list()
+                        if p.requires_grad and p.grad is not None]
+        if self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
         self._step_count += 1
-        if params:
-            lr = torch.tensor(self.get_lr(), dtype=torch.float32, device=params[0].device)
-            apply_update(self, params, [p.grad for p in params], lr,
-                         [self._state_of(p) for p in params])
+        if params_grads:
+            self._apply_fused(params_grads)
+
+    def _apply_fused(self, params_grads):
+        params = [p for p, _ in params_grads]
+        grads = [g for _, g in params_grads]
+        sentinel = _rescue.active()
+        states = [self._state_of(p) for p in params]
+        # a fill on the device, not a copy from the host: nothing here
+        # waits for the card
+        lr = torch.full((), self.get_lr(), dtype=torch.float32, device=params[0].device)
+        bad = make_fused_update(self, params, sentinel=sentinel)(params, grads, lr, states)
+        if bad is not None:
+            # the one host read of the step: applies skip / lr_backoff / abort
+            _rescue.handle_sentinel(self, bad)
 
     def _param_list(self) -> List[torch.Tensor]:
         if self._parameters is None:
             raise ValueError("optimizer was created without a parameter list")
         return self._parameters
 
+    def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        """reference: optimizer.py:1120, backward and apply."""
+        loss.backward()
+        self.step()
+        return None, None
+
     @torch.no_grad()
     def clear_grad(self, set_to_zero=False):
         for p in self._param_list():
             p.grad = None
 
+    clear_gradients = clear_grad
+
     # -- checkpoint ----------------------------------------------------------
     def state_dict(self):
         """``{"_step_count": n, "<param name or index>.<state key>": tensor}``,
-        the JAX package's key names. The tensors are copies: a later step
-        does not change a state dict already taken."""
+        the JAX package's key names, and ``"LR_Scheduler"`` with the
+        scheduler's state when the lr is one. The tensors are copies: a later
+        step does not change a state dict already taken."""
         out = {"_step_count": self._step_count}
         for i, p in enumerate(self._param_list()):
             st = self._accumulators.get(id(p))
             if st:
                 for k, v in st.items():
                     out[f"{param_name(p) or i}.{k}"] = v.detach().clone()
+        if isinstance(self._lr, LRScheduler):
+            out["LR_Scheduler"] = self._lr.state_dict()
         return out
 
     @torch.no_grad()
@@ -156,6 +244,8 @@ class Optimizer:
         overwritten in place (a captured training step keeps reading it);
         values may be tensors or numpy arrays."""
         self._step_count = int(state_dict.get("_step_count", 0))
+        if "LR_Scheduler" in state_dict and isinstance(self._lr, LRScheduler):
+            self._lr.set_state_dict(state_dict["LR_Scheduler"])
         for i, p in enumerate(self._param_list()):
             prefix = f"{param_name(p) or i}."
             st = {
@@ -172,10 +262,43 @@ class Optimizer:
                 else:
                     cur[k] = v.to(p.device).clone()
 
+    set_dict = set_state_dict
+
     def _apply_weight_decay_l2(self, g, p):
         if self._weight_decay:
             return g + self._weight_decay * p
         return g
+
+
+class SGD(Optimizer):
+    """reference: phi/kernels/sgd_kernel.h."""
+
+    def _update(self, p, g, lr, state):
+        g = self._apply_weight_decay_l2(g, p)
+        return p - lr.to(p.dtype) * g, state
+
+
+class Momentum(Optimizer):
+    """reference: phi momentum_kernel; ``use_nesterov`` supported."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _hyper(self):
+        return {"mu": self._momentum, "nesterov": self._nesterov}
+
+    def _create_state(self, p):
+        return {"velocity": torch.zeros_like(p, memory_format=torch.contiguous_format)}
+
+    def _update(self, p, g, lr, state, *, mu, nesterov):
+        g = self._apply_weight_decay_l2(g, p)
+        v = mu * state["velocity"] + g
+        step = g + mu * v if nesterov else v
+        return p - lr.to(p.dtype) * step, {"velocity": v}
 
 
 class Adam(Optimizer):

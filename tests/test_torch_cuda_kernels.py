@@ -9,8 +9,12 @@ machine that has only the port's dependencies:
 Tolerances are tests/test_flash_attention.py's: on O and on lse 2e-5 in f32
 and 3e-2 in the 16-bit types; on the gradients 2e-3 in f32 and 3e-2 in the
 16-bit types. The backward kernels sum without atomics, so a second backward
-on the same input must give bitwise-equal gradients.
+on the same input must give bitwise-equal gradients. The fused-update
+kernels are held to their plain versions bit for bit, the reference's own
+contract for kernel against rule (tests/test_pallas_update.py).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +22,7 @@ import torch
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import fused_update as tfu
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 GRAD_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2, torch.float16: 3e-2}
@@ -146,3 +151,110 @@ def test_flash_attention_autograd_runs_the_backward_kernels():
     for g, r in zip(grads, ref):
         assert g.device == card
         assert (g.cpu() - r).abs().max().item() <= GRAD_TOL[torch.float32]
+
+
+# sizes: one element, ragged, one tile of the TPU kernel, a float4 tail,
+# 2^20 + 3 (unaligned tail), and GPT-2 345M's tied word embedding
+UPDATE_SIZES = [1, 1000, 1024, 4097, 2 ** 20 + 3, 50304 * 1024]
+
+
+def _update_inputs(n, seed):
+    gen = torch.Generator(device=_card())
+    gen.manual_seed(seed)
+    p, g, m = (torch.randn(n, generator=gen, device=_card()) for _ in range(3))
+    v = torch.rand(n, generator=gen, device=_card())
+    return p, g, m, v
+
+
+def _run_kernel(kind, bufs, lr, hyper, wd, bad):
+    """One kernel launch on copies of ``bufs``; returns the copies."""
+    p, g, m, v = (b.clone() for b in bufs)
+    if kind == "sgd":
+        tfu.fused_sgd(p, g, lr, wd=wd, bad=bad)
+        return (p,)
+    if kind == "momentum":
+        tfu.fused_momentum(p, g, m, lr, mu=0.9, nesterov=hyper, wd=wd, bad=bad)
+        return p, m
+    tfu.fused_adam(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=wd, bad=bad)
+    return p, m, v
+
+
+def _run_plain(kind, bufs, lr, hyper, wd, bad):
+    p, g, m, v = bufs
+    if kind == "sgd":
+        return (tfu.sgd_plain(p, g, lr, wd=wd, bad=bad),)
+    if kind == "momentum":
+        return tfu.momentum_plain(p, g, m, lr, mu=0.9, nesterov=hyper, wd=wd, bad=bad)
+    return tfu.adam_plain(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=wd, bad=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", UPDATE_SIZES)
+@pytest.mark.parametrize("kind,hyper", [("sgd", None), ("momentum", False),
+                                        ("momentum", True), ("adam", None)])
+def test_fused_update_kernels_equal_plain_bitwise(kind, hyper, n):
+    bufs = _update_inputs(n, seed=n % 1000)
+    lr = torch.full((), 3e-3, device=_card())
+    for wd in (0.0, 0.01):
+        for gate in (None, False, True):
+            bad = None if gate is None else torch.tensor(gate, device=_card())
+            before = tfu.KERNELS[kind].launches
+            got = _run_kernel(kind, bufs, lr, hyper, wd, bad)
+            want = _run_plain(kind, bufs, lr, hyper, wd, bad)
+            torch.cuda.synchronize()
+            assert tfu.KERNELS[kind].launches == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (kind, hyper, n, wd, gate)
+            if gate:  # a rescued step leaves p and the state (m or velocity, v) as they were
+                for a, i in zip(got, (0, 2, 3)):
+                    assert torch.equal(a, bufs[i])
+            else:
+                assert not torch.equal(got[0], bufs[0])
+
+
+@pytest.mark.cuda
+def test_fused_update_refuses_what_the_kernel_does_not_take():
+    p = torch.zeros(8, 128, device=_card())
+    assert tfu.supported("adam", p, p, {"moment1": p, "moment2": p})
+    assert not tfu.supported("sgd", p.bfloat16(), p.bfloat16(), {})
+    assert not tfu.supported("sgd", p.t(), p.t(), {})
+    assert not tfu.supported("momentum", p, p, {"velocity": p.t().contiguous().t()})
+    lr = torch.zeros((), device=_card())
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tfu.fused_sgd(p.bfloat16(), p.bfloat16(), lr, wd=0.0)
+    with pytest.raises(ValueError, match="one-element"):
+        tfu.fused_sgd(p, p.clone(), lr.cpu(), wd=0.0)
+
+
+@pytest.mark.cuda
+def test_adam_step_launches_the_kernel_for_every_parameter():
+    card = _card()
+    pt.seed(0)
+    cfg = tgpt.GPTConfig(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+                         max_seq_len=64, dropout=0.0, attn_dropout=0.0)
+    model = tgpt.GPTForPretraining(cfg, device=card)
+    ref = copy.deepcopy(model)
+    ids = torch.randint(0, 128, (2, 65), device=card)
+    crit = tgpt.GPTPretrainingCriterion()
+    losses = {}
+    for name, m, flag in (("on", model, True), ("off", ref, False)):
+        opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=m.parameters(),
+                                weight_decay=pt.regularizer.L2Decay(0.01),
+                                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+        pt.set_flags({"FLAGS_pallas_fused_update": flag})
+        try:
+            before = tfu.fused_adam.launches
+            losses[name] = []
+            for _ in range(2):
+                loss = crit(m(ids[:, :-1]), ids[:, 1:])
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses[name].append(loss.item())
+            launched = tfu.fused_adam.launches - before
+        finally:
+            pt.set_flags({"FLAGS_pallas_fused_update": False})
+        assert launched == (2 * len(list(m.parameters())) if flag else 0)
+    assert losses["on"] == losses["off"]
+    for a, b in zip(model.parameters(), ref.parameters()):
+        assert torch.equal(a, b)

@@ -47,6 +47,46 @@ def test_import_and_cpu_forward_load_neither_jax_nor_paddle_tpu():
     assert out.strip() == "[]"
 
 
+def test_fused_update_path_loads_neither_jax_nor_paddle_tpu():
+    # slice 3's eager f32 path: Adam with L2Decay, a global-norm clip, a
+    # warm-up scheduler, the fused-update flag and the rescue sentinel
+    out = _run(
+        "import sys, torch\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForPretraining\n"
+        "from paddle_tpu_torch.models import GPTPretrainingCriterion\n"
+        "from paddle_tpu_torch.ops.kernels import _build, fused_update as fu\n"
+        "pt.set_device('cpu')\n"
+        "pt.set_flags({'FLAGS_pallas_fused_update': True, 'FLAGS_numeric_rescue': 'skip'})\n"
+        f"m = GPTForPretraining(GPTConfig(**{TINY!r}))\n"
+        "sched = pt.optimizer.lr.LinearWarmup(1e-3, 2, 0.0, 1e-3)\n"
+        "opt = pt.optimizer.Adam(learning_rate=sched, parameters=m.parameters(),\n"
+        "    weight_decay=pt.regularizer.L2Decay(0.01), grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))\n"
+        "ids = torch.zeros(1, 9, dtype=torch.int64)\n"
+        "for _ in range(2):\n"
+        "    GPTPretrainingCriterion()(m(ids[:, :-1]), ids[:, 1:]).backward()\n"
+        "    opt.step(); opt.clear_grad(); sched.step()\n"
+        "assert opt._step_count == 2 and pt.resilience.rescue.counters['numeric_rescues'] == 0\n"
+        "assert not _build._loaded and fu.fused_adam.launches == 0\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
+
+
+def test_fused_update_source_has_plain_c_entries():
+    """csrc/fused_update.cu is plain CUDA C++: no PyTorch or library headers,
+    the three launchers the wrappers bind, round-to-nearest intrinsics only."""
+    src = (ROOT / "paddle_tpu_torch" / "csrc" / "fused_update.cu").read_text()
+    includes = [line.split()[1] for line in src.splitlines() if line.startswith("#include")]
+    assert includes == ["<cuda_runtime.h>", "<stdint.h>"]
+    for entry in ("paddle_fused_sgd", "paddle_fused_momentum", "paddle_fused_adam"):
+        assert f'extern "C" int {entry}(' in src
+    for intrinsic in ("__fmul_rn", "__fadd_rn", "__fsub_rn", "__fdiv_rn", "__fsqrt_rn"):
+        assert intrinsic in src
+    for banned in ("torch", "at::", "cublas", "fmaf", "sqrtf", "__fsqrt_rd"):
+        assert banned not in src.split("#include <stdint.h>", 1)[1], banned
+
+
 def test_sources_import_neither_jax_nor_paddle_tpu():
     files = list((ROOT / "paddle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
