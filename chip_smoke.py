@@ -6,24 +6,30 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build the hand-written kernels from ``paddle_tpu_torch/csrc`` with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at ragged and non-causal ones, and time kernel,
-     plain version and the PyTorch library call;
+  2. build the hand-written kernels from ``paddle_tpu_torch/csrc`` with nvcc,
+     one process per source, all at once; print each kernel's registers and
+     spills, and count the ``HGMMA`` (wgmma) instructions in each sm90 library;
+  3. hold the flash forward against its plain PyTorch version on the card, on
+     both routes (sm90: wgmma + TMA for bf16/fp16; simt: CUDA cores, f32 and
+     the shapes sm90 refuses), at the main path's shapes and at ragged,
+     non-causal and narrow ones, check the route each launch took, and time
+     the sm90 and SIMT kernels, the plain version and the PyTorch library call;
   4. the full-sequence forward of GPT-2 345M (random weights from a seed) at
-     4 x 1024 tokens through the flash kernel, against the dense path, in f32,
-     then once in bf16;
+     4 x 1024 tokens through the flash kernel, against the dense path, in f32
+     (24 SIMT launches), then in bf16 (24 sm90 launches);
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
-  6. hold the two flash backward kernels against their plain version on the
-     card, at the training step's shape and at ragged, non-causal, wide-head
-     and tiny ones, check that a second backward is bitwise equal, and time
-     kernels, plain version and the PyTorch library backward;
+  6. hold the flash backward kernels (dK/dV on both routes, dQ) against
+     their plain version on the card, at the training step's shape and at
+     ragged, non-causal, wide-head and tiny ones, check the route and that a
+     second backward is bitwise equal, and time the kernels (dK/dV on both
+     routes), plain version and the PyTorch library backward;
   7. train GPT-2 345M (random weights from a seed) at 8 x 1024 tokens under
      AMP O2 bf16 with AdamW through ``jit.compile_train_step``: two eager
      warm-up steps, the capture of the whole step as one CUDA graph, then 10
      timed replays, against an eager copy of the model stepped with
-     ``loss.backward(); opt.step(); opt.clear_grad()``;
+     ``loss.backward(); opt.step(); opt.clear_grad()``; every flash forward
+     and dK/dV launch takes the sm90 route;
   8. a ``torch.profiler`` trace of one replayed step: the top device
      operations, the flash kernels' share of the step, the device idle share;
   9. hold the three fused-update kernels (Adam, Momentum, SGD) against their
@@ -38,6 +44,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      with ``FLAGS_pallas_fused_update`` on, against a deep copy stepped with
      the flag off: bitwise-equal losses, parameters and moments, one Adam
      kernel launch per parameter per step, and ``opt.step()`` timed both ways;
+     the flash kernels run on the SIMT route in f32;
  11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
      full width and 4 layers, 3 steps each;
  12. one JSON line of per-kernel numbers, then the result line.
@@ -64,9 +71,9 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # Tolerances of tests/test_flash_attention.py for the kernel against its plain
 # version, on O and on lse.
-TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 3e-2}
 # ... and on the gradients (tests/test_flash_attention.py:48 in f32)
-GRAD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+GRAD_TOL = {"float32": 2e-3, "bfloat16": 3e-2, "float16": 3e-2}
 
 # Flash vs dense logits of the 345M forward: f32 throughout with TF32 off, but
 # the kernel sums the softmax online over 64-key tiles while the dense path
@@ -84,13 +91,25 @@ def check(cond, msg):
         raise RuntimeError("chip_smoke: " + msg)
 
 
+# Cycles of the sleep kernel that holds the stream while timed runs are
+# queued behind it: ~50 ms at the H100's clocks, longer than the host takes
+# to enqueue any run below.
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
 def time_ms(fn, reps=20, warmup=3):
-    """Median device time of ``fn`` in ms, each run between two CUDA events."""
+    """Median device time of ``fn`` in ms, each run between two CUDA events.
+
+    A sleep kernel holds the stream while every run and its events are
+    queued, so the runs execute back to back and the events measure the
+    device, not the host's enqueue rate (which a kernel of tens of
+    microseconds would otherwise be waiting on). L2 is not flushed."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     events = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -159,45 +178,133 @@ BWD_MAIN_SHAPE = (8, 1024, 16, 64)  # the 345M training step: batch 8 x 1024, 16
 TOL_EAGER_VS_GRAPH = 1e-2
 
 
-def check_backward_kernels(torch, fa, gen, dev):
-    """Phase 6: both backward kernels against ``bwd_plain``; timings at the
-    main shape in f32 and bf16. Returns {dtype: {kernel: numbers}}."""
-    print("[6] flash_attention_bwd_dkv / _dq vs plain")
+FWD_MAIN_SHAPE = (4, 1024, 16, 64)  # the 345M forward: batch 4 x 1024, 16 heads of 64
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def expected_route(dtype):
+    """The route every case below takes: the sm90 kernels for the 16-bit
+    types (each case's strides and head dim are TMA's), SIMT for f32."""
+    return "sm90" if dtype_name(dtype) in ("bfloat16", "float16") else "simt"
+
+
+def check_forward_kernels(torch, fa, gen, dev):
+    """Phase 3: the forward on both routes against ``fwd_plain``; the route of
+    each launch; timings of both routes, the plain version and SDPA at the
+    main shapes. Returns {(shape, dtype): numbers}."""
+    print("[3] flash_attention_fwd vs plain, sm90 and SIMT routes")
     cases = [  # (shape, causal, dtype, layout)
-        (BWD_MAIN_SHAPE, True, torch.bfloat16, "fused"),
+        (FWD_MAIN_SHAPE, True, torch.float32, "fused"),
+        ((1, 600, 2, 24), True, torch.float32, "fused"),
+        ((1, 128, 2, 32), False, torch.float32, "contiguous"),
+    ]
+    for dtype in (torch.bfloat16, torch.float16):
+        cases += [
+            (FWD_MAIN_SHAPE, True, dtype, "fused"),
+            (BWD_MAIN_SHAPE, True, dtype, "fused"),
+            ((2, 1000, 4, 64), True, dtype, "contiguous"),  # ragged S
+            ((1, 512, 2, 128), False, dtype, "contiguous"),  # non-causal, D = 128
+            ((1, 64, 1, 16), True, dtype, "contiguous"),  # one tile, D = 16
+        ]
+    timed = {(FWD_MAIN_SHAPE, "float32"), (FWD_MAIN_SHAPE, "bfloat16"),
+             (BWD_MAIN_SHAPE, "bfloat16")}
+    out = {}
+    for shape, causal, dtype, layout in cases:
+        b, s, h, d = shape
+        dname = dtype_name(dtype)
+        route = expected_route(dtype)
+        q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
+        scale = d ** -0.5
+        before = dict(fa.flash_attention_fwd.launches_by_route)
+        o_k, lse_k = fa.flash_attention_fwd(q, k, v, scale, causal)
+        o_p, lse_p = fa.fwd_plain(q, k, v, scale, causal)
+        torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in fa.flash_attention_fwd.launches_by_route.items()}
+        err_o = (o_k.float() - o_p.float()).abs().max().item()
+        err_lse = (lse_k - lse_p).abs().max().item()
+        ok = err_o <= TOL[dname] and err_lse <= TOL[dname] and took[route] == 1
+        print(f"  {shape} causal={causal} {dname} {layout}: route {route} "
+              f"({took}); max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} tol={TOL[dname]:g} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(took[route] == 1, f"the forward at {shape} {dname} did not take the {route} route")
+        check(ok, f"forward kernel disagrees with its plain version at {shape} {dname}")
+        check(bool(torch.isfinite(o_k).all()), f"non-finite kernel output at {shape}")
+        if (shape, dname) not in timed:
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        numbers = dict(max_abs_err=max(err_o, err_lse))
+        numbers["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal))
+        if route == "sm90":  # the SIMT kernel on the same inputs, for comparison
+            numbers["simt_ms"] = time_ms(
+                lambda: fa._fwd_cuda(q, k, v, scale, causal, "simt"))
+        numbers["plain_ms"] = time_ms(lambda: fa.fwd_plain(q, k, v, scale, causal), reps=10)
+        numbers["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale))
+        numbers["bound_ms"], numbers["bound_by"] = attention_bound_ms(b, s, h, d, dname, causal)
+        out[(shape, dname)] = numbers
+        simt = f" simt_ms={numbers['simt_ms']:.4f}" if "simt_ms" in numbers else ""
+        print(f"  {shape} {dname}: kernel_ms={numbers['ms']:.4f} ({route}){simt} "
+              f"plain_ms={numbers['plain_ms']:.4f} library_ms={numbers['library_ms']:.4f} "
+              f"(torch SDPA) bound_ms={numbers['bound_ms']:.4f} ({numbers['bound_by']}); "
+              f"kernel at {numbers['bound_ms'] / numbers['ms']:.1%} of bound")
+    return out
+
+
+def check_backward_kernels(torch, fa, gen, dev):
+    """Phase 6: the backward kernels against ``bwd_plain`` (dK/dV on both
+    routes, dQ on its one), the route of each dK/dV launch, a second backward
+    bitwise equal; timings at the main shape in f32 and bf16. Returns
+    {dtype: {kernel: numbers}}."""
+    print("[6] flash_attention_bwd_dkv (sm90 and SIMT routes) / _dq vs plain")
+    cases = [  # (shape, causal, dtype, layout)
         (BWD_MAIN_SHAPE, True, torch.float32, "fused"),
         ((1, 600, 2, 24), True, torch.float32, "fused"),
         ((1, 128, 2, 32), False, torch.float32, "contiguous"),
         ((1, 200, 2, 160), True, torch.float32, "contiguous"),
         ((1, 7, 1, 5), True, torch.float32, "contiguous"),
     ]
+    for dtype in (torch.bfloat16, torch.float16):
+        cases += [
+            (BWD_MAIN_SHAPE, True, dtype, "fused"),
+            (FWD_MAIN_SHAPE, True, dtype, "fused"),
+            ((2, 1000, 4, 64), True, dtype, "contiguous"),  # ragged S
+            ((1, 512, 2, 128), False, dtype, "contiguous"),  # non-causal, D = 128
+            ((1, 64, 1, 16), True, dtype, "contiguous"),  # one tile, D = 16
+        ]
     out = {}
     for shape, causal, dtype, layout in cases:
         b, s, h, d = shape
-        dname = str(dtype).replace("torch.", "")
+        dname = dtype_name(dtype)
+        route = expected_route(dtype)
         q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
         do = torch.randn(shape, generator=gen, device=dev).to(dtype)
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
         delta = fa.bwd_delta(o, do)
+        before = dict(fa.flash_attention_bwd_dkv.launches_by_route)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
         dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
         ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
         torch.cuda.synchronize()
+        took = {r: n - before[r] for r, n in fa.flash_attention_bwd_dkv.launches_by_route.items()}
         errs = [(g.float() - r.float()).abs().max().item() for g, r in zip((dq, dk, dv), ref)]
         bitwise = all(torch.equal(a, c) for a, c in zip((dq, dk, dv), (dq2, dk2, dv2)))
         ok = max(errs) <= GRAD_TOL[dname] and bitwise
         size = max(r.float().abs().max().item() for r in ref)
-        print(f"  {shape} causal={causal} {dname} {layout}: max|d dQ|={errs[0]:.3e} "
-              f"max|d dK|={errs[1]:.3e} max|d dV|={errs[2]:.3e} tol={GRAD_TOL[dname]:g} "
-              f"(largest gradient {size:.3f}); second backward bitwise equal: {bitwise} "
-              f"{'ok' if ok else 'FAIL'}")
+        print(f"  {shape} causal={causal} {dname} {layout}: dkv route {route} ({took}); "
+              f"max|d dQ|={errs[0]:.3e} max|d dK|={errs[1]:.3e} max|d dV|={errs[2]:.3e} "
+              f"tol={GRAD_TOL[dname]:g} (largest gradient {size:.3f}); second backward bitwise "
+              f"equal: {bitwise} {'ok' if ok else 'FAIL'}")
+        check(took[route] == 2, f"dK/dV at {shape} {dname} did not take the {route} route")
         check(ok, f"backward kernels disagree with their plain version at {shape} {dname}")
         check(all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv)),
               f"non-finite gradients at {shape}")
-        if shape != BWD_MAIN_SHAPE:
+        if shape != BWD_MAIN_SHAPE or dname == "float16":
             continue
         kernel = {
             "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal),
@@ -219,13 +326,34 @@ def check_backward_kernels(torch, fa, gen, dev):
             out[dname][name] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 # SDPA's backward computes the pair: stated once, on the dkv row
-                library_ms=library_ms if name == "dkv" else None, max_abs_err=err)
-            print(f"  {shape} {dname} {name}: kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"({bound_by}); kernel at {bound_ms / ms:.1%} of bound")
+                library_ms=library_ms if name == "dkv" else None, max_abs_err=err,
+                route=route if name == "dkv" else "simt")
+            simt = ""
+            if name == "dkv" and route == "sm90":  # the SIMT kernel on the same inputs
+                out[dname][name]["simt_ms"] = time_ms(lambda: fa._bwd_dkv_cuda(
+                    q, k, v, do, lse, delta, scale, causal, "simt"))
+                simt = f" simt_ms={out[dname][name]['simt_ms']:.4f}"
+            print(f"  {shape} {dname} {name}: kernel_ms={ms:.4f} "
+                  f"({out[dname][name]['route']}){simt} bound_ms={bound_ms:.4f} ({bound_by}); "
+                  f"kernel at {bound_ms / ms:.1%} of bound")
         print(f"  {shape} {dname}: plain_ms={plain_ms:.4f} (dQ, dK, dV together) "
               f"library_ms={library_ms:.4f} (torch SDPA backward, dQ, dK, dV together)")
         del qt, kt, vt, o_lib
     return out
+
+
+def reset_flash_counts(fa):
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
+        fn.launches = 0
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv):
+        fn.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
+
+
+def flash_counts(fa):
+    """Launches of each flash kernel: forward and dK/dV by route, dQ."""
+    fwd, dkv = fa.flash_attention_fwd.launches_by_route, fa.flash_attention_bwd_dkv.launches_by_route
+    return {"fwd_sm90": fwd["sm90"], "fwd_simt": fwd["simt"], "dkv_sm90": dkv["sm90"],
+            "dkv_simt": dkv["simt"], "dq": fa.flash_attention_bwd_dq.launches}
 
 
 def train_345m(torch, pt, fa, gen, dev):
@@ -254,29 +382,32 @@ def train_345m(torch, pt, fa, gen, dev):
     ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
                         device=dev)
     x, y = ids[:, :-1], ids[:, 1:]
-    kernels = {"fwd": fa.flash_attention_fwd, "dkv": fa.flash_attention_bwd_dkv,
-               "dq": fa.flash_attention_bwd_dq}
-    for fn in kernels.values():
-        fn.launches = 0  # the training path's count starts here
+    # every flash launch of the bf16 step: forward and dK/dV on the sm90 route,
+    # dQ on its one (SIMT) kernel
+    want = {"fwd_sm90": cfg.num_layers, "fwd_simt": 0, "dkv_sm90": cfg.num_layers,
+            "dkv_simt": 0, "dq": cfg.num_layers}
+    reset_flash_counts(fa)  # the training path's count starts here
     losses = []
     t0 = time.perf_counter()
-    for _ in range(warmup):
+    for i in range(warmup):
+        before = flash_counts(fa)
         losses.append(step(x, y))
+        got = {n: c - before[n] for n, c in flash_counts(fa).items()}
+        print(f"  eager warm-up step {i}: flash launches {got}")
+        check(got == want, f"eager step {i}: flash launches {got}, expected {want}")
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    before = {n: fn.launches for n, fn in kernels.items()}
+    before = flash_counts(fa)
     t0 = time.perf_counter()
     losses.append(step(x, y))  # capture, then the first replay
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    in_capture = {n: fn.launches - before[n] for n, fn in kernels.items()}
+    in_capture = {n: c - before[n] for n, c in flash_counts(fa).items()}
     print(f"  {warmup} eager warm-up steps {warm_s:.2f} s; capture + first replay "
           f"{capture_s:.2f} s; flash launches in the captured step: {in_capture}")
-    for n, got in in_capture.items():
-        check(got == cfg.num_layers,
-              f"expected {cfg.num_layers} launches of the {n} kernel in the captured step, "
-              f"got {got}")
-    before = {n: fn.launches for n, fn in kernels.items()}
+    check(in_capture == want,
+          f"flash launches in the captured step {in_capture}, expected {want}")
+    before = flash_counts(fa)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -287,7 +418,7 @@ def train_345m(torch, pt, fa, gen, dev):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / replays
     step_ms = start.elapsed_time(end) / replays
-    launches = {n: fn.launches for n, fn in kernels.items()}  # the training path's count ends here
+    launches = flash_counts(fa)  # the training path's count ends here
     # replays that went through the Python wrappers would have counted
     check(launches == before, "the replays did not run the captured graph")
     tokens = batch * cfg.max_seq_len
@@ -331,7 +462,7 @@ def train_345m(torch, pt, fa, gen, dev):
 
 # Kinds of device operation in the training step's trace, first match wins.
 OP_KINDS = [
-    ("flash kernels", r"::(fwd|dkv|dq)_kernel<"),
+    ("flash kernels", r"::(fwd|dkv|dq)(_sm90)?_kernel<"),
     ("matmul", r"nvjet|gemm|cutlass|xmma"),
     ("softmax / log_softmax", r"softmax"),
     ("reduction", r"reduce_kernel"),
@@ -386,15 +517,20 @@ def profile_replay(torch, step, x, y, n_layers):
     print("  by kind: " + "; ".join(
         f"{k} {ms:.2f} ms ({ms * 1e3 / window:.1%}, x{n})"
         for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
-    for label, pattern in (("fwd", r"::fwd_kernel<"), ("dkv", r"::dkv_kernel<"),
-                           ("dq", r"::dq_kernel<")):
+    # the bf16 step runs the sm90 forward and dK/dV kernels and the one dQ
+    # kernel, each once per layer, and neither SIMT forward nor SIMT dK/dV
+    for label, pattern, want in (("fwd_sm90", r"::fwd_sm90_kernel<", n_layers),
+                                 ("dkv_sm90", r"::dkv_sm90_kernel<", n_layers),
+                                 ("dq", r"::dq_kernel<", n_layers),
+                                 ("fwd (SIMT)", r"::fwd_kernel<", 0),
+                                 ("dkv (SIMT)", r"::dkv_kernel<", 0)):
         hits = [(total, n) for name, (total, n) in by_name.items() if re.search(pattern, name)]
         total = sum(t for t, _ in hits)
         count = sum(n for _, n in hits)
         print(f"  flash {label}: {count} launches in the replay, {total / 1e3:.3f} ms, "
               f"{total / window:.1%} of the step")
-        check(count == n_layers,
-              f"the replayed step ran the {label} kernel {count} times, not {n_layers}")
+        check(count == want,
+              f"the replayed step ran the {label} kernel {count} times, not {want}")
 
 
 # The 345M embedding, the largest parameter, and the sizes the update kernels
@@ -733,56 +869,27 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = _build.build([fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, fu.KERNEL_NAME])
-    print(f"[2] built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, fa.SM90_FWD_KERNEL_NAME,
+               fa.SM90_DKV_KERNEL_NAME, fu.KERNEL_NAME]
+    logs = _build.build(sources)
+    print(f"[2] built {sources} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():  # ptxas -v: each instantiation, its registers and spills
             if any(w in line for w in ("Function properties", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    for name in (fa.SM90_FWD_KERNEL_NAME, fa.SM90_DKV_KERNEL_NAME):
+        sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], check=True,
+                              capture_output=True, text=True).stdout
+        hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
+        print(f"  {name}: {hgmma} HGMMA (wgmma) instructions in the library's SASS")
+        check(hgmma > 0, f"{name} has no HGMMA instruction: its products are not on the "
+                         f"tensor cores")
 
-    # 3. each kernel against its plain version
-    print("[3] flash_attention_fwd vs plain")
+    # 3. the forward kernels against their plain version
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    main_shape = (4, 1024, 16, 64)
-    cases = [  # (shape, causal, dtype, layout)
-        (main_shape, True, torch.float32, "fused"),
-        (main_shape, True, torch.bfloat16, "fused"),
-        ((1, 600, 2, 24), True, torch.float32, "fused"),
-        ((1, 128, 2, 32), False, torch.float32, "contiguous"),
-    ]
-    timings = {}
-    max_err_main = 0.0
-    for shape, causal, dtype, layout in cases:
-        b, s, h, d = shape
-        dname = str(dtype).replace("torch.", "")
-        q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
-        scale = d ** -0.5
-        o_k, lse_k = fa.flash_attention_fwd(q, k, v, scale, causal)
-        o_p, lse_p = fa.fwd_plain(q, k, v, scale, causal)
-        torch.cuda.synchronize()
-        err_o = (o_k.float() - o_p.float()).abs().max().item()
-        err_lse = (lse_k - lse_p).abs().max().item()
-        ok = err_o <= TOL[dname] and err_lse <= TOL[dname]
-        print(f"  {shape} causal={causal} {dname} {layout}: max|dO|={err_o:.3e} "
-              f"max|dlse|={err_lse:.3e} tol={TOL[dname]:g} {'ok' if ok else 'FAIL'}")
-        check(ok, f"kernel disagrees with its plain version at {shape} {dname}")
-        check(bool(torch.isfinite(o_k).all()), f"non-finite kernel output at {shape}")
-        if shape == main_shape:
-            if dtype == torch.float32:
-                max_err_main = max(err_o, err_lse)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            kernel_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal))
-            plain_ms = time_ms(lambda: fa.fwd_plain(q, k, v, scale, causal))
-            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale))
-            bound_ms, bound_by = attention_bound_ms(b, s, h, d, dname, causal)
-            timings[dname] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by)
-            print(f"  {shape} {dname}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} (torch SDPA) bound_ms={bound_ms:.4f} "
-                  f"({bound_by}); kernel at {bound_ms / kernel_ms:.1%} of bound")
-    del q, k, v, o_k, o_p, lse_k, lse_p
+    fwd = check_forward_kernels(torch, fa, gen, dev)
 
     # 4. full-sequence forward of GPT-2 345M through the kernel
     print("[4] GPT-2 345M forward, 4 x 1024 tokens")
@@ -792,15 +899,16 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     batch, seq = 4, cfg.max_seq_len
     ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
-    fa.flash_attention_fwd.launches = 0  # the main path's count starts here
+    reset_flash_counts(fa)  # the inference path's count starts here
     with torch.no_grad():
         logits = model(ids)
         torch.cuda.synchronize()
-        per_forward = fa.flash_attention_fwd.launches
-        print(f"  params={n_params} layers={cfg.num_layers}; flash launches in one "
+        per_forward = flash_counts(fa)
+        print(f"  params={n_params} layers={cfg.num_layers}; flash launches in one f32 "
               f"forward: {per_forward}")
-        check(per_forward == cfg.num_layers,
-              f"expected {cfg.num_layers} kernel launches per forward, got {per_forward}")
+        check(per_forward["fwd_simt"] == cfg.num_layers and per_forward["fwd_sm90"] == 0,
+              f"expected {cfg.num_layers} SIMT forward launches per f32 forward, got "
+              f"{per_forward}")
         check(tuple(logits.shape) == (batch, seq, cfg.vocab_size), "logits shape")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
         fwd_ms = time_ms(lambda: model(ids), reps=5, warmup=1)
@@ -819,8 +927,14 @@ def main() -> int:
         del dense, logits
 
         model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+        before = flash_counts(fa)
         logits16 = model_bf16(ids)
         torch.cuda.synchronize()
+        per_forward = {n: c - before[n] for n, c in flash_counts(fa).items()}
+        print(f"  flash launches in one bf16 forward: {per_forward}")
+        check(per_forward["fwd_sm90"] == cfg.num_layers and per_forward["fwd_simt"] == 0,
+              f"expected {cfg.num_layers} sm90 forward launches per bf16 forward, got "
+              f"{per_forward}")
         check(bool(torch.isfinite(logits16.float()).all()), "non-finite bf16 logits")
         bf16_ms = time_ms(lambda: model_bf16(ids), reps=5, warmup=1)
         print(f"  bf16 forward: {bf16_ms:.2f} ms, {batch * seq / bf16_ms * 1e3:.0f} tokens/s")
@@ -857,48 +971,63 @@ def main() -> int:
           f"{int(mismatch.sum())} differ, {excused} excused as near-ties "
           f"(top-2 margin < {TOL_LOGITS:g}), min margin {margin.min().item():.3e}")
     check(unexcused == 0, f"{unexcused} generated tokens disagree with the kernel path")
-    launches = fa.flash_attention_fwd.launches  # the main path's count ends here
+    inference = flash_counts(fa)  # the inference path's count ends here
     del model, full, out, again
 
     bwd = check_backward_kernels(torch, fa, gen, dev)
     train = train_345m(torch, pt, fa, gen, dev)
     torch.cuda.empty_cache()
     update = check_update_kernels(torch, fu, gen, dev)
+    reset_flash_counts(fa)  # the f32 training path's flash count starts here
     launches_f32 = train_f32_adam(torch, pt, fu, gen, dev)
+    f32_train = flash_counts(fa)  # ... and ends here
+    print(f"  flash launches over the f32 training run: {f32_train}")
+    check(f32_train["fwd_sm90"] == f32_train["dkv_sm90"] == 0
+          and f32_train["fwd_simt"] > 0 and f32_train["dkv_simt"] > 0,
+          f"f32 training must run the SIMT flash kernels only: {f32_train}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
 
     # 12. per-kernel numbers, then the result
-    f32 = timings["float32"]
-    print(f"bf16 at {main_shape}: " + json.dumps(timings["bfloat16"]))
+    fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
+    fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
+    print(f"[12] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+          f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
+          f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
+          f"SDPA {fwd16_train['library_ms']:.4f}; dK/dV at {BWD_MAIN_SHAPE} sm90 "
+          f"{bwd['bfloat16']['dkv']['ms']:.4f} SIMT {bwd['bfloat16']['dkv']['simt_ms']:.4f} "
+          f"(SDPA backward, all three gradients, {bwd['bfloat16']['dkv']['library_ms']:.4f})")
+    print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd["float32"]))
-    rows = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:69",
-        "launches": launches,
-        "max_abs_err": max_err_main,
-        "ms": f32["ms"],
-        "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"],
-        "library_ms": f32["library_ms"],
-    }]
-    for kernel, line in (("dkv", 151), ("dq", 197)):
-        t = bwd["bfloat16"][kernel]
-        rows.append({
-            "name": f"flash_attention_bwd_{kernel}",
+
+    def row(name, source, line, launches, t):
+        return {
+            "name": name,
             "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": train["launches"][kernel],
+            "launches": launches,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-        })
+        }
+
+    rows = [
+        row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
+            inference["fwd_sm90"] + train["launches"]["fwd_sm90"], fwd16),
+        row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69,
+            inference["fwd_simt"] + f32_train["fwd_simt"], fwd32),
+        row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
+            train["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
+        row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
+            f32_train["dkv_simt"], bwd["float32"]["dkv"]),
+        row("flash_attention_bwd_dq", "flash_attention_bwd.cu", 197,
+            train["launches"]["dq"], bwd["bfloat16"]["dq"]),
+    ]
+    for name, r in zip(("fwd sm90", "fwd SIMT", "dkv sm90", "dkv SIMT", "dq"), rows):
+        check(r["launches"] > 0, f"the {name} kernel was launched no time on its path")
     for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):
         t = update[kind]
         rows.append({

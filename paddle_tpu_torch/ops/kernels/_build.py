@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``paddle_tpu_torch/_build/<name>-<hash>.so``, where the hash covers the
-source and the compiler flags, so an edited source builds anew and an
-unchanged one is loaded from the earlier build. Nothing is built on import:
+source, every ``csrc`` header it includes (``#include "x.cuh"``, followed
+through the headers) and the compiler flags, so an edited source or header
+builds anew and an unchanged one is loaded from the earlier build. Nothing is built on import:
 the first CUDA call of a kernel builds it. A build that fails raises.
 """
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,9 +43,30 @@ def nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str):
+    """The bytes of ``csrc/<name>.cu``, then of each ``csrc`` header it
+    includes, in the order first included, each once."""
+    seen, order = set(), []
+    todo = [name + ".cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.add(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            data = f.read()
+        order.append(data)
+        todo.extend(m.decode() for m in _LOCAL_INCLUDE.findall(data))
+    return order
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the build of ``csrc/<name>.cu`` lives. A source that includes no
+    ``csrc`` header hashes its own bytes and the flags only."""
+    digest = hashlib.sha256(b"".join(_sources(name)) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 

@@ -7,11 +7,25 @@ with nvcc at first use, see ``_build``) and counts the launch in its
 on a CPU tensor. Any other device raises. There is no fallback from a kernel
 to its plain version.
 
-  - ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``): O and the row
-    logsumexp; plain version ``fwd_plain``.
-  - ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``
-    (``csrc/flash_attention_bwd.cu``): dK, dV and dQ from the saved lse and
-    ``delta = rowsum(dO∘O)``; plain version ``bwd_plain``.
+  - ``flash_attention_fwd``: O and the row logsumexp; plain version
+    ``fwd_plain``.
+  - ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``: dK, dV and dQ
+    from the saved lse and ``delta = rowsum(dO∘O)``; plain version
+    ``bwd_plain``.
+
+The forward and dkv have two kernels each, and ``sm90_eligible`` picks one
+per launch from the tensors alone, before anything is built:
+
+  - route ``"sm90"`` (``csrc/flash_attention_fwd_sm90.cu``,
+    ``csrc/flash_attention_bwd_dkv_sm90.cu``): the tensor cores through
+    ``wgmma``, fed by TMA, for bf16 and fp16 inputs that TMA can read;
+  - route ``"simt"`` (``csrc/flash_attention_fwd.cu``,
+    ``csrc/flash_attention_bwd.cu``): f32 FMAs on the CUDA cores, for every
+    other input the kernels accept (f32, a ragged head dim, odd strides).
+
+dq has the one (SIMT) kernel. Each wrapper counts its launches in
+``launches``; the forward and dkv also in ``launches_by_route``. A launch
+that fails raises, whatever its route: no route falls back to another.
 
 ``FlashAttention`` is the autograd function over them, the port of the
 ``_flash`` custom_vjp: the forward saves ``(q, k, v, o, lse)``; the backward
@@ -30,6 +44,9 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_NAME = "flash_attention_fwd"
 BWD_KERNEL_NAME = "flash_attention_bwd"
+SM90_FWD_KERNEL_NAME = "flash_attention_fwd_sm90"
+SM90_DKV_KERNEL_NAME = "flash_attention_bwd_dkv_sm90"
+ROUTES = ("sm90", "simt")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -43,6 +60,30 @@ def supports(seq_len: int, head_dim: int) -> bool:
     That is a superset of the JAX ``supports()``, which needs an exact
     tiling of the sequence, ``seq_len >= 8`` and ``head_dim % 8 == 0``."""
     return seq_len >= 1 and head_dim >= 1
+
+
+def sm90_eligible(tensors) -> bool:
+    """Whether the sm90 (wgmma + TMA) kernels take these ``[b, s, h, d]``
+    inputs (q, k, v, and dO for dkv); the SIMT kernels take every other.
+
+    They need bf16 or fp16, one dtype for all; a head dim that is a multiple
+    of 16 in [16, 128]; and what TMA reads: head-dim stride 1, every other
+    stride a positive multiple of 8 elements (16 bytes), every base pointer
+    16-byte aligned. The stride of a size-1 dim is never read, so it is not
+    checked. The fused-qkv views of ``models/gpt.py`` qualify. Pure Python on
+    the tensors' metadata: it neither builds nor launches anything."""
+    dtype = tensors[0].dtype
+    if dtype not in (torch.bfloat16, torch.float16):
+        return False
+    for t in tensors:
+        if t.dtype != dtype or t.dim() != 4:
+            return False
+        d = t.shape[-1]
+        if d % 16 or not 16 <= d <= 128 or t.stride(-1) != 1 or t.data_ptr() % 16:
+            return False
+        if any(n > 1 and (st <= 0 or st % 8) for n, st in zip(t.shape[:3], t.stride()[:3])):
+            return False
+    return True
 
 
 def _scores(q, k, scale: float, causal: bool):
@@ -132,7 +173,17 @@ def _check_inputs(name, tensors):
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
 
 
+# What an sm90 C entry adds to the CUresult of a tensor map the driver
+# refused (sm90::ENCODE_ERROR_BASE in csrc/sm90_common.cuh)
+_ENCODE_ERROR_BASE = 100000
+
+
 def _check_launch(name, err, q):
+    if err >= _ENCODE_ERROR_BASE:
+        raise RuntimeError(
+            f"{name}: cuTensorMapEncodeTiled refused a TMA map (CUresult "
+            f"{err - _ENCODE_ERROR_BASE}) at shape {tuple(q.shape)} {q.dtype}"
+        )
     if err != 0:
         raise RuntimeError(
             f"{name}: kernel launch failed with cudaError_t {err} "
@@ -160,10 +211,13 @@ def _row_stats(name, lse, delta, q):
             )
 
 
-def _fwd_cuda(q, k, v, scale: float, causal: bool):
+def _fwd_cuda(q, k, v, scale: float, causal: bool, route: str):
     _check_inputs("flash_attention_fwd", (q, k, v))
     b, s, h, d = q.shape
-    fn = _bind(KERNEL_NAME, "paddle_flash_attention_fwd", 5, 4)
+    if route == "sm90":
+        fn = _bind(SM90_FWD_KERNEL_NAME, "paddle_flash_attention_fwd_sm90", 5, 4)
+    else:
+        fn = _bind(KERNEL_NAME, "paddle_flash_attention_fwd", 5, 4)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -176,30 +230,36 @@ def _fwd_cuda(q, k, v, scale: float, causal: bool):
         )
     _check_launch("flash_attention_fwd", err, q)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route] += 1
     return o, lse
 
 
 def flash_attention_fwd(q, k, v, scale: float, causal: bool):
     """O and lse of attention over ``[b, s, h, d]`` q, k, v of one shape.
 
-    CUDA tensors launch the kernel; CPU tensors run ``fwd_plain``."""
+    CUDA tensors launch the kernel of their route; CPU tensors run ``fwd_plain``."""
     _check_shapes("flash_attention_fwd", (q, k, v))
     if q.device.type == "cuda":
-        return _fwd_cuda(q, k, v, scale, causal)
+        route = "sm90" if sm90_eligible((q, k, v)) else "simt"
+        return _fwd_cuda(q, k, v, scale, causal, route)
     if q.device.type == "cpu":
         return fwd_plain(q, k, v, scale, causal)
     raise RuntimeError(f"flash_attention_fwd: no kernel for device {q.device}")
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
+def _bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool, route: str):
     name = "flash_attention_bwd_dkv"
     _check_inputs(name, (q, k, v, do))
     _row_stats(name, lse, delta, q)
     b, s, h, d = q.shape
-    fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dkv", 8, 6)
+    if route == "sm90":
+        fn = _bind(SM90_DKV_KERNEL_NAME, "paddle_flash_attention_bwd_dkv_sm90", 8, 6)
+    else:
+        fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dkv", 8, 6)
     dk = torch.empty((b, s, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, s, h, d), dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
@@ -212,6 +272,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
         )
     _check_launch(name, err, q)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_route[route] += 1
     return dk, dv
 
 
@@ -219,16 +280,18 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool)
     """dK and dV of attention over ``[b, s, h, d]`` q, k, v, dO of one shape,
     from the forward's lse and ``bwd_delta``, both ``[b, h, s]`` f32.
 
-    CUDA tensors launch the kernel; CPU tensors run ``bwd_plain``."""
+    CUDA tensors launch the kernel of their route; CPU tensors run ``bwd_plain``."""
     _check_shapes("flash_attention_bwd_dkv", (q, k, v, do))
     if q.device.type == "cuda":
-        return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal)
+        route = "sm90" if sm90_eligible((q, k, v, do)) else "simt"
+        return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, route)
     if q.device.type == "cpu":
         return bwd_plain(q, k, v, do, lse, delta, scale, causal)[1:]
     raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):

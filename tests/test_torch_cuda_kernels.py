@@ -11,7 +11,9 @@ and 3e-2 in the 16-bit types; on the gradients 2e-3 in f32 and 3e-2 in the
 16-bit types. The backward kernels sum without atomics, so a second backward
 on the same input must give bitwise-equal gradients. The fused-update
 kernels are held to their plain versions bit for bit, the reference's own
-contract for kernel against rule (tests/test_pallas_update.py).
+contract for kernel against rule (tests/test_pallas_update.py). The flash
+forward and dK/dV cases check the route each launch took: the sm90 (wgmma)
+kernels for bf16 and fp16 inputs TMA can read, the SIMT kernels otherwise.
 """
 import copy
 
@@ -131,6 +133,69 @@ def test_flash_bwd_kernels_match_plain_and_repeat_bitwise(shape, causal, dtype, 
         assert got.dtype == dtype and tuple(got.shape) == shape
         assert torch.equal(got, again)
         assert (got.float() - want.float()).abs().max().item() <= GRAD_TOL[dtype]
+
+
+# The sm90 (wgmma + TMA) route: the main path's shapes with GPT's fused-qkv
+# views, a ragged S, a non-causal D = 128 and one tile with D = 16.
+SM90_CASES = [
+    ((4, 1024, 16, 64), True, True),  # the 345M forward
+    ((8, 1024, 16, 64), True, True),  # the 345M training step
+    ((2, 1000, 4, 64), True, False),  # ragged S
+    ((1, 512, 2, 128), False, False),  # non-causal, D = 128
+    ((1, 64, 1, 16), True, False),  # one tile, D = 16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,causal,fused", SM90_CASES)
+def test_sm90_kernels_match_plain_and_repeat_bitwise(shape, causal, fused, dtype):
+    q, k, v = _qkv(shape, dtype, fused, seed=4)
+    rng = np.random.default_rng(5)
+    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(_card(), dtype)
+    scale = shape[-1] ** -0.5
+    assert tfa.sm90_eligible((q, k, v)) and tfa.sm90_eligible((q, k, v, do))
+    fwd_routes = dict(tfa.flash_attention_fwd.launches_by_route)
+    dkv_routes = dict(tfa.flash_attention_bwd_dkv.launches_by_route)
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale, causal)
+    delta = tfa.bwd_delta(o, do)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dk2, dv2 = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    o_p, lse_p = tfa.fwd_plain(q, k, v, scale, causal)
+    _, dk_p, dv_p = tfa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_fwd.launches_by_route == {
+        "sm90": fwd_routes["sm90"] + 1, "simt": fwd_routes["simt"]}
+    assert tfa.flash_attention_bwd_dkv.launches_by_route == {
+        "sm90": dkv_routes["sm90"] + 2, "simt": dkv_routes["simt"]}
+    assert o.dtype == dtype and tuple(o.shape) == shape
+    assert (o.float() - o_p.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_p).abs().max().item() <= TOL[dtype]
+    for got, again, want in ((dk, dk2, dk_p), (dv, dv2, dv_p)):
+        assert got.dtype == dtype and tuple(got.shape) == shape
+        assert torch.equal(got, again)
+        assert (got.float() - want.float()).abs().max().item() <= GRAD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_simt_route_takes_what_sm90_refuses():
+    """f32, a ragged head dim and a stride that is not a multiple of 8 go to
+    the CUDA-core kernels, counted on their route."""
+    card = _card()
+    cases = [
+        torch.randn(1, 128, 2, 64, device=card),  # f32
+        torch.randn(1, 128, 2, 40, device=card).bfloat16(),  # D % 16 != 0
+        torch.randn(1, 128, 2, 70, device=card).bfloat16()[..., :64],  # h stride 70
+    ]
+    for x in cases:
+        assert not tfa.sm90_eligible((x, x, x))
+        before = dict(tfa.flash_attention_fwd.launches_by_route)
+        o, lse = tfa.flash_attention_fwd(x, x, x, 0.125, True)
+        o_p, _ = tfa.fwd_plain(x, x, x, 0.125, True)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_fwd.launches_by_route == {
+            "sm90": before["sm90"], "simt": before["simt"] + 1}
+        assert (o.float() - o_p.float()).abs().max().item() <= TOL[x.dtype]
 
 
 @pytest.mark.cuda

@@ -1,0 +1,132 @@
+"""Which flash-attention kernel a launch takes: ``sm90_eligible``.
+
+The forward and dK/dV have two kernels on the card: the sm90 route (wgmma,
+fed by TMA) for bf16 and fp16 inputs that TMA can read, and the SIMT route
+(f32 FMAs on the CUDA cores) for every other input. ``sm90_eligible`` decides
+from the tensors' metadata alone, so these tests run on the CPU; the card
+tests (tests/test_torch_cuda_kernels.py) check that each launch took the
+route it names.
+"""
+import pytest
+import torch
+
+from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+
+DTYPES = [torch.bfloat16, torch.float16]
+
+
+def _fused_qkv(b, s, h, d, dtype):
+    """q, k, v as ``models/gpt.py`` makes them: views of one [b, s, h·3·d]
+    projection, split heads-major as [b, s, h, 3, d]."""
+    qkv = torch.empty(b, s, 3 * h * d, dtype=dtype)
+    return qkv.reshape(b, s, h, 3, d).unbind(dim=3)
+
+
+def _offset_view(shape, dtype, offset):
+    """A contiguous [b, s, h, d] view ``offset`` elements into its storage."""
+    n = 1
+    for x in shape:
+        n *= x
+    return torch.empty(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch", [4, 8])
+def test_sm90_takes_the_345m_fused_qkv_views(batch, dtype):
+    q, k, v = _fused_qkv(batch, 1024, 16, 64, dtype)
+    assert q.stride() == (1024 * 3 * 16 * 64, 3 * 16 * 64, 3 * 64, 1)
+    assert (k.data_ptr() - q.data_ptr(), v.data_ptr() - q.data_ptr()) == (128, 256)
+    do = torch.empty(batch, 1024, 16, 64, dtype=dtype)
+    assert tfa.sm90_eligible((q, k, v))
+    assert tfa.sm90_eligible((q, k, v, do))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 80, 96, 112, 128])
+def test_sm90_takes_every_multiple_of_16_up_to_128(d, dtype):
+    x = torch.empty(2, 100, 3, d, dtype=dtype)
+    assert tfa.sm90_eligible((x, x, x, x))
+
+
+def test_sm90_refuses_float32():
+    x = torch.empty(1, 128, 2, 64)
+    assert not tfa.sm90_eligible((x, x, x))
+
+
+@pytest.mark.parametrize("d", [5, 24, 40, 256])
+def test_sm90_refuses_a_head_dim_it_has_no_tile_for(d):
+    x = torch.empty(1, 128, 2, d, dtype=torch.bfloat16)
+    assert not tfa.sm90_eligible((x, x, x))
+
+
+@pytest.mark.parametrize("strides", [
+    (128 * 128 + 4, 128, 64, 1),  # batch
+    (128 * 132, 132, 64, 1),  # sequence: rows padded by 4 elements
+    (128 * 136, 136, 68, 1),  # head: heads padded by 4 elements
+])
+def test_sm90_refuses_a_stride_that_is_not_a_multiple_of_8(strides):
+    shape = (2, 128, 2, 64)
+    x = torch.empty(2 * 128 * 136, dtype=torch.bfloat16).as_strided(shape, strides)
+    q = torch.empty(shape, dtype=torch.bfloat16)
+    assert tfa.sm90_eligible((q, q, q))
+    assert not tfa.sm90_eligible((q, x, q))
+
+
+def test_sm90_refuses_a_head_dim_stride_other_than_1():
+    x = torch.empty(1, 128, 2, 128, dtype=torch.bfloat16)[..., ::2]
+    assert x.shape[-1] == 64 and x.stride(-1) == 2
+    assert not tfa.sm90_eligible((x, x, x))
+
+
+def test_sm90_refuses_a_base_two_bytes_off_16_byte_alignment():
+    shape = (1, 128, 2, 64)
+    q = _offset_view(shape, torch.bfloat16, 0)
+    k = _offset_view(shape, torch.bfloat16, 1)
+    assert q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 2
+    assert tfa.sm90_eligible((q, q, q))
+    assert not tfa.sm90_eligible((q, k, q))
+
+
+def test_sm90_refuses_a_stride_0_do():
+    q = torch.empty(2, 128, 2, 64, dtype=torch.bfloat16)
+    everywhere = torch.ones((), dtype=torch.bfloat16).expand(q.shape)  # d(sum)/dO
+    per_batch = torch.ones(1, 128, 2, 64, dtype=torch.bfloat16).expand(q.shape)
+    assert everywhere.stride() == (0, 0, 0, 0) and per_batch.stride(0) == 0
+    assert tfa.sm90_eligible((q, q, q, q))
+    assert not tfa.sm90_eligible((q, q, q, everywhere))
+    assert not tfa.sm90_eligible((q, q, q, per_batch))
+
+
+def test_sm90_refuses_mixed_dtypes():
+    q = torch.empty(1, 128, 2, 64, dtype=torch.bfloat16)
+    assert not tfa.sm90_eligible((q, q, q, q.half()))
+
+
+def test_the_stride_of_a_size_1_dim_is_not_read():
+    x = torch.empty(1, 128, 1, 64, dtype=torch.bfloat16).as_strided(
+        (1, 128, 1, 64), (3, 64, 5, 1))
+    assert tfa.sm90_eligible((x, x, x))
+
+
+def test_every_route_has_a_counter():
+    for fn in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv):
+        assert set(fn.launches_by_route) == set(tfa.ROUTES) == {"sm90", "simt"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_calls_count_no_launch_on_either_route(dtype):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 64, 2, 16, generator=gen).to(dtype).requires_grad_()
+               for _ in range(3))
+    wrappers = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv,
+                tfa.flash_attention_bwd_dq)
+    before = [(fn.launches, dict(getattr(fn, "launches_by_route", {}))) for fn in wrappers]
+    o, lse = tfa.flash_attention_fwd(q, k, v, 0.25, True)
+    do = torch.randn(o.shape, generator=gen).to(dtype)
+    delta = tfa.bwd_delta(o, do)
+    tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 0.25, True)
+    tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, 0.25, True)
+    out = tfa.flash_attention(q, k, v, causal=True)
+    torch.autograd.grad(out.float().sum(), (q, k, v))
+    after = [(fn.launches, dict(getattr(fn, "launches_by_route", {}))) for fn in wrappers]
+    assert after == before
