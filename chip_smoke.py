@@ -19,17 +19,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (24 SIMT launches), then in bf16 (24 sm90 launches);
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
-  6. hold the flash backward kernels (dK/dV on both routes, dQ) against
-     their plain version on the card, at the training step's shape and at
-     ragged, non-causal, wide-head and tiny ones, check the route and that a
-     second backward is bitwise equal, and time the kernels (dK/dV on both
-     routes), plain version and the PyTorch library backward;
+  6. hold the flash backward kernels (dK/dV and dQ, each on both routes)
+     against their plain version on the card, at the training step's shape
+     and at ragged, non-causal, wide-head and tiny ones, check the route of
+     each launch and that a second backward is bitwise equal, and time the
+     kernels (both routes), the plain version and the PyTorch library
+     backward, the sm90 pair dK/dV + dQ beside the library's;
   7. train GPT-2 345M (random weights from a seed) at 8 x 1024 tokens under
      AMP O2 bf16 with AdamW through ``jit.compile_train_step``: two eager
      warm-up steps, the capture of the whole step as one CUDA graph, then 10
      timed replays, against an eager copy of the model stepped with
-     ``loss.backward(); opt.step(); opt.clear_grad()``; every flash forward
-     and dK/dV launch takes the sm90 route;
+     ``loss.backward(); opt.step(); opt.clear_grad()``; every flash forward,
+     dK/dV and dQ launch takes the sm90 route;
   8. a ``torch.profiler`` trace of one replayed step: the top device
      operations, the flash kernels' share of the step, the device idle share;
   9. hold the three fused-update kernels (Adam, Momentum, SGD) against their
@@ -254,11 +255,11 @@ def check_forward_kernels(torch, fa, gen, dev):
 
 
 def check_backward_kernels(torch, fa, gen, dev):
-    """Phase 6: the backward kernels against ``bwd_plain`` (dK/dV on both
-    routes, dQ on its one), the route of each dK/dV launch, a second backward
+    """Phase 6: the backward kernels against ``bwd_plain`` (dK/dV and dQ,
+    each on both routes), the route of each launch, a second backward
     bitwise equal; timings at the main shape in f32 and bf16. Returns
     {dtype: {kernel: numbers}}."""
-    print("[6] flash_attention_bwd_dkv (sm90 and SIMT routes) / _dq vs plain")
+    print("[6] flash_attention_bwd_dkv / _dq (sm90 and SIMT routes) vs plain")
     cases = [  # (shape, causal, dtype, layout)
         (BWD_MAIN_SHAPE, True, torch.float32, "fused"),
         ((1, 600, 2, 24), True, torch.float32, "fused"),
@@ -284,23 +285,27 @@ def check_backward_kernels(torch, fa, gen, dev):
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
         delta = fa.bwd_delta(o, do)
-        before = dict(fa.flash_attention_bwd_dkv.launches_by_route)
+        wrappers = {"dkv": fa.flash_attention_bwd_dkv, "dq": fa.flash_attention_bwd_dq}
+        before = {n: dict(fn.launches_by_route) for n, fn in wrappers.items()}
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
         dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
         dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
         dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
         ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
         torch.cuda.synchronize()
-        took = {r: n - before[r] for r, n in fa.flash_attention_bwd_dkv.launches_by_route.items()}
+        took = {n: {r: c - before[n][r] for r, c in fn.launches_by_route.items()}
+                for n, fn in wrappers.items()}
         errs = [(g.float() - r.float()).abs().max().item() for g, r in zip((dq, dk, dv), ref)]
         bitwise = all(torch.equal(a, c) for a, c in zip((dq, dk, dv), (dq2, dk2, dv2)))
         ok = max(errs) <= GRAD_TOL[dname] and bitwise
         size = max(r.float().abs().max().item() for r in ref)
-        print(f"  {shape} causal={causal} {dname} {layout}: dkv route {route} ({took}); "
-              f"max|d dQ|={errs[0]:.3e} max|d dK|={errs[1]:.3e} max|d dV|={errs[2]:.3e} "
-              f"tol={GRAD_TOL[dname]:g} (largest gradient {size:.3f}); second backward bitwise "
-              f"equal: {bitwise} {'ok' if ok else 'FAIL'}")
-        check(took[route] == 2, f"dK/dV at {shape} {dname} did not take the {route} route")
+        print(f"  {shape} causal={causal} {dname} {layout}: route {route} (dkv {took['dkv']}, "
+              f"dq {took['dq']}); max|d dQ|={errs[0]:.3e} max|d dK|={errs[1]:.3e} "
+              f"max|d dV|={errs[2]:.3e} tol={GRAD_TOL[dname]:g} (largest gradient "
+              f"{size:.3f}); second backward bitwise equal: {bitwise} {'ok' if ok else 'FAIL'}")
+        for name in ("dkv", "dq"):
+            check(took[name][route] == 2 and sum(took[name].values()) == 2,
+                  f"{name} at {shape} {dname} did not take the {route} route: {took[name]}")
         check(ok, f"backward kernels disagree with their plain version at {shape} {dname}")
         check(all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv)),
               f"non-finite gradients at {shape}")
@@ -319,6 +324,10 @@ def check_backward_kernels(torch, fa, gen, dev):
         do_t = do.transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
                                                          retain_graph=True))
+        simt_kernel = {  # the SIMT kernels on the same inputs, for comparison
+            "dkv": lambda: fa._bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, "simt"),
+            "dq": lambda: fa._bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, "simt"),
+        }
         out[dname] = {}
         for name, err in (("dkv", max(errs[1], errs[2])), ("dq", errs[0])):
             bound_ms, bound_by = bwd_bound_ms(name, b, s, h, d, dname, causal)
@@ -327,33 +336,39 @@ def check_backward_kernels(torch, fa, gen, dev):
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 # SDPA's backward computes the pair: stated once, on the dkv row
                 library_ms=library_ms if name == "dkv" else None, max_abs_err=err,
-                route=route if name == "dkv" else "simt")
+                route=route)
             simt = ""
-            if name == "dkv" and route == "sm90":  # the SIMT kernel on the same inputs
-                out[dname][name]["simt_ms"] = time_ms(lambda: fa._bwd_dkv_cuda(
-                    q, k, v, do, lse, delta, scale, causal, "simt"))
-                simt = f" simt_ms={out[dname][name]['simt_ms']:.4f}"
-            print(f"  {shape} {dname} {name}: kernel_ms={ms:.4f} "
-                  f"({out[dname][name]['route']}){simt} bound_ms={bound_ms:.4f} ({bound_by}); "
-                  f"kernel at {bound_ms / ms:.1%} of bound")
+            if route == "sm90":
+                out[dname][name]["simt_ms"] = time_ms(simt_kernel[name])
+                simt = (f" simt_ms={out[dname][name]['simt_ms']:.4f} "
+                        f"({out[dname][name]['simt_ms'] / ms:.1f}x the {route} time)")
+            print(f"  {shape} {dname} {name}: kernel_ms={ms:.4f} ({route}){simt} "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at {bound_ms / ms:.1%} of bound")
+        pair_ms = time_ms(lambda: (kernel["dkv"](), kernel["dq"]()))
+        out[dname]["pair_ms"] = pair_ms
         print(f"  {shape} {dname}: plain_ms={plain_ms:.4f} (dQ, dK, dV together) "
-              f"library_ms={library_ms:.4f} (torch SDPA backward, dQ, dK, dV together)")
+              f"library_ms={library_ms:.4f} (torch SDPA backward, dQ, dK, dV together); "
+              f"{route} pair dK/dV + dQ {pair_ms:.4f} ms, {pair_ms / library_ms:.2f}x the "
+              f"library's")
         del qt, kt, vt, o_lib
     return out
 
 
+FLASH_WRAPPERS = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_bwd_dkv",
+                  "dq": "flash_attention_bwd_dq"}
+
+
 def reset_flash_counts(fa):
-    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dq):
+    for attr in FLASH_WRAPPERS.values():
+        fn = getattr(fa, attr)
         fn.launches = 0
-    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd_dkv):
         fn.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
 
 
 def flash_counts(fa):
-    """Launches of each flash kernel: forward and dK/dV by route, dQ."""
-    fwd, dkv = fa.flash_attention_fwd.launches_by_route, fa.flash_attention_bwd_dkv.launches_by_route
-    return {"fwd_sm90": fwd["sm90"], "fwd_simt": fwd["simt"], "dkv_sm90": dkv["sm90"],
-            "dkv_simt": dkv["simt"], "dq": fa.flash_attention_bwd_dq.launches}
+    """Launches of each flash kernel by route: {"fwd_sm90": n, "fwd_simt": n, ...}."""
+    return {f"{kernel}_{route}": n for kernel, attr in FLASH_WRAPPERS.items()
+            for route, n in getattr(fa, attr).launches_by_route.items()}
 
 
 def train_345m(torch, pt, fa, gen, dev):
@@ -382,10 +397,9 @@ def train_345m(torch, pt, fa, gen, dev):
     ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
                         device=dev)
     x, y = ids[:, :-1], ids[:, 1:]
-    # every flash launch of the bf16 step: forward and dK/dV on the sm90 route,
-    # dQ on its one (SIMT) kernel
+    # every flash launch of the bf16 step is on the sm90 route
     want = {"fwd_sm90": cfg.num_layers, "fwd_simt": 0, "dkv_sm90": cfg.num_layers,
-            "dkv_simt": 0, "dq": cfg.num_layers}
+            "dkv_simt": 0, "dq_sm90": cfg.num_layers, "dq_simt": 0}
     reset_flash_counts(fa)  # the training path's count starts here
     losses = []
     t0 = time.perf_counter()
@@ -517,13 +531,14 @@ def profile_replay(torch, step, x, y, n_layers):
     print("  by kind: " + "; ".join(
         f"{k} {ms:.2f} ms ({ms * 1e3 / window:.1%}, x{n})"
         for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
-    # the bf16 step runs the sm90 forward and dK/dV kernels and the one dQ
-    # kernel, each once per layer, and neither SIMT forward nor SIMT dK/dV
+    # the bf16 step runs the sm90 forward, dK/dV and dQ kernels, each once per
+    # layer, and no SIMT flash kernel
     for label, pattern, want in (("fwd_sm90", r"::fwd_sm90_kernel<", n_layers),
                                  ("dkv_sm90", r"::dkv_sm90_kernel<", n_layers),
-                                 ("dq", r"::dq_kernel<", n_layers),
+                                 ("dq_sm90", r"::dq_sm90_kernel<", n_layers),
                                  ("fwd (SIMT)", r"::fwd_kernel<", 0),
-                                 ("dkv (SIMT)", r"::dkv_kernel<", 0)):
+                                 ("dkv (SIMT)", r"::dkv_kernel<", 0),
+                                 ("dq (SIMT)", r"::dq_kernel<", 0)):
         hits = [(total, n) for name, (total, n) in by_name.items() if re.search(pattern, name)]
         total = sum(t for t, _ in hits)
         count = sum(n for _, n in hits)
@@ -869,16 +884,18 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, fa.SM90_FWD_KERNEL_NAME,
-               fa.SM90_DKV_KERNEL_NAME, fu.KERNEL_NAME]
+    sm90_sources = [fa.SM90_FWD_KERNEL_NAME, fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME]
+    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, *sm90_sources, fu.KERNEL_NAME]
     logs = _build.build(sources)
     print(f"[2] built {sources} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        for line in log.splitlines():  # ptxas -v: each instantiation, its registers and spills
-            if any(w in line for w in ("Function properties", "registers", "spill")):
+        # ptxas -v: each instantiation, its registers and spills, and any
+        # warning that it serialized the wgmmas
+        for line in log.splitlines():
+            if any(w in line for w in ("Function properties", "registers", "spill", "wgmma")):
                 print(f"  {name}: {line.strip()}")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    for name in (fa.SM90_FWD_KERNEL_NAME, fa.SM90_DKV_KERNEL_NAME):
+    for name in sm90_sources:
         sass = subprocess.run([cuobjdump, "-sass", _build.library_path(name)], check=True,
                               capture_output=True, text=True).stdout
         hgmma = sum(1 for line in sass.splitlines() if "HGMMA" in line)
@@ -982,20 +999,24 @@ def main() -> int:
     launches_f32 = train_f32_adam(torch, pt, fu, gen, dev)
     f32_train = flash_counts(fa)  # ... and ends here
     print(f"  flash launches over the f32 training run: {f32_train}")
-    check(f32_train["fwd_sm90"] == f32_train["dkv_sm90"] == 0
-          and f32_train["fwd_simt"] > 0 and f32_train["dkv_simt"] > 0,
+    check(f32_train["fwd_sm90"] == f32_train["dkv_sm90"] == f32_train["dq_sm90"] == 0
+          and f32_train["fwd_simt"] > 0 and f32_train["dkv_simt"] > 0
+          and f32_train["dq_simt"] > 0,
           f"f32 training must run the SIMT flash kernels only: {f32_train}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
 
     # 12. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
+    bwd16 = bwd["bfloat16"]
     print(f"[12] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
-          f"SDPA {fwd16_train['library_ms']:.4f}; dK/dV at {BWD_MAIN_SHAPE} sm90 "
-          f"{bwd['bfloat16']['dkv']['ms']:.4f} SIMT {bwd['bfloat16']['dkv']['simt_ms']:.4f} "
-          f"(SDPA backward, all three gradients, {bwd['bfloat16']['dkv']['library_ms']:.4f})")
+          f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
+          f"{bwd16['dkv']['ms']:.4f} SIMT {bwd16['dkv']['simt_ms']:.4f}, dQ sm90 "
+          f"{bwd16['dq']['ms']:.4f} SIMT {bwd16['dq']['simt_ms']:.4f}, the sm90 pair "
+          f"{bwd16['pair_ms']:.4f} against SDPA's backward (all three gradients) "
+          f"{bwd16['dkv']['library_ms']:.4f}")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd["float32"]))
 
@@ -1023,10 +1044,13 @@ def main() -> int:
             train["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             f32_train["dkv_simt"], bwd["float32"]["dkv"]),
-        row("flash_attention_bwd_dq", "flash_attention_bwd.cu", 197,
-            train["launches"]["dq"], bwd["bfloat16"]["dq"]),
+        row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
+            train["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
+        row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
+            f32_train["dq_simt"], bwd["float32"]["dq"]),
     ]
-    for name, r in zip(("fwd sm90", "fwd SIMT", "dkv sm90", "dkv SIMT", "dq"), rows):
+    for name, r in zip(("fwd sm90", "fwd SIMT", "dkv sm90", "dkv SIMT", "dq sm90", "dq SIMT"),
+                       rows):
         check(r["launches"] > 0, f"the {name} kernel was launched no time on its path")
     for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):
         t = update[kind]

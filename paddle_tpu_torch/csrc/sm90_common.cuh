@@ -1,7 +1,8 @@
 // Shared pieces of the port's Hopper (sm_90a) kernels: TMA tensor maps and
 // loads, mbarriers, wgmma with 128-byte-swizzled shared-memory descriptors.
 //
-// Used by flash_attention_fwd_sm90.cu and flash_attention_bwd_dkv_sm90.cu.
+// Used by flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu and
+// flash_attention_bwd_dq_sm90.cu.
 // Conventions every user keeps:
 //   - A tile in shared memory is one or more 64-column sub-tiles, each `rows`
 //     rows of 128 bytes (64 16-bit elements), written by TMA with

@@ -13,19 +13,23 @@ to its plain version.
     from the saved lse and ``delta = rowsum(dO∘O)``; plain version
     ``bwd_plain``.
 
-The forward and dkv have two kernels each, and ``sm90_eligible`` picks one
-per launch from the tensors alone, before anything is built:
+Each of the three has two kernels, and ``sm90_eligible`` picks one per
+launch from the tensors alone, before anything is built:
 
   - route ``"sm90"`` (``csrc/flash_attention_fwd_sm90.cu``,
-    ``csrc/flash_attention_bwd_dkv_sm90.cu``): the tensor cores through
+    ``csrc/flash_attention_bwd_dkv_sm90.cu``,
+    ``csrc/flash_attention_bwd_dq_sm90.cu``): the tensor cores through
     ``wgmma``, fed by TMA, for bf16 and fp16 inputs that TMA can read;
   - route ``"simt"`` (``csrc/flash_attention_fwd.cu``,
     ``csrc/flash_attention_bwd.cu``): f32 FMAs on the CUDA cores, for every
     other input the kernels accept (f32, a ragged head dim, odd strides).
 
-dq has the one (SIMT) kernel. Each wrapper counts its launches in
-``launches``; the forward and dkv also in ``launches_by_route``. A launch
-that fails raises, whatever its route: no route falls back to another.
+dkv and dq decide on the same ``(q, k, v, dO)``, so both backward kernels of
+one call take one route. Each wrapper counts its launches in ``launches``
+and in ``launches_by_route``; ``_fwd_cuda``, ``_bwd_dkv_cuda`` and
+``_bwd_dq_cuda`` take the route as an argument, to launch one by name. A
+launch that fails raises, whatever its route: no route falls back to
+another.
 
 ``FlashAttention`` is the autograd function over them, the port of the
 ``_flash`` custom_vjp: the forward saves ``(q, k, v, o, lse)``; the backward
@@ -46,6 +50,7 @@ KERNEL_NAME = "flash_attention_fwd"
 BWD_KERNEL_NAME = "flash_attention_bwd"
 SM90_FWD_KERNEL_NAME = "flash_attention_fwd_sm90"
 SM90_DKV_KERNEL_NAME = "flash_attention_bwd_dkv_sm90"
+SM90_DQ_KERNEL_NAME = "flash_attention_bwd_dq_sm90"
 ROUTES = ("sm90", "simt")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -64,7 +69,7 @@ def supports(seq_len: int, head_dim: int) -> bool:
 
 def sm90_eligible(tensors) -> bool:
     """Whether the sm90 (wgmma + TMA) kernels take these ``[b, s, h, d]``
-    inputs (q, k, v, and dO for dkv); the SIMT kernels take every other.
+    inputs (q, k, v, and dO for dkv and dq); the SIMT kernels take every other.
 
     They need bf16 or fp16, one dtype for all; a head dim that is a multiple
     of 16 in [16, 128]; and what TMA reads: head-dim stride 1, every other
@@ -294,12 +299,15 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
+def _bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool, route: str):
     name = "flash_attention_bwd_dq"
     _check_inputs(name, (q, k, v, do))
     _row_stats(name, lse, delta, q)
     b, s, h, d = q.shape
-    fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dq", 7, 5)
+    if route == "sm90":
+        fn = _bind(SM90_DQ_KERNEL_NAME, "paddle_flash_attention_bwd_dq_sm90", 7, 5)
+    else:
+        fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dq", 7, 5)
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -311,22 +319,26 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool):
         )
     _check_launch(name, err, q)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_route[route] += 1
     return dq
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     """dQ of attention, with the inputs of ``flash_attention_bwd_dkv``.
 
-    CUDA tensors launch the kernel; CPU tensors run ``bwd_plain``."""
+    CUDA tensors launch the kernel of their route, which is dkv's for the
+    same inputs; CPU tensors run ``bwd_plain``."""
     _check_shapes("flash_attention_bwd_dq", (q, k, v, do))
     if q.device.type == "cuda":
-        return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal)
+        route = "sm90" if sm90_eligible((q, k, v, do)) else "simt"
+        return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, route)
     if q.device.type == "cpu":
         return bwd_plain(q, k, v, do, lse, delta, scale, causal)[0]
     raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -14,7 +14,8 @@ import pytest
 from paddle_tpu_torch.ops.kernels import _build
 
 SIMT_SOURCES = ["flash_attention_fwd", "flash_attention_bwd", "fused_update"]
-SM90_SOURCES = ["flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90"]
+SM90_SOURCES = ["flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90",
+                "flash_attention_bwd_dq_sm90"]
 
 
 @pytest.fixture

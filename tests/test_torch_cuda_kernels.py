@@ -12,8 +12,9 @@ and 3e-2 in the 16-bit types; on the gradients 2e-3 in f32 and 3e-2 in the
 on the same input must give bitwise-equal gradients. The fused-update
 kernels are held to their plain versions bit for bit, the reference's own
 contract for kernel against rule (tests/test_pallas_update.py). The flash
-forward and dK/dV cases check the route each launch took: the sm90 (wgmma)
-kernels for bf16 and fp16 inputs TMA can read, the SIMT kernels otherwise.
+forward, dK/dV and dQ cases check the route each launch took: the sm90
+(wgmma) kernels for bf16 and fp16 inputs TMA can read, the SIMT kernels
+otherwise.
 """
 import copy
 
@@ -157,21 +158,26 @@ def test_sm90_kernels_match_plain_and_repeat_bitwise(shape, causal, fused, dtype
     assert tfa.sm90_eligible((q, k, v)) and tfa.sm90_eligible((q, k, v, do))
     fwd_routes = dict(tfa.flash_attention_fwd.launches_by_route)
     dkv_routes = dict(tfa.flash_attention_bwd_dkv.launches_by_route)
+    dq_routes = dict(tfa.flash_attention_bwd_dq.launches_by_route)
     o, lse = tfa.flash_attention_fwd(q, k, v, scale, causal)
     delta = tfa.bwd_delta(o, do)
     dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
     dk2, dv2 = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dq2 = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     o_p, lse_p = tfa.fwd_plain(q, k, v, scale, causal)
-    _, dk_p, dv_p = tfa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
+    dq_p, dk_p, dv_p = tfa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
     torch.cuda.synchronize()
     assert tfa.flash_attention_fwd.launches_by_route == {
         "sm90": fwd_routes["sm90"] + 1, "simt": fwd_routes["simt"]}
     assert tfa.flash_attention_bwd_dkv.launches_by_route == {
         "sm90": dkv_routes["sm90"] + 2, "simt": dkv_routes["simt"]}
+    assert tfa.flash_attention_bwd_dq.launches_by_route == {
+        "sm90": dq_routes["sm90"] + 2, "simt": dq_routes["simt"]}
     assert o.dtype == dtype and tuple(o.shape) == shape
     assert (o.float() - o_p.float()).abs().max().item() <= TOL[dtype]
     assert (lse - lse_p).abs().max().item() <= TOL[dtype]
-    for got, again, want in ((dk, dk2, dk_p), (dv, dv2, dv_p)):
+    for got, again, want in ((dk, dk2, dk_p), (dv, dv2, dv_p), (dq, dq2, dq_p)):
         assert got.dtype == dtype and tuple(got.shape) == shape
         assert torch.equal(got, again)
         assert (got.float() - want.float()).abs().max().item() <= GRAD_TOL[dtype]
@@ -180,7 +186,7 @@ def test_sm90_kernels_match_plain_and_repeat_bitwise(shape, causal, fused, dtype
 @pytest.mark.cuda
 def test_simt_route_takes_what_sm90_refuses():
     """f32, a ragged head dim and a stride that is not a multiple of 8 go to
-    the CUDA-core kernels, counted on their route."""
+    the CUDA-core kernels, counted on their route: the forward and dQ."""
     card = _card()
     cases = [
         torch.randn(1, 128, 2, 64, device=card),  # f32
@@ -196,6 +202,15 @@ def test_simt_route_takes_what_sm90_refuses():
         assert tfa.flash_attention_fwd.launches_by_route == {
             "sm90": before["sm90"], "simt": before["simt"] + 1}
         assert (o.float() - o_p.float()).abs().max().item() <= TOL[x.dtype]
+        assert not tfa.sm90_eligible((x, x, x, x))
+        delta = tfa.bwd_delta(o, x)
+        before = dict(tfa.flash_attention_bwd_dq.launches_by_route)
+        dq = tfa.flash_attention_bwd_dq(x, x, x, x, lse, delta, 0.125, True)
+        dq_p = tfa.bwd_plain(x, x, x, x, lse, delta, 0.125, True)[0]
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_bwd_dq.launches_by_route == {
+            "sm90": before["sm90"], "simt": before["simt"] + 1}
+        assert (dq.float() - dq_p.float()).abs().max().item() <= GRAD_TOL[x.dtype]
 
 
 @pytest.mark.cuda

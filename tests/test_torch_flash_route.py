@@ -1,10 +1,10 @@
 """Which flash-attention kernel a launch takes: ``sm90_eligible``.
 
-The forward and dK/dV have two kernels on the card: the sm90 route (wgmma,
-fed by TMA) for bf16 and fp16 inputs that TMA can read, and the SIMT route
-(f32 FMAs on the CUDA cores) for every other input. ``sm90_eligible`` decides
-from the tensors' metadata alone, so these tests run on the CPU; the card
-tests (tests/test_torch_cuda_kernels.py) check that each launch took the
+The forward, dK/dV and dQ have two kernels each on the card: the sm90 route
+(wgmma, fed by TMA) for bf16 and fp16 inputs that TMA can read, and the SIMT
+route (f32 FMAs on the CUDA cores) for every other input. ``sm90_eligible``
+decides from the tensors' metadata alone, so these tests run on the CPU; the
+card tests (tests/test_torch_cuda_kernels.py) check that each launch took the
 route it names.
 """
 import pytest
@@ -108,9 +108,57 @@ def test_the_stride_of_a_size_1_dim_is_not_read():
     assert tfa.sm90_eligible((x, x, x))
 
 
+WRAPPERS = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq)
+
+
 def test_every_route_has_a_counter():
-    for fn in (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv):
+    for fn in WRAPPERS:
         assert set(fn.launches_by_route) == set(tfa.ROUTES) == {"sm90", "simt"}
+
+
+class _ReportsCard:
+    """A CPU tensor that reports a CUDA device, so a wrapper picks a route
+    for it; every other attribute is the tensor's."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _routes_taken(monkeypatch, q, k, v, do):
+    """The route each backward wrapper hands its launcher for (q, k, v, dO),
+    with the launchers replaced by recorders: nothing is built or launched."""
+    taken = {}
+
+    def recorder(name):
+        def launch(*args):
+            taken[name] = args[-1]
+        return launch
+
+    monkeypatch.setattr(tfa, "_bwd_dkv_cuda", recorder("dkv"))
+    monkeypatch.setattr(tfa, "_bwd_dq_cuda", recorder("dq"))
+    q, k, v, do = (_ReportsCard(t) for t in (q, k, v, do))
+    tfa.flash_attention_bwd_dkv(q, k, v, do, None, None, 0.125, True)
+    tfa.flash_attention_bwd_dq(q, k, v, do, None, None, 0.125, True)
+    return taken
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"), (torch.float16, "sm90"),
+                                         (torch.float32, "simt")])
+def test_dq_and_dkv_take_one_route_for_the_345m_fused_qkv_views(monkeypatch, dtype, route):
+    q, k, v = _fused_qkv(8, 1024, 16, 64, dtype)
+    do = torch.empty(8, 1024, 16, 64, dtype=dtype)
+    assert _routes_taken(monkeypatch, q, k, v, do) == {"dkv": route, "dq": route}
+
+
+def test_dq_and_dkv_take_one_route_when_do_is_refused(monkeypatch):
+    q, k, v = _fused_qkv(2, 128, 2, 64, torch.bfloat16)
+    do = torch.ones((), dtype=torch.bfloat16).expand(q.shape)  # stride 0: not TMA's
+    assert _routes_taken(monkeypatch, q, k, v, do) == {"dkv": "simt", "dq": "simt"}
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -118,9 +166,7 @@ def test_cpu_calls_count_no_launch_on_either_route(dtype):
     gen = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 64, 2, 16, generator=gen).to(dtype).requires_grad_()
                for _ in range(3))
-    wrappers = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv,
-                tfa.flash_attention_bwd_dq)
-    before = [(fn.launches, dict(getattr(fn, "launches_by_route", {}))) for fn in wrappers]
+    before = [(fn.launches, dict(fn.launches_by_route)) for fn in WRAPPERS]
     o, lse = tfa.flash_attention_fwd(q, k, v, 0.25, True)
     do = torch.randn(o.shape, generator=gen).to(dtype)
     delta = tfa.bwd_delta(o, do)
@@ -128,5 +174,5 @@ def test_cpu_calls_count_no_launch_on_either_route(dtype):
     tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, 0.25, True)
     out = tfa.flash_attention(q, k, v, causal=True)
     torch.autograd.grad(out.float().sum(), (q, k, v))
-    after = [(fn.launches, dict(getattr(fn, "launches_by_route", {}))) for fn in wrappers]
+    after = [(fn.launches, dict(fn.launches_by_route)) for fn in WRAPPERS]
     assert after == before
