@@ -8,7 +8,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build the hand-written kernels from ``paddle_tpu_torch/csrc`` with nvcc,
      one process per source, all at once; print each kernel's registers and
-     spills, and count the ``HGMMA`` (wgmma) instructions in each sm90 library;
+     spills, and count the ``HGMMA`` (wgmma) instructions in each sm90 library
+     and the TF32 ``HMMA`` (mma.sync) instructions in the tf32x3 one;
   3. hold the flash forward against its plain PyTorch version on the card, on
      both routes (sm90: wgmma + TMA for bf16/fp16; simt: CUDA cores, f32 and
      the shapes sm90 refuses), at the main path's shapes and at ragged,
@@ -19,12 +20,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (24 SIMT launches), then in bf16 (24 sm90 launches);
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
-  6. hold the flash backward kernels (dK/dV and dQ, each on both routes)
-     against their plain version on the card, at the training step's shape
-     and at ragged, non-causal, wide-head and tiny ones, check the route of
-     each launch and that a second backward is bitwise equal, and time the
-     kernels (both routes), the plain version and the PyTorch library
-     backward, the sm90 pair dK/dV + dQ beside the library's;
+  6. hold the flash backward kernels (dK/dV and dQ, each on its three
+     routes: sm90 for bf16/fp16, tf32x3 for f32, both fed by TMA, and simt
+     for what neither takes) against their plain version on the card, at the
+     training step's shape and at ragged, non-causal, wide-head and tiny
+     ones, check the route of each launch (from the eligibility functions)
+     and that a second backward is bitwise equal, and time the kernels (the
+     case's route and SIMT), the plain version and the PyTorch library
+     backward, the pair dK/dV + dQ on its route and on SIMT beside the
+     library's; then drive f32 attention whose head dim the tensor-core
+     routes refuse through ``nn.functional.scaled_dot_product_attention``
+     and autograd, the path that still reaches the SIMT backward;
   7. train GPT-2 345M (random weights from a seed) at 8 x 1024 tokens under
      AMP O2 bf16 with AdamW through ``jit.compile_train_step``: two eager
      warm-up steps, the capture of the whole step as one CUDA graph, then 10
@@ -44,8 +50,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      ``FLAGS_numeric_rescue="skip"`` and a NaN-poisoned gradient at one step,
      with ``FLAGS_pallas_fused_update`` on, against a deep copy stepped with
      the flag off: bitwise-equal losses, parameters and moments, one Adam
-     kernel launch per parameter per step, and ``opt.step()`` timed both ways;
-     the flash kernels run on the SIMT route in f32;
+     kernel launch per parameter per step, and ``opt.step()`` and the
+     forward + backward timed; in f32 the flash forward runs on the SIMT
+     route and both backward kernels on the tf32x3 route; then the forward +
+     backward with the flash backward on tf32x3 and forced to SIMT, in turns;
  11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
      full width and 4 layers, 3 steps each;
  12. one JSON line of per-kernel numbers, then the result line.
@@ -60,14 +68,16 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16/f16 on
-# the tensor cores, and HBM3 bandwidth. Bounds below are stated against these.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16/f16
+# and TF32 on the tensor cores, and HBM3 bandwidth. Bounds below are stated
+# against these.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "tf32": 495e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 # Tolerances of tests/test_flash_attention.py for the kernel against its plain
@@ -123,36 +133,63 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def attention_bound_ms(b, s, h, d, dtype_name, causal):
-    """Least time for the flash forward: max(operations / peak, bytes / HBM rate).
+def flash_bound(flops, nbytes, dtype_name):
+    """Least time for a flash kernel: max(operations / peak, bytes / HBM rate),
+    what bounds it, and (f32 only) the operations on the CUDA cores.
 
-    Operations: 4·D per attended (query, key) pair (Q·Kᵀ and P·V, 2 FLOP per
-    FMA); causal attends S(S+1)/2 pairs per head. Bytes: q, k, v read once, o
-    written once, lse (f32) written once."""
+    bf16/fp16 products are bounded at the tensor cores' 16-bit peak. An f32
+    product is bounded at three TF32 products at the TF32 peak: 3xTF32 is as
+    accurate as f32 (the tf32x3 route), so that is the least time the card
+    needs for the same work, whatever route the kernel takes; the CUDA-core
+    figure (FLOP at 67 TFLOP/s) is returned beside it. Returns
+    {"bound_ms", "bound_by", "cuda_core_bound_ms" (f32 only)}."""
+    if dtype_name == "float32":
+        t_ops = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if dtype_name == "float32":
+        out["cuda_core_bound_ms"] = max(flops / PEAK_FLOPS["float32"] * 1e3, t_bytes)
+    return out
+
+
+def attention_bound_ms(b, s, h, d, dtype_name, causal):
+    """``flash_bound`` of the flash forward. Operations: 4·D per attended
+    (query, key) pair (Q·Kᵀ and P·V, 2 FLOP per FMA); causal attends
+    S(S+1)/2 pairs per head. Bytes: q, k, v read once, o written once, lse
+    (f32) written once."""
     elem = 4 if dtype_name == "float32" else 2
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * d * pairs * b * h
     nbytes = 4 * b * s * h * d * elem + b * h * s * 4
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return flash_bound(flops, nbytes, dtype_name)
 
 
 def bwd_bound_ms(kernel, b, s, h, d, dtype_name, causal):
-    """Least time for one backward kernel: max(operations / peak, bytes / HBM rate).
-
-    Operations per attended (query, key) pair: 8·D for dkv (Q·Kᵀ, dO·Vᵀ,
-    pᵀ·dO, dSᵀ·Q), 6·D for dq (Q·Kᵀ, dO·Vᵀ, dS·K). Bytes: q, k, v, dO read
-    once, lse and delta (f32) read once, the gradients written once (dK and
-    dV, or dQ)."""
+    """``flash_bound`` of one backward kernel. Operations per attended
+    (query, key) pair: 8·D for dkv (Q·Kᵀ, dO·Vᵀ, pᵀ·dO, dSᵀ·Q), 6·D for dq
+    (Q·Kᵀ, dO·Vᵀ, dS·K). Bytes: q, k, v, dO read once, lse and delta (f32)
+    read once, the gradients written once (dK and dV, or dQ)."""
     elem = 4 if dtype_name == "float32" else 2
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = (8 if kernel == "dkv" else 6) * d * pairs * b * h
     n_out = 2 if kernel == "dkv" else 1
     nbytes = (4 + n_out) * b * s * h * d * elem + 2 * b * h * s * 4
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return flash_bound(flops, nbytes, dtype_name)
+
+
+def check_share(name, bound_ms, ms):
+    """A kernel can take no less than its bound: a share over 100% means a
+    wrong bound or a wrong timing."""
+    check(bound_ms <= ms, f"{name}: {ms:.4f} ms is under its bound {bound_ms:.4f} ms")
+
+
+def bound_text(t):
+    core = (f", CUDA-core bound {t['cuda_core_bound_ms']:.4f}"
+            if "cuda_core_bound_ms" in t else "")
+    return f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}{core})"
 
 
 def qkv_on_card(shape, dtype, layout, gen, dev):
@@ -186,10 +223,16 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def expected_route(dtype):
-    """The route every case below takes: the sm90 kernels for the 16-bit
-    types (each case's strides and head dim are TMA's), SIMT for f32."""
-    return "sm90" if dtype_name(dtype) in ("bfloat16", "float16") else "simt"
+def fwd_route(fa, tensors):
+    """The forward's route for (q, k, v), from the eligibility function."""
+    return "sm90" if fa.sm90_eligible(tensors) else "simt"
+
+
+def bwd_route(fa, tensors):
+    """The backward's route for (q, k, v, dO), from the eligibility functions."""
+    if fa.sm90_eligible(tensors):
+        return "sm90"
+    return "tf32x3" if fa.tf32x3_eligible(tensors) else "simt"
 
 
 def check_forward_kernels(torch, fa, gen, dev):
@@ -216,8 +259,8 @@ def check_forward_kernels(torch, fa, gen, dev):
     for shape, causal, dtype, layout in cases:
         b, s, h, d = shape
         dname = dtype_name(dtype)
-        route = expected_route(dtype)
         q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
+        route = fwd_route(fa, (q, k, v))
         scale = d ** -0.5
         before = dict(fa.flash_attention_fwd.launches_by_route)
         o_k, lse_k = fa.flash_attention_fwd(q, k, v, scale, causal)
@@ -244,28 +287,33 @@ def check_forward_kernels(torch, fa, gen, dev):
         numbers["plain_ms"] = time_ms(lambda: fa.fwd_plain(q, k, v, scale, causal), reps=10)
         numbers["library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, scale=scale))
-        numbers["bound_ms"], numbers["bound_by"] = attention_bound_ms(b, s, h, d, dname, causal)
+        numbers.update(attention_bound_ms(b, s, h, d, dname, causal))
         out[(shape, dname)] = numbers
         simt = f" simt_ms={numbers['simt_ms']:.4f}" if "simt_ms" in numbers else ""
         print(f"  {shape} {dname}: kernel_ms={numbers['ms']:.4f} ({route}){simt} "
               f"plain_ms={numbers['plain_ms']:.4f} library_ms={numbers['library_ms']:.4f} "
-              f"(torch SDPA) bound_ms={numbers['bound_ms']:.4f} ({numbers['bound_by']}); "
+              f"(torch SDPA) {bound_text(numbers)}; "
               f"kernel at {numbers['bound_ms'] / numbers['ms']:.1%} of bound")
+        check_share(f"forward {shape} {dname}", numbers["bound_ms"], numbers["ms"])
     return out
 
 
 def check_backward_kernels(torch, fa, gen, dev):
     """Phase 6: the backward kernels against ``bwd_plain`` (dK/dV and dQ,
-    each on both routes), the route of each launch, a second backward
+    each on its three routes), the route of each launch, a second backward
     bitwise equal; timings at the main shape in f32 and bf16. Returns
     {dtype: {kernel: numbers}}."""
-    print("[6] flash_attention_bwd_dkv / _dq (sm90 and SIMT routes) vs plain")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print("[6] flash_attention_bwd_dkv / _dq (sm90, tf32x3 and SIMT routes) vs plain")
     cases = [  # (shape, causal, dtype, layout)
         (BWD_MAIN_SHAPE, True, torch.float32, "fused"),
-        ((1, 600, 2, 24), True, torch.float32, "fused"),
-        ((1, 128, 2, 32), False, torch.float32, "contiguous"),
-        ((1, 200, 2, 160), True, torch.float32, "contiguous"),
-        ((1, 7, 1, 5), True, torch.float32, "contiguous"),
+        ((1, 600, 2, 24), True, torch.float32, "fused"),  # ragged S
+        ((1, 128, 2, 32), False, torch.float32, "contiguous"),  # non-causal
+        ((1, 512, 2, 128), True, torch.float32, "contiguous"),  # D = 128
+        ((1, 200, 2, 160), True, torch.float32, "contiguous"),  # D > 128: SIMT
+        ((1, 7, 1, 5), True, torch.float32, "contiguous"),  # ragged D: SIMT
     ]
     for dtype in (torch.bfloat16, torch.float16):
         cases += [
@@ -279,9 +327,9 @@ def check_backward_kernels(torch, fa, gen, dev):
     for shape, causal, dtype, layout in cases:
         b, s, h, d = shape
         dname = dtype_name(dtype)
-        route = expected_route(dtype)
         q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
         do = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        route = bwd_route(fa, (q, k, v, do))
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
         delta = fa.bwd_delta(o, do)
@@ -315,6 +363,10 @@ def check_backward_kernels(torch, fa, gen, dev):
             "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal),
             "dq": lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal),
         }
+        simt_kernel = {  # the SIMT kernels on the same inputs, for comparison
+            "dkv": lambda: fa._bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, "simt"),
+            "dq": lambda: fa._bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, "simt"),
+        }
         plain_ms = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, causal),
                            reps=10)
         # the yardstick: PyTorch's fused attention backward, dq, dk and dv in one call
@@ -324,34 +376,89 @@ def check_backward_kernels(torch, fa, gen, dev):
         do_t = do.transpose(1, 2)
         library_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
                                                          retain_graph=True))
-        simt_kernel = {  # the SIMT kernels on the same inputs, for comparison
-            "dkv": lambda: fa._bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, "simt"),
-            "dq": lambda: fa._bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, "simt"),
-        }
+        if dname == "float32":  # the yardstick's kernels, whose names tell their arithmetic
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True)
+                torch.cuda.synchronize()
+            names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+            print("  torch SDPA's f32 backward runs: " + "; ".join(n[:140] for n in names))
         out[dname] = {}
         for name, err in (("dkv", max(errs[1], errs[2])), ("dq", errs[0])):
-            bound_ms, bound_by = bwd_bound_ms(name, b, s, h, d, dname, causal)
-            ms = time_ms(kernel[name])
-            out[dname][name] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                # SDPA's backward computes the pair: stated once, on the dkv row
-                library_ms=library_ms if name == "dkv" else None, max_abs_err=err,
-                route=route)
+            t = dict(ms=time_ms(kernel[name]), plain_ms=plain_ms,
+                     # SDPA's backward computes the pair: stated once, on the dkv row
+                     library_ms=library_ms if name == "dkv" else None, max_abs_err=err,
+                     route=route)
+            t.update(bwd_bound_ms(name, b, s, h, d, dname, causal))
+            out[dname][name] = t
             simt = ""
-            if route == "sm90":
-                out[dname][name]["simt_ms"] = time_ms(simt_kernel[name])
-                simt = (f" simt_ms={out[dname][name]['simt_ms']:.4f} "
-                        f"({out[dname][name]['simt_ms'] / ms:.1f}x the {route} time)")
-            print(f"  {shape} {dname} {name}: kernel_ms={ms:.4f} ({route}){simt} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}); kernel at {bound_ms / ms:.1%} of bound")
+            if route != "simt":  # the SIMT kernel on the same inputs: its error and time
+                got = simt_kernel[name]()
+                got = got if name == "dkv" else (got,)
+                want = ref[1:] if name == "dkv" else ref[:1]
+                simt_err = max((g.float() - r.float()).abs().max().item()
+                               for g, r in zip(got, want))
+                t["simt_ms"] = time_ms(simt_kernel[name])
+                out[dname][name + "_simt"] = dict(t, ms=t["simt_ms"], max_abs_err=simt_err,
+                                                  route="simt")
+                simt = (f" simt_ms={t['simt_ms']:.4f} ({t['simt_ms'] / t['ms']:.1f}x the "
+                        f"{route} time, simt at {t['bound_ms'] / t['simt_ms']:.1%} of bound, "
+                        f"max|d|={simt_err:.3e})")
+                check(simt_err <= GRAD_TOL[dname], f"SIMT {name} disagrees at {shape} {dname}")
+                check_share(f"SIMT {name} {dname}", t["bound_ms"], t["simt_ms"])
+            print(f"  {shape} {dname} {name}: kernel_ms={t['ms']:.4f} ({route}){simt} "
+                  f"{bound_text(t)}; kernel at {t['bound_ms'] / t['ms']:.1%} of bound")
+            check_share(f"{name} {dname}", t["bound_ms"], t["ms"])
+        # the pair on its route, on SIMT and the library, one after another
         pair_ms = time_ms(lambda: (kernel["dkv"](), kernel["dq"]()))
         out[dname]["pair_ms"] = pair_ms
+        simt_pair_ms = time_ms(lambda: (simt_kernel["dkv"](), simt_kernel["dq"]()))
+        out[dname]["simt_pair_ms"] = simt_pair_ms
+        library_again_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                                               retain_graph=True))
+        out[dname]["library_again_ms"] = library_again_ms
         print(f"  {shape} {dname}: plain_ms={plain_ms:.4f} (dQ, dK, dV together) "
               f"library_ms={library_ms:.4f} (torch SDPA backward, dQ, dK, dV together); "
-              f"{route} pair dK/dV + dQ {pair_ms:.4f} ms, {pair_ms / library_ms:.2f}x the "
-              f"library's")
+              f"{route} pair dK/dV + dQ {pair_ms:.4f} ms, SIMT pair {simt_pair_ms:.4f} ms, "
+              f"SDPA again {library_again_ms:.4f} ms; {route} pair / SDPA "
+              f"{pair_ms / library_again_ms:.2f}x, SIMT pair / {route} pair "
+              f"{simt_pair_ms / pair_ms:.2f}x, SIMT pair / SDPA "
+              f"{simt_pair_ms / library_again_ms:.2f}x")
+        if route == "tf32x3":
+            check(pair_ms < simt_pair_ms, f"the tf32x3 pair ({pair_ms:.4f} ms) is not faster "
+                                          f"than the SIMT pair ({simt_pair_ms:.4f} ms)")
         del qt, kt, vt, o_lib
     return out
+
+
+# f32 attention the tensor-core routes refuse: a head dim over 128 and a
+# ragged one (shape, causal)
+SIMT_PATH_CASES = [((1, 200, 2, 160), True), ((1, 7, 1, 5), True)]
+
+
+def simt_backward_path(torch, pt, fa, gen, dev):
+    """Phase 6, last: f32 attention at SIMT_PATH_CASES through the user entry
+    point (``nn.functional.scaled_dot_product_attention`` with the flash flag
+    on) and autograd, the path that still reaches the SIMT backward kernels.
+    Returns the flash launches by route over it."""
+    import paddle_tpu_torch.nn.functional as F
+
+    pt.set_flags({"FLAGS_use_flash_attention": True})
+    reset_flash_counts(fa)  # the SIMT backward path's count starts here
+    for shape, causal in SIMT_PATH_CASES:
+        q, k, v = (x.requires_grad_() for x in qkv_on_card(shape, torch.float32, "contiguous",
+                                                            gen, dev))
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        grads = torch.autograd.grad(out, (q, k, v), torch.randn(shape, generator=gen, device=dev))
+        check(all(bool(torch.isfinite(g).all()) for g in grads), f"non-finite grads at {shape}")
+    torch.cuda.synchronize()
+    launches = flash_counts(fa)  # ... and ends here
+    print(f"  the SIMT backward path, f32 {[c[0] for c in SIMT_PATH_CASES]} through "
+          f"nn.functional.scaled_dot_product_attention and autograd: {launches}")
+    n = len(SIMT_PATH_CASES)
+    check(launches["dkv_simt"] == launches["dq_simt"] == launches["fwd_simt"] == n
+          and sum(launches.values()) == 3 * n,
+          f"the SIMT backward path launched {launches}, not one SIMT fwd, dkv, dq per case")
+    return launches
 
 
 FLASH_WRAPPERS = {"fwd": "flash_attention_fwd", "dkv": "flash_attention_bwd_dkv",
@@ -398,8 +505,8 @@ def train_345m(torch, pt, fa, gen, dev):
                         device=dev)
     x, y = ids[:, :-1], ids[:, 1:]
     # every flash launch of the bf16 step is on the sm90 route
-    want = {"fwd_sm90": cfg.num_layers, "fwd_simt": 0, "dkv_sm90": cfg.num_layers,
-            "dkv_simt": 0, "dq_sm90": cfg.num_layers, "dq_simt": 0}
+    want = dict.fromkeys(flash_counts(fa), 0)
+    want.update(fwd_sm90=cfg.num_layers, dkv_sm90=cfg.num_layers, dq_sm90=cfg.num_layers)
     reset_flash_counts(fa)  # the training path's count starts here
     losses = []
     t0 = time.perf_counter()
@@ -476,7 +583,7 @@ def train_345m(torch, pt, fa, gen, dev):
 
 # Kinds of device operation in the training step's trace, first match wins.
 OP_KINDS = [
-    ("flash kernels", r"::(fwd|dkv|dq)(_sm90)?_kernel<"),
+    ("flash kernels", r"::(fwd|dkv|dq)(_sm90|_tf32)?_kernel<"),
     ("matmul", r"nvjet|gemm|cutlass|xmma"),
     ("softmax / log_softmax", r"softmax"),
     ("reduction", r"reduce_kernel"),
@@ -488,8 +595,6 @@ OP_KINDS = [
 
 def profile_replay(torch, step, x, y, n_layers):
     """Phase 8: a torch.profiler trace of one replayed step."""
-    import re
-
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -532,13 +637,15 @@ def profile_replay(torch, step, x, y, n_layers):
         f"{k} {ms:.2f} ms ({ms * 1e3 / window:.1%}, x{n})"
         for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
     # the bf16 step runs the sm90 forward, dK/dV and dQ kernels, each once per
-    # layer, and no SIMT flash kernel
+    # layer, and no SIMT or tf32x3 flash kernel
     for label, pattern, want in (("fwd_sm90", r"::fwd_sm90_kernel<", n_layers),
                                  ("dkv_sm90", r"::dkv_sm90_kernel<", n_layers),
                                  ("dq_sm90", r"::dq_sm90_kernel<", n_layers),
                                  ("fwd (SIMT)", r"::fwd_kernel<", 0),
                                  ("dkv (SIMT)", r"::dkv_kernel<", 0),
-                                 ("dq (SIMT)", r"::dq_kernel<", 0)):
+                                 ("dq (SIMT)", r"::dq_kernel<", 0),
+                                 ("dkv (tf32x3)", r"::dkv_tf32_kernel<", 0),
+                                 ("dq (tf32x3)", r"::dq_tf32_kernel<", 0)):
         hits = [(total, n) for name, (total, n) in by_name.items() if re.search(pattern, name)]
         total = sum(t for t, _ in hits)
         count = sum(n for _, n in hits)
@@ -684,9 +791,12 @@ def bitwise_same(torch, model_a, model_b, opt_a, opt_b):
     return True
 
 
-def train_f32_adam(torch, pt, fu, gen, dev):
+def train_f32_adam(torch, pt, fa, fu, gen, dev):
     """Phase 10: eager f32 GPT-2 345M with Adam through the fused kernel,
-    against a flag-off copy. Returns {"adam": launches over the path}."""
+    against a flag-off copy; then the forward + backward of the step with the
+    flash backward on its route and forced to SIMT, in turns. Returns
+    ({"adam": launches over the path}, {"flash": flash launches over the
+    path, "fwd_bwd_ms", "fwd_bwd_simt_ms", "steps", "layers"})."""
     from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
 
     batch, steps, nan_at = 8, 6, 2
@@ -717,10 +827,17 @@ def train_f32_adam(torch, pt, fu, gen, dev):
                                 grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
         pt.set_flags({"FLAGS_pallas_fused_update": flag})
         pt.resilience.rescue.reset_counters()
-        losses, step_ms, per_step = [], [], []
+        losses, step_ms, per_step, fwd_bwd_ms = [], [], [], []
         for i in range(steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             loss = criterion(m(x), y)
             loss.backward()
+            end.record()
+            end.synchronize()
+            if i > 0:  # the first allocates the gradients
+                fwd_bwd_ms.append(start.elapsed_time(end))
             snap = None
             if i == nan_at:
                 first = next(m.parameters())
@@ -753,14 +870,14 @@ def train_f32_adam(torch, pt, fu, gen, dev):
         check(pt.resilience.rescue.counters["numeric_rescues"] == 1,
               f"flag {flag}: numeric_rescues is "
               f"{pt.resilience.rescue.counters['numeric_rescues']}, not 1")
-        return opt, losses, step_ms, per_step
+        return opt, losses, step_ms, per_step, fwd_bwd_ms
 
     for kernel in fu.KERNELS.values():
         kernel.launches = 0  # the f32 Adam path's count starts here
     t0 = time.perf_counter()
-    opt_on, losses_on, ms_on, per_step_on = run(model, True)
+    opt_on, losses_on, ms_on, per_step_on, fb_on = run(model, True)
     on_s = time.perf_counter() - t0
-    opt_off, losses_off, ms_off, per_step_off = run(copy_off, False)
+    opt_off, losses_off, ms_off, per_step_off, fb_off = run(copy_off, False)
     launches = fu.fused_adam.launches  # ... and ends here
     pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_numeric_rescue": ""})
     mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -787,9 +904,51 @@ def train_f32_adam(torch, pt, fu, gen, dev):
           f"{len(ms_on)} steps: flag on {med['on'][0]:.2f} ms (CUDA events), "
           f"{med['on'][1]:.2f} ms (host clock); flag off {med['off'][0]:.2f} ms, "
           f"{med['off'][1]:.2f} ms")
+    fwd_bwd = statistics.median(fb_on + fb_off)
+    print(f"  forward + backward (loss, loss.backward()), median of {len(fb_on + fb_off)} "
+          f"steps of both runs: {fwd_bwd:.2f} ms (CUDA events); flag on "
+          + " ".join(f"{v:.2f}" for v in fb_on) + "; flag off "
+          + " ".join(f"{v:.2f}" for v in fb_off))
+    flash = flash_counts(fa)  # the f32 training path's flash count ends here
+
+    # what the tf32x3 route does to the step: forward + backward of the
+    # trained model with the flash backward on its route and forced to SIMT,
+    # in turns (route, SIMT, SIMT, route), two steps each
+    def fwd_bwd_ms(forced):
+        route_of = fa._bwd_route
+        if forced:
+            fa._bwd_route = lambda tensors: forced
+        try:
+            times = []
+            for _ in range(2):
+                opt_on.clear_grad()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                criterion(model(x), y).backward()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            return times
+        finally:
+            fa._bwd_route = route_of
+
+    turns = {"route": [], "simt": []}
+    for forced in (None, "simt", "simt", None):
+        turns[forced or "route"] += fwd_bwd_ms(forced)
+    opt_on.clear_grad()
+    fwd_bwd_route = statistics.median(turns["route"])
+    fwd_bwd_simt = statistics.median(turns["simt"])
+    print(f"  forward + backward with the flash backward on tf32x3 vs forced to SIMT, in "
+          f"turns, median of {len(turns['route'])} steps each: {fwd_bwd_route:.2f} ms vs "
+          f"{fwd_bwd_simt:.2f} ms (CUDA events), {fwd_bwd_simt - fwd_bwd_route:.2f} ms less per "
+          f"step on tf32x3; tf32x3 " + " ".join(f"{v:.2f}" for v in turns["route"])
+          + "; SIMT " + " ".join(f"{v:.2f}" for v in turns["simt"]))
     del model, copy_off, opt_on, opt_off
     torch.cuda.empty_cache()
-    return {"adam": launches}
+    return {"adam": launches}, {"flash": flash, "fwd_bwd_ms": fwd_bwd,
+                                "fwd_bwd_simt_ms": fwd_bwd_simt, "steps": 2 * steps,
+                                "layers": cfg.num_layers}
 
 
 def train_momentum_sgd(torch, pt, fu, gen, dev):
@@ -885,7 +1044,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     sm90_sources = [fa.SM90_FWD_KERNEL_NAME, fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME]
-    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, *sm90_sources, fu.KERNEL_NAME]
+    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, *sm90_sources, fa.TF32_BWD_KERNEL_NAME,
+               fu.KERNEL_NAME]
     logs = _build.build(sources)
     print(f"[2] built {sources} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -902,6 +1062,14 @@ def main() -> int:
         print(f"  {name}: {hgmma} HGMMA (wgmma) instructions in the library's SASS")
         check(hgmma > 0, f"{name} has no HGMMA instruction: its products are not on the "
                          f"tensor cores")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path(fa.TF32_BWD_KERNEL_NAME)],
+                          check=True, capture_output=True, text=True).stdout
+    instructions = [line for line in sass.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
+    hmma = sum(1 for line in instructions if "HMMA" in line and "TF32" in line)
+    print(f"  {fa.TF32_BWD_KERNEL_NAME}: {hmma} HMMA TF32 (mma.sync) instructions in the "
+          f"library's SASS, of {len(instructions)} ({len(instructions) / max(hmma, 1):.1f} "
+          f"per HMMA: the operand splits and shared loads run beside them)")
+    check(hmma > 0, f"{fa.TF32_BWD_KERNEL_NAME} has no TF32 HMMA instruction")
 
     # 3. the forward kernels against their plain version
     gen = torch.Generator(device=dev)
@@ -992,17 +1160,21 @@ def main() -> int:
     del model, full, out, again
 
     bwd = check_backward_kernels(torch, fa, gen, dev)
+    simt_path = simt_backward_path(torch, pt, fa, gen, dev)
     train = train_345m(torch, pt, fa, gen, dev)
     torch.cuda.empty_cache()
     update = check_update_kernels(torch, fu, gen, dev)
     reset_flash_counts(fa)  # the f32 training path's flash count starts here
-    launches_f32 = train_f32_adam(torch, pt, fu, gen, dev)
-    f32_train = flash_counts(fa)  # ... and ends here
-    print(f"  flash launches over the f32 training run: {f32_train}")
-    check(f32_train["fwd_sm90"] == f32_train["dkv_sm90"] == f32_train["dq_sm90"] == 0
-          and f32_train["fwd_simt"] > 0 and f32_train["dkv_simt"] > 0
-          and f32_train["dq_simt"] > 0,
-          f"f32 training must run the SIMT flash kernels only: {f32_train}")
+    launches_f32, f32_step = train_f32_adam(torch, pt, fa, fu, gen, dev)
+    f32_train = f32_step["flash"]  # ... and ends inside, before the route comparison
+    # every f32 step: the forward on SIMT, dK/dV and dQ on tf32x3, once per layer
+    n = f32_step["layers"] * f32_step["steps"]
+    want = dict.fromkeys(f32_train, 0)
+    want.update(fwd_simt=n, dkv_tf32x3=n, dq_tf32x3=n)
+    print(f"  flash launches over the f32 training run ({f32_step['steps']} steps): "
+          f"{f32_train}, {f32_train['dkv_tf32x3'] / f32_step['steps']:g} dK/dV and "
+          f"{f32_train['dq_tf32x3'] / f32_step['steps']:g} dQ tf32x3 launches per step")
+    check(f32_train == want, f"f32 training flash launches {f32_train}, expected {want}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
 
     # 12. per-kernel numbers, then the result
@@ -1017,11 +1189,19 @@ def main() -> int:
           f"{bwd16['dq']['ms']:.4f} SIMT {bwd16['dq']['simt_ms']:.4f}, the sm90 pair "
           f"{bwd16['pair_ms']:.4f} against SDPA's backward (all three gradients) "
           f"{bwd16['dkv']['library_ms']:.4f}")
+    bwd32 = bwd["float32"]
+    print(f"    f32 at {BWD_MAIN_SHAPE}: dK/dV tf32x3 {bwd32['dkv']['ms']:.4f} SIMT "
+          f"{bwd32['dkv']['simt_ms']:.4f}, dQ tf32x3 {bwd32['dq']['ms']:.4f} SIMT "
+          f"{bwd32['dq']['simt_ms']:.4f}, the tf32x3 pair {bwd32['pair_ms']:.4f}, the SIMT "
+          f"pair {bwd32['simt_pair_ms']:.4f}, SDPA's f32 backward {bwd32['library_again_ms']:.4f} "
+          f"(and {bwd32['dkv']['library_ms']:.4f}); f32 step forward + backward "
+          f"{f32_step['fwd_bwd_ms']:.2f} ms, with the backward forced to SIMT "
+          f"{f32_step['fwd_bwd_simt_ms']:.2f} ms")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
-    print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd["float32"]))
+    print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
     def row(name, source, line, launches, t):
-        return {
+        r = {
             "name": name,
             "route": "cuda",
             "source": f"paddle_tpu_torch/csrc/{source}",
@@ -1034,6 +1214,9 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         }
+        if "cuda_core_bound_ms" in t:  # f32: the CUDA cores' bound beside the 3xTF32 one
+            r["cuda_core_bound_ms"] = t["cuda_core_bound_ms"]
+        return r
 
     rows = [
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
@@ -1042,16 +1225,19 @@ def main() -> int:
             inference["fwd_simt"] + f32_train["fwd_simt"], fwd32),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
             train["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
+        row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
+            f32_train["dkv_tf32x3"], bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
-            f32_train["dkv_simt"], bwd["float32"]["dkv"]),
+            simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
+        row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
+            f32_train["dq_tf32x3"], bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
-            f32_train["dq_simt"], bwd["float32"]["dq"]),
+            simt_path["dq_simt"], bwd32["dq_simt"]),
     ]
-    for name, r in zip(("fwd sm90", "fwd SIMT", "dkv sm90", "dkv SIMT", "dq sm90", "dq SIMT"),
-                       rows):
-        check(r["launches"] > 0, f"the {name} kernel was launched no time on its path")
+    for r in rows:
+        check(r["launches"] > 0, f"the {r['name']} kernel was launched no time on its path")
     for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):
         t = update[kind]
         rows.append({

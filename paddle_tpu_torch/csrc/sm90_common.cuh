@@ -1,13 +1,13 @@
 // Shared pieces of the port's Hopper (sm_90a) kernels: TMA tensor maps and
 // loads, mbarriers, wgmma with 128-byte-swizzled shared-memory descriptors.
 //
-// Used by flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu and
-// flash_attention_bwd_dq_sm90.cu.
+// Used by flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu,
+// flash_attention_bwd_dq_sm90.cu and flash_attention_bwd_tf32.cu.
 // Conventions every user keeps:
-//   - A tile in shared memory is one or more 64-column sub-tiles, each `rows`
-//     rows of 128 bytes (64 16-bit elements), written by TMA with
-//     CU_TENSOR_MAP_SWIZZLE_128B and starting on a 1024-byte boundary, so the
-//     descriptors below need no base offset.
+//   - A tile in shared memory is one or more sub-tiles 128 bytes wide (64
+//     16-bit or 32 f32 elements), each `rows` rows of 128 bytes, written by
+//     TMA with CU_TENSOR_MAP_SWIZZLE_128B and starting on a 1024-byte
+//     boundary, so the descriptors below need no base offset.
 //   - wgmma operands come from TMA-written shared memory or from registers.
 //     No thread writes shared memory that wgmma reads; where one does,
 //     fence_proxy_async() must come between the write and the wgmma.
@@ -69,17 +69,18 @@ inline cudaError_t encode_tiled(EncodeTiled* out) {
 constexpr int ENCODE_ERROR_BASE = 100000;
 
 // A TMA map of one [B, S, H, D] tensor, for tiles of `rows` sequence
-// positions x 64 head-dim elements of one (batch, head). The map's dims are
-// the head dim first, then H, S and B ordered by stride (a size-1 dim gets a
-// stride past the others: its coordinate is always 0); `slot_*` say where each
-// coordinate goes. Columns past D and rows past S read as zeros.
+// positions x 128 bytes of head dim (64 16-bit or 32 f32 elements) of one
+// (batch, head). The map's dims are the head dim first, then H, S and B
+// ordered by stride (a size-1 dim gets a stride past the others: its
+// coordinate is always 0); `slot_*` say where each coordinate goes. Columns
+// past D and rows past S read as zeros.
 struct TileMap {
   CUtensorMap map;
   int slot_h, slot_s, slot_b;
 };
 
-inline int make_tile_map(TileMap* tm, const void* base, bool f16, int B, int S, int H, int D,
-                         Strides st, int rows) {
+inline int make_map(TileMap* tm, const void* base, CUtensorMapDataType type, int elem_bytes,
+                    int B, int S, int H, int D, Strides st, int rows) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return (int)err;
@@ -100,22 +101,34 @@ inline int make_tile_map(TileMap* tm, const void* base, bool f16, int B, int S, 
     }
   cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
   cuuint64_t strides_bytes[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
+  cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1, 1, 1};
   cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   int* slot[3] = {&tm->slot_h, &tm->slot_s, &tm->slot_b};
   for (int i = 0; i < 3; ++i) {
     const int which = order[i];
     dims[i + 1] = (cuuint64_t)size[which];
-    strides_bytes[i] = (cuuint64_t)(stride[which] * 2);
+    strides_bytes[i] = (cuuint64_t)(stride[which] * elem_bytes);
     *slot[which] = i + 1;
     if (which == 1) box[i + 1] = (cuuint32_t)rows;
   }
-  CUresult res = encode(&tm->map,
-                        f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        4, const_cast<void*>(base), dims, strides_bytes, box, elem_strides,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult res = encode(&tm->map, type, 4, const_cast<void*>(base), dims, strides_bytes, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : ENCODE_ERROR_BASE + (int)res;
+}
+
+// The map of a bf16 (fp16 if `f16`) tensor: 64-element sub-tiles.
+inline int make_tile_map(TileMap* tm, const void* base, bool f16, int B, int S, int H, int D,
+                         Strides st, int rows) {
+  const CUtensorMapDataType type =
+      f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return make_map(tm, base, type, 2, B, S, H, D, st, rows);
+}
+
+// The map of an f32 tensor: 32-element sub-tiles.
+inline int make_tile_map_f32(TileMap* tm, const void* base, int B, int S, int H, int D,
+                             Strides st, int rows) {
+  return make_map(tm, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, S, H, D, st, rows);
 }
 
 // ----------------------------------------------------------------------------

@@ -13,16 +13,20 @@ to its plain version.
     from the saved lse and ``delta = rowsum(dO∘O)``; plain version
     ``bwd_plain``.
 
-Each of the three has two kernels, and ``sm90_eligible`` picks one per
-launch from the tensors alone, before anything is built:
+The kernels are picked per launch from the tensors alone, before anything
+is built, by ``sm90_eligible`` and (backward only) ``tf32x3_eligible``:
 
   - route ``"sm90"`` (``csrc/flash_attention_fwd_sm90.cu``,
     ``csrc/flash_attention_bwd_dkv_sm90.cu``,
     ``csrc/flash_attention_bwd_dq_sm90.cu``): the tensor cores through
     ``wgmma``, fed by TMA, for bf16 and fp16 inputs that TMA can read;
+  - route ``"tf32x3"`` (``csrc/flash_attention_bwd_tf32.cu``, dK/dV and dQ):
+    the tensor cores through ``mma.sync`` in 3xTF32, as accurate as f32, fed
+    by TMA, for f32 inputs that TMA can read;
   - route ``"simt"`` (``csrc/flash_attention_fwd.cu``,
     ``csrc/flash_attention_bwd.cu``): f32 FMAs on the CUDA cores, for every
-    other input the kernels accept (f32, a ragged head dim, odd strides).
+    other input the kernels accept (the f32 forward, a ragged head dim, odd
+    strides).
 
 dkv and dq decide on the same ``(q, k, v, dO)``, so both backward kernels of
 one call take one route. Each wrapper counts its launches in ``launches``
@@ -51,7 +55,8 @@ BWD_KERNEL_NAME = "flash_attention_bwd"
 SM90_FWD_KERNEL_NAME = "flash_attention_fwd_sm90"
 SM90_DKV_KERNEL_NAME = "flash_attention_bwd_dkv_sm90"
 SM90_DQ_KERNEL_NAME = "flash_attention_bwd_dq_sm90"
-ROUTES = ("sm90", "simt")
+TF32_BWD_KERNEL_NAME = "flash_attention_bwd_tf32"
+ROUTES = ("sm90", "tf32x3", "simt")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -67,28 +72,56 @@ def supports(seq_len: int, head_dim: int) -> bool:
     return seq_len >= 1 and head_dim >= 1
 
 
-def sm90_eligible(tensors) -> bool:
-    """Whether the sm90 (wgmma + TMA) kernels take these ``[b, s, h, d]``
-    inputs (q, k, v, and dO for dkv and dq); the SIMT kernels take every other.
-
-    They need bf16 or fp16, one dtype for all; a head dim that is a multiple
-    of 16 in [16, 128]; and what TMA reads: head-dim stride 1, every other
-    stride a positive multiple of 8 elements (16 bytes), every base pointer
-    16-byte aligned. The stride of a size-1 dim is never read, so it is not
-    checked. The fused-qkv views of ``models/gpt.py`` qualify. Pure Python on
-    the tensors' metadata: it neither builds nor launches anything."""
+def _tma_tiles(tensors, dtypes, d_step) -> bool:
+    """Whether ``[b, s, h, d]`` tensors of one dtype among ``dtypes`` have a
+    head dim that is a multiple of ``d_step`` in [d_step, 128], and what TMA
+    reads: head-dim stride 1, every other stride a positive multiple of 16
+    bytes, every base pointer 16-byte aligned. The stride of a size-1 dim is
+    never read, so it is not checked."""
     dtype = tensors[0].dtype
-    if dtype not in (torch.bfloat16, torch.float16):
+    if dtype not in dtypes:
         return False
+    stride_step = 16 // dtype.itemsize
     for t in tensors:
         if t.dtype != dtype or t.dim() != 4:
             return False
         d = t.shape[-1]
-        if d % 16 or not 16 <= d <= 128 or t.stride(-1) != 1 or t.data_ptr() % 16:
+        if d % d_step or not d_step <= d <= 128 or t.stride(-1) != 1 or t.data_ptr() % 16:
             return False
-        if any(n > 1 and (st <= 0 or st % 8) for n, st in zip(t.shape[:3], t.stride()[:3])):
+        if any(n > 1 and (st <= 0 or st % stride_step)
+               for n, st in zip(t.shape[:3], t.stride()[:3])):
             return False
     return True
+
+
+def sm90_eligible(tensors) -> bool:
+    """Whether the sm90 (wgmma + TMA) kernels take these ``[b, s, h, d]``
+    inputs (q, k, v, and dO for dkv and dq).
+
+    They need bf16 or fp16, one dtype for all; a head dim that is a multiple
+    of 16 in [16, 128]; and TMA's strides (multiples of 8 elements) and
+    alignment. The fused-qkv views of ``models/gpt.py`` qualify. Pure Python
+    on the tensors' metadata: it neither builds nor launches anything."""
+    return _tma_tiles(tensors, (torch.bfloat16, torch.float16), 16)
+
+
+def tf32x3_eligible(tensors) -> bool:
+    """Whether the 3xTF32 backward kernels take these ``[b, s, h, d]``
+    inputs (q, k, v, dO); the SIMT kernels take what neither this nor
+    ``sm90_eligible`` takes.
+
+    They need f32 for all; a head dim that is a multiple of 8 in [8, 128];
+    and TMA's strides (multiples of 4 elements) and alignment. The f32
+    fused-qkv views of ``models/gpt.py`` qualify. Pure Python on the
+    tensors' metadata."""
+    return _tma_tiles(tensors, (torch.float32,), 8)
+
+
+def _bwd_route(tensors) -> str:
+    """The route of both backward kernels for ``(q, k, v, dO)``."""
+    if sm90_eligible(tensors):
+        return "sm90"
+    return "tf32x3" if tf32x3_eligible(tensors) else "simt"
 
 
 def _scores(q, k, scale: float, causal: bool):
@@ -216,13 +249,33 @@ def _row_stats(name, lse, delta, q):
             )
 
 
+# The C entry of each kernel by route: (source name, symbol).
+_FWD_ENTRIES = {
+    "sm90": (SM90_FWD_KERNEL_NAME, "paddle_flash_attention_fwd_sm90"),
+    "simt": (KERNEL_NAME, "paddle_flash_attention_fwd"),
+}
+_DKV_ENTRIES = {
+    "sm90": (SM90_DKV_KERNEL_NAME, "paddle_flash_attention_bwd_dkv_sm90"),
+    "tf32x3": (TF32_BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dkv_tf32"),
+    "simt": (BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dkv"),
+}
+_DQ_ENTRIES = {
+    "sm90": (SM90_DQ_KERNEL_NAME, "paddle_flash_attention_bwd_dq_sm90"),
+    "tf32x3": (TF32_BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dq_tf32"),
+    "simt": (BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dq"),
+}
+
+
+def _entry(name, entries, route, n_ptr, n_strided):
+    if route not in entries:
+        raise ValueError(f"{name}: no kernel on route {route!r} (routes: {sorted(entries)})")
+    return _bind(*entries[route], n_ptr, n_strided)
+
+
 def _fwd_cuda(q, k, v, scale: float, causal: bool, route: str):
     _check_inputs("flash_attention_fwd", (q, k, v))
     b, s, h, d = q.shape
-    if route == "sm90":
-        fn = _bind(SM90_FWD_KERNEL_NAME, "paddle_flash_attention_fwd_sm90", 5, 4)
-    else:
-        fn = _bind(KERNEL_NAME, "paddle_flash_attention_fwd", 5, 4)
+    fn = _entry("flash_attention_fwd", _FWD_ENTRIES, route, 5, 4)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -261,10 +314,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, causal: bool, route: st
     _check_inputs(name, (q, k, v, do))
     _row_stats(name, lse, delta, q)
     b, s, h, d = q.shape
-    if route == "sm90":
-        fn = _bind(SM90_DKV_KERNEL_NAME, "paddle_flash_attention_bwd_dkv_sm90", 8, 6)
-    else:
-        fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dkv", 8, 6)
+    fn = _entry(name, _DKV_ENTRIES, route, 8, 6)
     dk = torch.empty((b, s, h, d), dtype=k.dtype, device=k.device)
     dv = torch.empty((b, s, h, d), dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
@@ -288,8 +338,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool)
     CUDA tensors launch the kernel of their route; CPU tensors run ``bwd_plain``."""
     _check_shapes("flash_attention_bwd_dkv", (q, k, v, do))
     if q.device.type == "cuda":
-        route = "sm90" if sm90_eligible((q, k, v, do)) else "simt"
-        return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, route)
+        return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
+                              _bwd_route((q, k, v, do)))
     if q.device.type == "cpu":
         return bwd_plain(q, k, v, do, lse, delta, scale, causal)[1:]
     raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
@@ -304,10 +354,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, causal: bool, route: str
     _check_inputs(name, (q, k, v, do))
     _row_stats(name, lse, delta, q)
     b, s, h, d = q.shape
-    if route == "sm90":
-        fn = _bind(SM90_DQ_KERNEL_NAME, "paddle_flash_attention_bwd_dq_sm90", 7, 5)
-    else:
-        fn = _bind(BWD_KERNEL_NAME, "paddle_flash_attention_bwd_dq", 7, 5)
+    fn = _entry(name, _DQ_ENTRIES, route, 7, 5)
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -330,8 +377,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     same inputs; CPU tensors run ``bwd_plain``."""
     _check_shapes("flash_attention_bwd_dq", (q, k, v, do))
     if q.device.type == "cuda":
-        route = "sm90" if sm90_eligible((q, k, v, do)) else "simt"
-        return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, route)
+        return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
+                            _bwd_route((q, k, v, do)))
     if q.device.type == "cpu":
         return bwd_plain(q, k, v, do, lse, delta, scale, causal)[0]
     raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")

@@ -124,9 +124,11 @@ def softmax_with_cross_entropy(
 ):
     """Log-softmax cross-entropy, with the mean or sum folded in when asked.
 
-    Hard labels are clipped below at 0 before the gather, and positions whose
-    label is ``ignore_index`` give 0. With ``reduction="none"`` the loss keeps
-    the class axis with size 1, as the JAX op does."""
+    Hard labels are clipped below at 0 before the gather; a label past the
+    last class gives NaN, as the JAX op's ``take_along_axis`` fill does, and
+    positions whose label is ``ignore_index`` give 0 (also an ``ignore_index``
+    past the last class). With ``reduction="none"`` the loss keeps the class
+    axis with size 1, as the JAX op does."""
     logp = torch.log_softmax(logits, dim=axis)
     if soft_label:
         loss = -torch.sum(label * logp, dim=axis, keepdim=True)
@@ -134,8 +136,10 @@ def softmax_with_cross_entropy(
         lab = label
         if lab.dim() == logits.dim():
             lab = lab.squeeze(axis)
-        picked = torch.gather(logp, axis, lab.clamp(min=0).long().unsqueeze(axis))
-        loss = -picked
+        n_classes = logp.shape[axis]
+        picked = torch.gather(logp, axis, lab.clamp(0, n_classes - 1).long().unsqueeze(axis))
+        loss = torch.where((lab >= n_classes).unsqueeze(axis),
+                           torch.full_like(picked, math.nan), -picked)
         valid = (lab != ignore_index).unsqueeze(axis)
         loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":

@@ -16,6 +16,8 @@ from paddle_tpu_torch.ops.kernels import _build
 SIMT_SOURCES = ["flash_attention_fwd", "flash_attention_bwd", "fused_update"]
 SM90_SOURCES = ["flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90",
                 "flash_attention_bwd_dq_sm90"]
+# every source that includes sm90_common.cuh (TMA maps, mbarriers)
+TMA_SOURCES = SM90_SOURCES + ["flash_attention_bwd_tf32"]
 
 
 @pytest.fixture
@@ -42,9 +44,9 @@ def test_a_source_without_local_headers_hashes_its_own_bytes_and_the_flags(csrc,
     assert _build.library_path(name) != path
 
 
-@pytest.mark.parametrize("name", SM90_SOURCES)
+@pytest.mark.parametrize("name", TMA_SOURCES)
 def test_editing_an_included_header_moves_the_library(csrc, name):
-    before = {n: _build.library_path(n) for n in SM90_SOURCES + SIMT_SOURCES}
+    before = {n: _build.library_path(n) for n in TMA_SOURCES + SIMT_SOURCES}
     _touch(csrc / "sm90_common.cuh")
     assert _build.library_path(name) != before[name]
     for other in SIMT_SOURCES:
@@ -65,7 +67,7 @@ def test_headers_are_followed_through_headers_each_once(csrc):
 
 
 def test_the_flags_are_part_of_every_path(csrc, monkeypatch):
-    before = {n: _build.library_path(n) for n in SM90_SOURCES + SIMT_SOURCES}
+    before = {n: _build.library_path(n) for n in TMA_SOURCES + SIMT_SOURCES}
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
     for name, path in before.items():
         assert _build.library_path(name) != path
@@ -75,7 +77,7 @@ def test_the_sm90_sources_include_the_common_header():
     header = os.path.join(_build.CSRC, "sm90_common.cuh")
     with open(header, "rb") as f:
         data = f.read()
-    for name in SM90_SOURCES:
+    for name in TMA_SOURCES:
         assert data in _build._sources(name)
     for name in SIMT_SOURCES:
         assert len(_build._sources(name)) == 1

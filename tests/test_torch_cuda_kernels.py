@@ -13,7 +13,8 @@ on the same input must give bitwise-equal gradients. The fused-update
 kernels are held to their plain versions bit for bit, the reference's own
 contract for kernel against rule (tests/test_pallas_update.py). The flash
 forward, dK/dV and dQ cases check the route each launch took: the sm90
-(wgmma) kernels for bf16 and fp16 inputs TMA can read, the SIMT kernels
+(wgmma) kernels for bf16 and fp16 inputs TMA can read, the tf32x3 (3xTF32
+mma.sync) backward kernels for f32 inputs TMA can read, the SIMT kernels
 otherwise.
 """
 import copy
@@ -136,6 +137,11 @@ def test_flash_bwd_kernels_match_plain_and_repeat_bitwise(shape, causal, dtype, 
         assert (got.float() - want.float()).abs().max().item() <= GRAD_TOL[dtype]
 
 
+def _plus(counts, route, n):
+    """``counts`` (launches by route) with n more on ``route``."""
+    return {r: c + (n if r == route else 0) for r, c in counts.items()}
+
+
 # The sm90 (wgmma + TMA) route: the main path's shapes with GPT's fused-qkv
 # views, a ragged S, a non-causal D = 128 and one tile with D = 16.
 SM90_CASES = [
@@ -168,12 +174,9 @@ def test_sm90_kernels_match_plain_and_repeat_bitwise(shape, causal, fused, dtype
     o_p, lse_p = tfa.fwd_plain(q, k, v, scale, causal)
     dq_p, dk_p, dv_p = tfa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
     torch.cuda.synchronize()
-    assert tfa.flash_attention_fwd.launches_by_route == {
-        "sm90": fwd_routes["sm90"] + 1, "simt": fwd_routes["simt"]}
-    assert tfa.flash_attention_bwd_dkv.launches_by_route == {
-        "sm90": dkv_routes["sm90"] + 2, "simt": dkv_routes["simt"]}
-    assert tfa.flash_attention_bwd_dq.launches_by_route == {
-        "sm90": dq_routes["sm90"] + 2, "simt": dq_routes["simt"]}
+    assert tfa.flash_attention_fwd.launches_by_route == _plus(fwd_routes, "sm90", 1)
+    assert tfa.flash_attention_bwd_dkv.launches_by_route == _plus(dkv_routes, "sm90", 2)
+    assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(dq_routes, "sm90", 2)
     assert o.dtype == dtype and tuple(o.shape) == shape
     assert (o.float() - o_p.float()).abs().max().item() <= TOL[dtype]
     assert (lse - lse_p).abs().max().item() <= TOL[dtype]
@@ -185,32 +188,80 @@ def test_sm90_kernels_match_plain_and_repeat_bitwise(shape, causal, fused, dtype
 
 @pytest.mark.cuda
 def test_simt_route_takes_what_sm90_refuses():
-    """f32, a ragged head dim and a stride that is not a multiple of 8 go to
-    the CUDA-core kernels, counted on their route: the forward and dQ."""
+    """The forward of what sm90 refuses (f32, a ragged head dim, a stride
+    that is not a multiple of 8) runs on the CUDA cores; dQ of it runs on the
+    tf32x3 route where that takes it (f32 that TMA reads) and on the CUDA
+    cores where it does not (16-bit types, f32 with a head dim that is not a
+    multiple of 8 or a stride that is not a multiple of 4)."""
     card = _card()
-    cases = [
-        torch.randn(1, 128, 2, 64, device=card),  # f32
-        torch.randn(1, 128, 2, 40, device=card).bfloat16(),  # D % 16 != 0
-        torch.randn(1, 128, 2, 70, device=card).bfloat16()[..., :64],  # h stride 70
+    cases = [  # (x, the backward's route)
+        (torch.randn(1, 128, 2, 64, device=card), "tf32x3"),  # f32
+        (torch.randn(1, 128, 2, 40, device=card).bfloat16(), "simt"),  # D % 16 != 0
+        (torch.randn(1, 128, 2, 70, device=card).bfloat16()[..., :64], "simt"),  # h stride 70
+        (torch.randn(1, 128, 2, 20, device=card), "simt"),  # f32, D % 8 != 0
+        (torch.randn(1, 128, 2, 70, device=card)[..., :64], "simt"),  # f32, h stride 70
     ]
-    for x in cases:
+    for x, bwd_route in cases:
         assert not tfa.sm90_eligible((x, x, x))
         before = dict(tfa.flash_attention_fwd.launches_by_route)
         o, lse = tfa.flash_attention_fwd(x, x, x, 0.125, True)
         o_p, _ = tfa.fwd_plain(x, x, x, 0.125, True)
         torch.cuda.synchronize()
-        assert tfa.flash_attention_fwd.launches_by_route == {
-            "sm90": before["sm90"], "simt": before["simt"] + 1}
+        assert tfa.flash_attention_fwd.launches_by_route == _plus(before, "simt", 1)
         assert (o.float() - o_p.float()).abs().max().item() <= TOL[x.dtype]
         assert not tfa.sm90_eligible((x, x, x, x))
+        assert tfa.tf32x3_eligible((x, x, x, x)) == (bwd_route == "tf32x3")
         delta = tfa.bwd_delta(o, x)
         before = dict(tfa.flash_attention_bwd_dq.launches_by_route)
         dq = tfa.flash_attention_bwd_dq(x, x, x, x, lse, delta, 0.125, True)
         dq_p = tfa.bwd_plain(x, x, x, x, lse, delta, 0.125, True)[0]
         torch.cuda.synchronize()
-        assert tfa.flash_attention_bwd_dq.launches_by_route == {
-            "sm90": before["sm90"], "simt": before["simt"] + 1}
+        assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(before, bwd_route, 1)
         assert (dq.float() - dq_p.float()).abs().max().item() <= GRAD_TOL[x.dtype]
+
+
+# The tf32x3 route (3xTF32 on mma.sync, fed by TMA): GPT's f32 fused-qkv
+# views at the 345M training shape and a small one, a ragged S with D = 24,
+# D = 128 and a non-causal case. Its error against the f32 plain version is
+# expected near 1e-5 (an f32 product's); one above 1e-4 means a dropped split
+# term or a wrong reduction-index permutation, though 2e-3 is the tolerance.
+TF32_CASES = [
+    ((8, 1024, 16, 64), True, True),
+    ((2, 256, 4, 64), True, True),
+    ((1, 600, 2, 24), True, True),
+    ((1, 512, 2, 128), True, False),
+    ((1, 128, 2, 32), False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,fused", TF32_CASES)
+def test_tf32x3_kernels_match_plain_and_repeat_bitwise(shape, causal, fused):
+    q, k, v = _qkv(shape, torch.float32, fused, seed=6)
+    rng = np.random.default_rng(7)
+    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(_card())
+    scale = shape[-1] ** -0.5
+    assert tfa.tf32x3_eligible((q, k, v, do)) and not tfa.sm90_eligible((q, k, v, do))
+    o, lse = tfa.fwd_plain(q, k, v, scale, causal)
+    delta = tfa.bwd_delta(o, do)
+    dkv_routes = dict(tfa.flash_attention_bwd_dkv.launches_by_route)
+    dq_routes = dict(tfa.flash_attention_bwd_dq.launches_by_route)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dk2, dv2 = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq2 = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    ref = tfa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention_bwd_dkv.launches_by_route == _plus(dkv_routes, "tf32x3", 2)
+    assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(dq_routes, "tf32x3", 2)
+    errs = [(got - want).abs().max().item() for got, want in zip((dq, dk, dv), ref)]
+    print(f"tf32x3 {shape} causal={causal}: max|d dQ|={errs[0]:.3e} max|d dK|={errs[1]:.3e} "
+          f"max|d dV|={errs[2]:.3e}")
+    for got, again, err in zip((dq, dk, dv), (dq2, dk2, dv2), errs):
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, again)
+        assert err <= GRAD_TOL[torch.float32]
 
 
 @pytest.mark.cuda
@@ -220,11 +271,17 @@ def test_flash_attention_autograd_runs_the_backward_kernels():
                                                              False, seed=3))
     before = (tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd_dkv.launches,
               tfa.flash_attention_bwd_dq.launches)
+    routes = [dict(fn.launches_by_route) for fn in (
+        tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq)]
     out = tfa.flash_attention(q, k, v, causal=True)
     grads = torch.autograd.grad((out * out).sum(), (q, k, v))
     torch.cuda.synchronize()
     assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd_dkv.launches,
             tfa.flash_attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+    # f32: the forward on the CUDA cores, both backward kernels in 3xTF32
+    assert tfa.flash_attention_fwd.launches_by_route == _plus(routes[0], "simt", 1)
+    assert tfa.flash_attention_bwd_dkv.launches_by_route == _plus(routes[1], "tf32x3", 1)
+    assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(routes[2], "tf32x3", 1)
     qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))
     out_c = tfa.flash_attention(qc, kc, vc, causal=True)
     ref = torch.autograd.grad((out_c * out_c).sum(), (qc, kc, vc))

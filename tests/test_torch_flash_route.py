@@ -1,11 +1,14 @@
-"""Which flash-attention kernel a launch takes: ``sm90_eligible``.
+"""Which flash-attention kernel a launch takes: ``sm90_eligible`` and
+``tf32x3_eligible``.
 
-The forward, dK/dV and dQ have two kernels each on the card: the sm90 route
-(wgmma, fed by TMA) for bf16 and fp16 inputs that TMA can read, and the SIMT
-route (f32 FMAs on the CUDA cores) for every other input. ``sm90_eligible``
-decides from the tensors' metadata alone, so these tests run on the CPU; the
-card tests (tests/test_torch_cuda_kernels.py) check that each launch took the
-route it names.
+The forward has two kernels on the card and dK/dV and dQ three each: the
+sm90 route (wgmma, fed by TMA) for bf16 and fp16 inputs that TMA can read,
+the tf32x3 route (backward only: mma.sync in 3xTF32, fed by TMA) for f32
+inputs that TMA can read, and the SIMT route (f32 FMAs on the CUDA cores)
+for every other input. The eligibility functions decide from the tensors'
+metadata alone, so these tests run on the CPU; the card tests
+(tests/test_torch_cuda_kernels.py) check that each launch took the route it
+names.
 """
 import pytest
 import torch
@@ -108,12 +111,80 @@ def test_the_stride_of_a_size_1_dim_is_not_read():
     assert tfa.sm90_eligible((x, x, x))
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+def test_tf32x3_takes_the_345m_f32_fused_qkv_views(batch):
+    q, k, v = _fused_qkv(batch, 1024, 16, 64, torch.float32)
+    assert q.stride() == (1024 * 3 * 16 * 64, 3 * 16 * 64, 3 * 64, 1)
+    assert (k.data_ptr() - q.data_ptr(), v.data_ptr() - q.data_ptr()) == (256, 512)
+    do = torch.empty(batch, 1024, 16, 64)
+    assert tfa.tf32x3_eligible((q, k, v, do))
+    assert not tfa.sm90_eligible((q, k, v, do))
+
+
+@pytest.mark.parametrize("d", [8 * i for i in range(1, 17)])
+def test_tf32x3_takes_every_multiple_of_8_up_to_128(d):
+    x = torch.empty(2, 100, 3, d)
+    assert tfa.tf32x3_eligible((x, x, x, x))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tf32x3_refuses_16_bit_types(dtype):
+    x = torch.empty(1, 128, 2, 64, dtype=dtype)
+    assert not tfa.tf32x3_eligible((x, x, x, x))
+
+
+@pytest.mark.parametrize("d", [4, 5, 12, 20, 100, 136, 160, 256])
+def test_tf32x3_refuses_a_head_dim_it_has_no_tile_for(d):
+    x = torch.empty(1, 128, 2, d)
+    assert not tfa.tf32x3_eligible((x, x, x, x))
+
+
+@pytest.mark.parametrize("strides", [
+    (128 * 128 + 2, 128, 64, 1),  # batch
+    (128 * 130, 130, 64, 1),  # sequence: rows padded by 2 elements
+    (128 * 132, 132, 66, 1),  # head: heads padded by 2 elements
+])
+def test_tf32x3_refuses_a_stride_that_is_not_a_multiple_of_4(strides):
+    shape = (2, 128, 2, 64)
+    x = torch.empty(2 * 128 * 136).as_strided(shape, strides)
+    q = torch.empty(shape)
+    assert tfa.tf32x3_eligible((q, q, q, q))
+    assert not tfa.tf32x3_eligible((q, x, q, q))
+
+
+def test_tf32x3_takes_a_stride_that_is_a_multiple_of_4_but_not_of_8():
+    shape = (2, 128, 2, 64)
+    x = torch.empty(2 * 128 * 132).as_strided(shape, (128 * 132, 132, 64, 1))
+    assert tfa.tf32x3_eligible((x, x, x, x))
+
+
+def test_tf32x3_refuses_a_head_dim_stride_other_than_1():
+    x = torch.empty(1, 128, 2, 128)[..., ::2]
+    assert x.shape[-1] == 64 and x.stride(-1) == 2
+    assert not tfa.tf32x3_eligible((x, x, x, x))
+
+
+def test_tf32x3_refuses_a_base_four_bytes_off_16_byte_alignment():
+    shape = (1, 128, 2, 64)
+    q = _offset_view(shape, torch.float32, 0)
+    k = _offset_view(shape, torch.float32, 1)
+    assert q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 4
+    assert tfa.tf32x3_eligible((q, q, q, q))
+    assert not tfa.tf32x3_eligible((q, k, q, q))
+
+
+def test_tf32x3_refuses_mixed_dtypes():
+    q = torch.empty(1, 128, 2, 64)
+    assert not tfa.tf32x3_eligible((q, q, q, q.double()))
+    assert not tfa.tf32x3_eligible((q, q, q, q.bfloat16()))
+
+
 WRAPPERS = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq)
 
 
 def test_every_route_has_a_counter():
     for fn in WRAPPERS:
-        assert set(fn.launches_by_route) == set(tfa.ROUTES) == {"sm90", "simt"}
+        assert set(fn.launches_by_route) == set(tfa.ROUTES) == {"sm90", "tf32x3", "simt"}
 
 
 class _ReportsCard:
@@ -148,11 +219,36 @@ def _routes_taken(monkeypatch, q, k, v, do):
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"), (torch.float16, "sm90"),
-                                         (torch.float32, "simt")])
+                                         (torch.float32, "tf32x3")])
 def test_dq_and_dkv_take_one_route_for_the_345m_fused_qkv_views(monkeypatch, dtype, route):
     q, k, v = _fused_qkv(8, 1024, 16, 64, dtype)
     do = torch.empty(8, 1024, 16, 64, dtype=dtype)
     assert _routes_taken(monkeypatch, q, k, v, do) == {"dkv": route, "dq": route}
+
+
+def test_dq_and_dkv_take_simt_for_an_f32_head_dim_over_128(monkeypatch):
+    q, k, v = _fused_qkv(1, 200, 2, 160, torch.float32)
+    do = torch.empty(1, 200, 2, 160)
+    assert _routes_taken(monkeypatch, q, k, v, do) == {"dkv": "simt", "dq": "simt"}
+
+
+def test_dq_and_dkv_take_simt_when_an_f32_do_is_refused(monkeypatch):
+    q, k, v = _fused_qkv(2, 128, 2, 64, torch.float32)
+    do = torch.ones(()).expand(q.shape)  # stride 0: not TMA's
+    assert _routes_taken(monkeypatch, q, k, v, do) == {"dkv": "simt", "dq": "simt"}
+
+
+def test_a_route_without_that_kernel_raises_before_any_build(monkeypatch):
+    def no_build(*args):
+        raise AssertionError("nothing may be built")
+
+    monkeypatch.setattr(tfa, "_bind", no_build)
+    x = torch.empty(1, 64, 1, 64)
+    with pytest.raises(ValueError, match="no kernel on route 'tf32x3'"):
+        tfa._fwd_cuda(x, x, x, 0.125, True, "tf32x3")
+    with pytest.raises(ValueError, match="no kernel on route 'wgmma'"):
+        tfa._bwd_dq_cuda(x, x, x, x, torch.empty(1, 1, 64), torch.empty(1, 1, 64), 0.125, True,
+                         "wgmma")
 
 
 def test_dq_and_dkv_take_one_route_when_do_is_refused(monkeypatch):

@@ -7,6 +7,7 @@ port its kernels' plain versions. Weights go from the JAX model into the port
 by ``convert.state_dict_from_numpy``; token ids and logits come from numpy
 with a seed. Each tolerance is stated where it is used, with its reason.
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -94,6 +95,48 @@ def test_cross_entropy_and_its_gradient(reduction, ignore_index):
     np.testing.assert_allclose(tloss.detach().numpy(), jloss.numpy(), **TOL_LOSS)
     jloss.sum().backward()
     tloss.sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), jx.grad.numpy(), **TOL_LOSS)
+
+
+# Labels at or past the class count C = 5: an ignore_index of C gives 0 in
+# its row, and a label past the last class that is not ignored gives NaN in
+# its row only (the JAX op's take_along_axis fill), with a zero gradient row.
+@pytest.mark.parametrize("labels,ignore_index,nan_rows", [
+    ([1, 5, 2], 5, [False, False, False]),
+    ([1, 7, 2], 5, [False, True, False]),
+    ([1, 5, 2], -100, [False, True, False]),
+])
+def test_softmax_with_cross_entropy_labels_past_the_class_count(labels, ignore_index, nan_rows):
+    logits = np.random.default_rng(8).standard_normal((3, 5)).astype(np.float32)
+    labels = np.asarray(labels)
+
+    def jloss(x):
+        return jnn.softmax_with_cross_entropy(x, labels, ignore_index=ignore_index)
+
+    ref = np.asarray(jloss(logits))
+    jgrad = np.asarray(jax.grad(lambda x: jloss(x).sum())(logits))
+    tx = torch.from_numpy(logits).requires_grad_()
+    out = tnn.softmax_with_cross_entropy(tx, torch.from_numpy(labels), ignore_index=ignore_index)
+    out.sum().backward()
+    assert np.isnan(ref[:, 0]).tolist() == nan_rows
+    np.testing.assert_array_equal(np.isnan(out.detach().numpy()), np.isnan(ref))
+    np.testing.assert_allclose(out.detach().numpy(), ref, **TOL_LOSS)
+    assert np.isfinite(jgrad).all() and np.isfinite(tx.grad.numpy()).all()
+    np.testing.assert_allclose(tx.grad.numpy(), jgrad, **TOL_LOSS)
+
+
+@pytest.mark.parametrize("reduction", ["none", "mean", "sum"])
+def test_cross_entropy_with_an_ignore_index_at_the_class_count(reduction):
+    logits, labels = _logits_labels(seed=9, ignore_index=11)  # C = 11
+    assert (labels == 11).any()
+    jx = paddle.to_tensor(logits, stop_gradient=False)
+    jl = JF.cross_entropy(jx, paddle.to_tensor(labels), ignore_index=11, reduction=reduction)
+    tx = torch.from_numpy(logits).requires_grad_()
+    tl = TF.cross_entropy(tx, torch.from_numpy(labels), ignore_index=11, reduction=reduction)
+    assert np.isfinite(tl.detach().numpy()).all()
+    np.testing.assert_allclose(tl.detach().numpy(), jl.numpy(), **TOL_LOSS)
+    jl.sum().backward()
+    tl.sum().backward()
     np.testing.assert_allclose(tx.grad.numpy(), jx.grad.numpy(), **TOL_LOSS)
 
 
