@@ -9,15 +9,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build the hand-written kernels from ``paddle_tpu_torch/csrc`` with nvcc,
      one process per source, all at once; print each kernel's registers and
      spills, and count the ``HGMMA`` (wgmma) instructions in each sm90 library
-     and the TF32 ``HMMA`` (mma.sync) instructions in the tf32x3 one;
+     and the TF32 ``HMMA`` (mma.sync) instructions, and all instructions per
+     HMMA (in the library, in each kernel and in its tile loop), in the two
+     tf32x3 ones;
   3. hold the flash forward against its plain PyTorch version on the card, on
-     both routes (sm90: wgmma + TMA for bf16/fp16; simt: CUDA cores, f32 and
-     the shapes sm90 refuses), at the main path's shapes and at ragged,
-     non-causal and narrow ones, check the route each launch took, and time
-     the sm90 and SIMT kernels, the plain version and the PyTorch library call;
+     its three routes (sm90: wgmma + TMA for bf16/fp16; tf32x3: 3xTF32
+     mma.sync + TMA for f32; simt: CUDA cores, the shapes neither takes), at
+     the main path's shapes and at ragged, non-causal, wide-head and narrow
+     ones, check the route each launch took and that a second forward is
+     bitwise equal, and time the kernels (the case's route and SIMT), the
+     plain version and the PyTorch library call;
   4. the full-sequence forward of GPT-2 345M (random weights from a seed) at
      4 x 1024 tokens through the flash kernel, against the dense path, in f32
-     (24 SIMT launches), then in bf16 (24 sm90 launches);
+     (24 tf32x3 launches), then in bf16 (24 sm90 launches);
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
   6. hold the flash backward kernels (dK/dV and dQ, each on its three
@@ -51,9 +55,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      with ``FLAGS_pallas_fused_update`` on, against a deep copy stepped with
      the flag off: bitwise-equal losses, parameters and moments, one Adam
      kernel launch per parameter per step, and ``opt.step()`` and the
-     forward + backward timed; in f32 the flash forward runs on the SIMT
-     route and both backward kernels on the tf32x3 route; then the forward +
-     backward with the flash backward on tf32x3 and forced to SIMT, in turns;
+     forward + backward timed; in f32 the flash forward and both backward
+     kernels run on the tf32x3 route; then the forward + backward with the
+     flash kernels on their route, with the forward forced to SIMT and with
+     the backward forced to SIMT, in turns;
  11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
      full width and 4 layers, 3 steps each;
  12. one JSON line of per-kernel numbers, then the result line.
@@ -218,33 +223,68 @@ TOL_EAGER_VS_GRAPH = 1e-2
 
 FWD_MAIN_SHAPE = (4, 1024, 16, 64)  # the 345M forward: batch 4 x 1024, 16 heads of 64
 
+# f32 attention the tensor-core routes refuse: a head dim over 128 and a
+# ragged one (shape, causal)
+SIMT_PATH_CASES = [((1, 200, 2, 160), True), ((1, 7, 1, 5), True)]
+
 
 def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def fwd_route(fa, tensors):
-    """The forward's route for (q, k, v), from the eligibility function."""
-    return "sm90" if fa.sm90_eligible(tensors) else "simt"
-
-
-def bwd_route(fa, tensors):
-    """The backward's route for (q, k, v, dO), from the eligibility functions."""
+def route_of(fa, tensors):
+    """The route of the forward for (q, k, v), or of the backward for
+    (q, k, v, dO), from the eligibility functions."""
     if fa.sm90_eligible(tensors):
         return "sm90"
     return "tf32x3" if fa.tf32x3_eligible(tensors) else "simt"
 
 
+def sass_counts(cuobjdump, library):
+    """{kernel: (TF32 HMMA instructions, all instructions, instructions in the
+    loop around the HMMAs)} of each kernel function in a library's SASS, a
+    static count: each instruction once, however often it runs. The loop is
+    the shortest span from a backward branch's target to the branch that
+    holds every HMMA: the key- or query-tile loop, with both sides of any
+    branch inside it. A kernel is named as ``dq_tf32_kernel<64>``."""
+    sass = subprocess.run([cuobjdump, "-sass", library], check=True, capture_output=True,
+                          text=True).stdout
+    code, name = {}, None  # kernel -> [(address, instruction text)]
+    for line in sass.splitlines():
+        function = re.search(r"Function : (\S+)", line)
+        if function:
+            short = re.search(r"\d((?:fwd|dkv|dq)\w*_kernel)ILi(\d+)E", function.group(1))
+            name = f"{short.group(1)}<{short.group(2)}>" if short else function.group(1)
+            code[name] = []
+        elif name:
+            at = re.search(r"/\*([0-9a-f]{4,})\*/(.*?);", line)
+            if at:
+                code[name].append((int(at.group(1), 16), at.group(2)))
+    counts = {}
+    for name, lines in code.items():
+        hmma = [a for a, text in lines if "HMMA" in text and "TF32" in text]
+        loops = [(target, a) for a, text in lines
+                 for target in [int(t, 16) for t in re.findall(r"BRA.*?0x([0-9a-f]+)", text)]
+                 if hmma and target <= hmma[0] and a >= hmma[-1]]
+        first, last = min(loops, key=lambda span: span[1] - span[0]) if loops else (0, -1)
+        counts[name] = (len(hmma), len(lines), sum(first <= a <= last for a, _ in lines))
+    return counts
+
+
 def check_forward_kernels(torch, fa, gen, dev):
-    """Phase 3: the forward on both routes against ``fwd_plain``; the route of
-    each launch; timings of both routes, the plain version and SDPA at the
-    main shapes. Returns {(shape, dtype): numbers}."""
-    print("[3] flash_attention_fwd vs plain, sm90 and SIMT routes")
+    """Phase 3: the forward on its three routes against ``fwd_plain``; the
+    route of each launch and a second forward bitwise equal; timings of the
+    case's route and SIMT, the plain version and SDPA at the main shapes.
+    Returns {(shape, dtype): numbers}."""
+    print("[3] flash_attention_fwd vs plain, sm90, tf32x3 and SIMT routes")
     cases = [  # (shape, causal, dtype, layout)
         (FWD_MAIN_SHAPE, True, torch.float32, "fused"),
-        ((1, 600, 2, 24), True, torch.float32, "fused"),
-        ((1, 128, 2, 32), False, torch.float32, "contiguous"),
+        ((1, 600, 2, 24), True, torch.float32, "fused"),  # ragged S
+        ((1, 128, 2, 32), False, torch.float32, "contiguous"),  # non-causal
+        ((1, 512, 2, 128), True, torch.float32, "contiguous"),  # D = 128
     ]
+    # what the tensor-core routes refuse: the SIMT kernel
+    cases += [(shape, causal, torch.float32, "contiguous") for shape, causal in SIMT_PATH_CASES]
     for dtype in (torch.bfloat16, torch.float16):
         cases += [
             (FWD_MAIN_SHAPE, True, dtype, "fused"),
@@ -260,20 +300,23 @@ def check_forward_kernels(torch, fa, gen, dev):
         b, s, h, d = shape
         dname = dtype_name(dtype)
         q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
-        route = fwd_route(fa, (q, k, v))
+        route = route_of(fa, (q, k, v))
         scale = d ** -0.5
         before = dict(fa.flash_attention_fwd.launches_by_route)
         o_k, lse_k = fa.flash_attention_fwd(q, k, v, scale, causal)
+        o_2, lse_2 = fa.flash_attention_fwd(q, k, v, scale, causal)
         o_p, lse_p = fa.fwd_plain(q, k, v, scale, causal)
         torch.cuda.synchronize()
         took = {r: n - before[r] for r, n in fa.flash_attention_fwd.launches_by_route.items()}
         err_o = (o_k.float() - o_p.float()).abs().max().item()
         err_lse = (lse_k - lse_p).abs().max().item()
-        ok = err_o <= TOL[dname] and err_lse <= TOL[dname] and took[route] == 1
+        bitwise = torch.equal(o_k, o_2) and torch.equal(lse_k, lse_2)
+        ok = err_o <= TOL[dname] and err_lse <= TOL[dname] and bitwise
         print(f"  {shape} causal={causal} {dname} {layout}: route {route} "
-              f"({took}); max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} tol={TOL[dname]:g} "
-              f"{'ok' if ok else 'FAIL'}")
-        check(took[route] == 1, f"the forward at {shape} {dname} did not take the {route} route")
+              f"({took}); max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} tol={TOL[dname]:g}; "
+              f"second forward bitwise equal: {bitwise} {'ok' if ok else 'FAIL'}")
+        check(took[route] == 2 and sum(took.values()) == 2,
+              f"the forward at {shape} {dname} did not take the {route} route: {took}")
         check(ok, f"forward kernel disagrees with its plain version at {shape} {dname}")
         check(bool(torch.isfinite(o_k).all()), f"non-finite kernel output at {shape}")
         if (shape, dname) not in timed:
@@ -281,7 +324,12 @@ def check_forward_kernels(torch, fa, gen, dev):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         numbers = dict(max_abs_err=max(err_o, err_lse))
         numbers["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal))
-        if route == "sm90":  # the SIMT kernel on the same inputs, for comparison
+        if route != "simt":  # the SIMT kernel on the same inputs: its error and time
+            o_s, lse_s = fa._fwd_cuda(q, k, v, scale, causal, "simt")
+            numbers["simt_max_abs_err"] = max((o_s.float() - o_p.float()).abs().max().item(),
+                                              (lse_s - lse_p).abs().max().item())
+            check(numbers["simt_max_abs_err"] <= TOL[dname],
+                  f"the SIMT forward disagrees at {shape} {dname}")
             numbers["simt_ms"] = time_ms(
                 lambda: fa._fwd_cuda(q, k, v, scale, causal, "simt"))
         numbers["plain_ms"] = time_ms(lambda: fa.fwd_plain(q, k, v, scale, causal), reps=10)
@@ -289,12 +337,21 @@ def check_forward_kernels(torch, fa, gen, dev):
             qt, kt, vt, is_causal=causal, scale=scale))
         numbers.update(attention_bound_ms(b, s, h, d, dname, causal))
         out[(shape, dname)] = numbers
-        simt = f" simt_ms={numbers['simt_ms']:.4f}" if "simt_ms" in numbers else ""
+        simt = ""
+        if "simt_ms" in numbers:
+            simt = (f" simt_ms={numbers['simt_ms']:.4f} ({numbers['simt_ms'] / numbers['ms']:.2f}x "
+                    f"the {route} time, max|d|={numbers['simt_max_abs_err']:.3e})")
+            check_share(f"SIMT forward {shape} {dname}", numbers["bound_ms"], numbers["simt_ms"])
         print(f"  {shape} {dname}: kernel_ms={numbers['ms']:.4f} ({route}){simt} "
               f"plain_ms={numbers['plain_ms']:.4f} library_ms={numbers['library_ms']:.4f} "
-              f"(torch SDPA) {bound_text(numbers)}; "
-              f"kernel at {numbers['bound_ms'] / numbers['ms']:.1%} of bound")
+              f"(torch SDPA; {route} / SDPA {numbers['ms'] / numbers['library_ms']:.2f}x) "
+              f"{bound_text(numbers)}; kernel at {numbers['bound_ms'] / numbers['ms']:.1%} "
+              f"of bound")
         check_share(f"forward {shape} {dname}", numbers["bound_ms"], numbers["ms"])
+        if route == "tf32x3":
+            check(numbers["ms"] < numbers["simt_ms"],
+                  f"the tf32x3 forward ({numbers['ms']:.4f} ms) is not faster than the SIMT "
+                  f"forward ({numbers['simt_ms']:.4f} ms) at {shape}")
     return out
 
 
@@ -329,7 +386,7 @@ def check_backward_kernels(torch, fa, gen, dev):
         dname = dtype_name(dtype)
         q, k, v = qkv_on_card(shape, dtype, layout, gen, dev)
         do = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        route = bwd_route(fa, (q, k, v, do))
+        route = route_of(fa, (q, k, v, do))
         scale = d ** -0.5
         o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
         delta = fa.bwd_delta(o, do)
@@ -430,9 +487,6 @@ def check_backward_kernels(torch, fa, gen, dev):
     return out
 
 
-# f32 attention the tensor-core routes refuse: a head dim over 128 and a
-# ragged one (shape, causal)
-SIMT_PATH_CASES = [((1, 200, 2, 160), True), ((1, 7, 1, 5), True)]
 
 
 def simt_backward_path(torch, pt, fa, gen, dev):
@@ -642,6 +696,7 @@ def profile_replay(torch, step, x, y, n_layers):
                                  ("dkv_sm90", r"::dkv_sm90_kernel<", n_layers),
                                  ("dq_sm90", r"::dq_sm90_kernel<", n_layers),
                                  ("fwd (SIMT)", r"::fwd_kernel<", 0),
+                                 ("fwd (tf32x3)", r"::fwd_tf32_kernel<", 0),
                                  ("dkv (SIMT)", r"::dkv_kernel<", 0),
                                  ("dq (SIMT)", r"::dq_kernel<", 0),
                                  ("dkv (tf32x3)", r"::dkv_tf32_kernel<", 0),
@@ -794,9 +849,10 @@ def bitwise_same(torch, model_a, model_b, opt_a, opt_b):
 def train_f32_adam(torch, pt, fa, fu, gen, dev):
     """Phase 10: eager f32 GPT-2 345M with Adam through the fused kernel,
     against a flag-off copy; then the forward + backward of the step with the
-    flash backward on its route and forced to SIMT, in turns. Returns
-    ({"adam": launches over the path}, {"flash": flash launches over the
-    path, "fwd_bwd_ms", "fwd_bwd_simt_ms", "steps", "layers"})."""
+    flash kernels on their route, the forward forced to SIMT and the backward
+    forced to SIMT, in turns. Returns ({"adam": launches over the path},
+    {"flash": flash launches over the path, "fwd_bwd_ms", "turns": {config:
+    median ms}, "steps", "layers"})."""
     from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
 
     batch, steps, nan_at = 8, 6, 2
@@ -911,15 +967,19 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
           + " ".join(f"{v:.2f}" for v in fb_off))
     flash = flash_counts(fa)  # the f32 training path's flash count ends here
 
-    # what the tf32x3 route does to the step: forward + backward of the
-    # trained model with the flash backward on its route and forced to SIMT,
-    # in turns (route, SIMT, SIMT, route), two steps each
-    def fwd_bwd_ms(forced):
-        route_of = fa._bwd_route
-        if forced:
-            fa._bwd_route = lambda tensors: forced
+    # what the tf32x3 routes do to the step: forward + backward of the
+    # trained model with the flash kernels on their route, with the forward
+    # forced to SIMT and with the backward forced to SIMT (through
+    # `_fwd_route` and `_bwd_route`), in turns, two steps each
+    forced_by = {"route": (), "fwd_simt": ("_fwd_route",), "bwd_simt": ("_bwd_route",)}
+
+    def fwd_bwd_ms(config):
+        routes = {name: getattr(fa, name) for name in ("_fwd_route", "_bwd_route")}
+        for name in forced_by[config]:
+            setattr(fa, name, lambda tensors: "simt")
         try:
             times = []
+            before = flash_counts(fa)
             for _ in range(2):
                 opt_on.clear_grad()
                 start = torch.cuda.Event(enable_timing=True)
@@ -929,26 +989,33 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end))
-            return times
         finally:
-            fa._bwd_route = route_of
+            for name, fn in routes.items():
+                setattr(fa, name, fn)
+        took = {n: c - before[n] for n, c in flash_counts(fa).items() if c != before[n]}
+        n = 2 * cfg.num_layers
+        want = {"fwd_" + ("simt" if config == "fwd_simt" else "tf32x3"): n,
+                "dkv_" + ("simt" if config == "bwd_simt" else "tf32x3"): n,
+                "dq_" + ("simt" if config == "bwd_simt" else "tf32x3"): n}
+        check(took == want, f"forward + backward ({config}) launched {took}, expected {want}")
+        return times
 
-    turns = {"route": [], "simt": []}
-    for forced in (None, "simt", "simt", None):
-        turns[forced or "route"] += fwd_bwd_ms(forced)
+    turns = {config: [] for config in forced_by}
+    for config in ("route", "fwd_simt", "bwd_simt", "bwd_simt", "fwd_simt", "route"):
+        turns[config] += fwd_bwd_ms(config)
     opt_on.clear_grad()
-    fwd_bwd_route = statistics.median(turns["route"])
-    fwd_bwd_simt = statistics.median(turns["simt"])
-    print(f"  forward + backward with the flash backward on tf32x3 vs forced to SIMT, in "
-          f"turns, median of {len(turns['route'])} steps each: {fwd_bwd_route:.2f} ms vs "
-          f"{fwd_bwd_simt:.2f} ms (CUDA events), {fwd_bwd_simt - fwd_bwd_route:.2f} ms less per "
-          f"step on tf32x3; tf32x3 " + " ".join(f"{v:.2f}" for v in turns["route"])
-          + "; SIMT " + " ".join(f"{v:.2f}" for v in turns["simt"]))
+    med = {config: statistics.median(t) for config, t in turns.items()}
+    print(f"  forward + backward, in turns, median of {len(turns['route'])} steps each (CUDA "
+          f"events): flash kernels on tf32x3 {med['route']:.2f} ms; the forward forced to "
+          f"SIMT {med['fwd_simt']:.2f} ms ({med['fwd_simt'] - med['route']:.2f} ms more); the "
+          f"backward forced to SIMT {med['bwd_simt']:.2f} ms "
+          f"({med['bwd_simt'] - med['route']:.2f} ms more); "
+          + "; ".join(f"{config} " + " ".join(f"{v:.2f}" for v in t)
+                      for config, t in turns.items()))
     del model, copy_off, opt_on, opt_off
     torch.cuda.empty_cache()
-    return {"adam": launches}, {"flash": flash, "fwd_bwd_ms": fwd_bwd,
-                                "fwd_bwd_simt_ms": fwd_bwd_simt, "steps": 2 * steps,
-                                "layers": cfg.num_layers}
+    return {"adam": launches}, {"flash": flash, "fwd_bwd_ms": fwd_bwd, "turns": med,
+                                "steps": 2 * steps, "layers": cfg.num_layers}
 
 
 def train_momentum_sgd(torch, pt, fu, gen, dev):
@@ -1044,8 +1111,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     sm90_sources = [fa.SM90_FWD_KERNEL_NAME, fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME]
-    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, *sm90_sources, fa.TF32_BWD_KERNEL_NAME,
-               fu.KERNEL_NAME]
+    tf32_sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME]
+    sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, *sm90_sources, *tf32_sources, fu.KERNEL_NAME]
     logs = _build.build(sources)
     print(f"[2] built {sources} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -1062,14 +1129,17 @@ def main() -> int:
         print(f"  {name}: {hgmma} HGMMA (wgmma) instructions in the library's SASS")
         check(hgmma > 0, f"{name} has no HGMMA instruction: its products are not on the "
                          f"tensor cores")
-    sass = subprocess.run([cuobjdump, "-sass", _build.library_path(fa.TF32_BWD_KERNEL_NAME)],
-                          check=True, capture_output=True, text=True).stdout
-    instructions = [line for line in sass.splitlines() if re.search(r"/\*[0-9a-f]{4,}\*/", line)]
-    hmma = sum(1 for line in instructions if "HMMA" in line and "TF32" in line)
-    print(f"  {fa.TF32_BWD_KERNEL_NAME}: {hmma} HMMA TF32 (mma.sync) instructions in the "
-          f"library's SASS, of {len(instructions)} ({len(instructions) / max(hmma, 1):.1f} "
-          f"per HMMA: the operand splits and shared loads run beside them)")
-    check(hmma > 0, f"{fa.TF32_BWD_KERNEL_NAME} has no TF32 HMMA instruction")
+    for name in tf32_sources:
+        counts = sass_counts(cuobjdump, _build.library_path(name))
+        hmma = sum(h for h, _, _ in counts.values())
+        total = sum(n for _, n, _ in counts.values())
+        print(f"  {name}: {hmma} HMMA TF32 (mma.sync) instructions in the library's SASS, of "
+              f"{total} ({total / max(hmma, 1):.1f} per HMMA: the operand splits, shared "
+              f"loads and exps run beside them); by kernel, HMMA of all and of the tile "
+              f"loop's: " + ", ".join(f"{fn} {h} of {n} ({n / max(h, 1):.1f} per HMMA) and of "
+                                       f"{loop} ({loop / max(h, 1):.1f})"
+                                       for fn, (h, n, loop) in counts.items()))
+        check(hmma > 0, f"{name} has no TF32 HMMA instruction")
 
     # 3. the forward kernels against their plain version
     gen = torch.Generator(device=dev)
@@ -1091,8 +1161,9 @@ def main() -> int:
         per_forward = flash_counts(fa)
         print(f"  params={n_params} layers={cfg.num_layers}; flash launches in one f32 "
               f"forward: {per_forward}")
-        check(per_forward["fwd_simt"] == cfg.num_layers and per_forward["fwd_sm90"] == 0,
-              f"expected {cfg.num_layers} SIMT forward launches per f32 forward, got "
+        check(per_forward["fwd_tf32x3"] == cfg.num_layers
+              and sum(per_forward.values()) == cfg.num_layers,
+              f"expected {cfg.num_layers} tf32x3 forward launches per f32 forward, got "
               f"{per_forward}")
         check(tuple(logits.shape) == (batch, seq, cfg.vocab_size), "logits shape")
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -1117,7 +1188,8 @@ def main() -> int:
         torch.cuda.synchronize()
         per_forward = {n: c - before[n] for n, c in flash_counts(fa).items()}
         print(f"  flash launches in one bf16 forward: {per_forward}")
-        check(per_forward["fwd_sm90"] == cfg.num_layers and per_forward["fwd_simt"] == 0,
+        check(per_forward["fwd_sm90"] == cfg.num_layers
+              and sum(per_forward.values()) == cfg.num_layers,
               f"expected {cfg.num_layers} sm90 forward launches per bf16 forward, got "
               f"{per_forward}")
         check(bool(torch.isfinite(logits16.float()).all()), "non-finite bf16 logits")
@@ -1167,12 +1239,13 @@ def main() -> int:
     reset_flash_counts(fa)  # the f32 training path's flash count starts here
     launches_f32, f32_step = train_f32_adam(torch, pt, fa, fu, gen, dev)
     f32_train = f32_step["flash"]  # ... and ends inside, before the route comparison
-    # every f32 step: the forward on SIMT, dK/dV and dQ on tf32x3, once per layer
+    # every f32 step: the forward, dK/dV and dQ on tf32x3, once per layer
     n = f32_step["layers"] * f32_step["steps"]
     want = dict.fromkeys(f32_train, 0)
-    want.update(fwd_simt=n, dkv_tf32x3=n, dq_tf32x3=n)
+    want.update(fwd_tf32x3=n, dkv_tf32x3=n, dq_tf32x3=n)
     print(f"  flash launches over the f32 training run ({f32_step['steps']} steps): "
-          f"{f32_train}, {f32_train['dkv_tf32x3'] / f32_step['steps']:g} dK/dV and "
+          f"{f32_train}, {f32_train['fwd_tf32x3'] / f32_step['steps']:g} forward, "
+          f"{f32_train['dkv_tf32x3'] / f32_step['steps']:g} dK/dV and "
           f"{f32_train['dq_tf32x3'] / f32_step['steps']:g} dQ tf32x3 launches per step")
     check(f32_train == want, f"f32 training flash launches {f32_train}, expected {want}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
@@ -1194,9 +1267,13 @@ def main() -> int:
           f"{bwd32['dkv']['simt_ms']:.4f}, dQ tf32x3 {bwd32['dq']['ms']:.4f} SIMT "
           f"{bwd32['dq']['simt_ms']:.4f}, the tf32x3 pair {bwd32['pair_ms']:.4f}, the SIMT "
           f"pair {bwd32['simt_pair_ms']:.4f}, SDPA's f32 backward {bwd32['library_again_ms']:.4f} "
-          f"(and {bwd32['dkv']['library_ms']:.4f}); f32 step forward + backward "
-          f"{f32_step['fwd_bwd_ms']:.2f} ms, with the backward forced to SIMT "
-          f"{f32_step['fwd_bwd_simt_ms']:.2f} ms")
+          f"(and {bwd32['dkv']['library_ms']:.4f})")
+    turns = f32_step["turns"]
+    print(f"    f32 forward at {FWD_MAIN_SHAPE}: tf32x3 {fwd32['ms']:.4f} SIMT "
+          f"{fwd32['simt_ms']:.4f} SDPA {fwd32['library_ms']:.4f}; f32 step forward + backward "
+          f"{f32_step['fwd_bwd_ms']:.2f} ms; in turns {turns['route']:.2f} ms on tf32x3, "
+          f"{turns['fwd_simt']:.2f} ms with the forward forced to SIMT, "
+          f"{turns['bwd_simt']:.2f} ms with the backward forced to SIMT")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -1221,8 +1298,11 @@ def main() -> int:
     rows = [
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
             inference["fwd_sm90"] + train["launches"]["fwd_sm90"], fwd16),
-        row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69,
-            inference["fwd_simt"] + f32_train["fwd_simt"], fwd32),
+        row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
+            inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"], fwd32),
+        # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
+        row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
+            dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
             train["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,

@@ -61,21 +61,17 @@
 //     once, in f32, through their strides. Rows past S read as zeros (TMA)
 //     and are not written; head-dim columns past D read as zeros, so D may be
 //     any multiple of 8 up to 128 (tiles are 32, 64 or 128 wide).
+//
+// The fragment loads, splits, products and stores shared with the forward
+// (flash_attention_fwd_tf32.cu) are in tf32x3.cuh.
 
 #include <math_constants.h>
 
-#include "sm90_common.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-using sm90::Strides;
-using sm90::TileMap;
-
-constexpr int ROWS = 64;      // rows of a resident tile
-constexpr int BN = 32;        // rows of a streamed tile
-constexpr int NST = 2;        // stages of the ring
-constexpr int THREADS = 128;  // four warps of 16 resident rows each
-constexpr float NEG_INF = -1e30f;
+using namespace tf32x3;
 
 // Shared memory of a block: two resident tiles of ROWS rows, NST stages of
 // two streamed tiles of BN rows, lse and delta per stage (dkv), barriers. A
@@ -94,177 +90,6 @@ struct Smem {
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * NST) + 1024;  // + alignment slack
   static constexpr int BLOCKS = BYTES <= 75 * 1024 ? 3 : BYTES <= 113 * 1024 ? 2 : 1;  // per SM
 };
-
-// x = big + small for the tensor cores, which read an f32 register as TF32
-// by dropping its 13 low mantissa bits: big is x itself (read as x truncated
-// to TF32), small is the exact remainder x − trunc(x) (read truncated too).
-// Two instructions. Rounding both halves with cvt.rna.tf32.f32 instead
-// (several SASS instructions on sm_90) made the kernels much slower on the
-// H100 and their errors no smaller in a way that mattered.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x);
-  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
-}
-
-// A 16x8 A fragment or an 8x8 B fragment, split: big and small halves
-template <int N>
-struct Frag {
-  uint32_t big[N], small[N];
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a·b in 3xTF32: the two small terms first, then big·big
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-  mma_tf32(d, a.small, b.big);
-  mma_tf32(d, a.big, b.small);
-  mma_tf32(d, a.big, b.big);
-}
-
-// Per-thread float offsets into a swizzled tile. With the 128-byte swizzle,
-// 16-byte chunk j of row r of a sub-tile lies at chunk j ^ (r % 8).
-//   kmaj[j]: the thread's element of a K-major fragment read, (row g, column
-//     4j + t) of an 8-row, 32-column block: A's a0/a2 and B's b0/b1.
-//   mn0[c], mn1[c]: an MN-major B read, (row 2t, column 8c + g) and
-//     (row 2t + 1, column 8c + g) of such a block.
-struct Offsets {
-  int kmaj[8], mn0[4], mn1[4];
-  __device__ __forceinline__ Offsets(int g, int t) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) kmaj[j] = g * 32 + ((j ^ g) << 2) + t;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int chunk = 2 * c + (g >> 2);
-      mn0[c] = (2 * t) * 32 + ((chunk ^ (2 * t)) << 2) + (g & 3);
-      mn1[c] = (2 * t + 1) * 32 + ((chunk ^ (2 * t + 1)) << 2) + (g & 3);
-    }
-  }
-};
-
-// Float offset of the 8-row block at row r8 (a multiple of 8), columns
-// [8kk, 8kk + 8), of a tile of R rows: its sub-tile, then its rows.
-template <int R>
-__device__ __forceinline__ int block_off(int r8, int kk) {
-  return (kk / 4) * (R * 32) + r8 * 32;
-}
-
-// The A fragment of rows [m0, m0 + 16) x columns [8kk, 8kk + 8) of a
-// K-major (row-major) tile of R rows.
-template <int R>
-__device__ __forceinline__ Frag<4> load_a(const float* tile, int m0, int kk, const Offsets& o) {
-  const float* p = tile + block_off<R>(m0, kk);
-  Frag<4> a;
-  split(p[o.kmaj[(2 * kk) & 7]], a.big[0], a.small[0]);
-  split(p[8 * 32 + o.kmaj[(2 * kk) & 7]], a.big[1], a.small[1]);
-  split(p[o.kmaj[(2 * kk + 1) & 7]], a.big[2], a.small[2]);
-  split(p[8 * 32 + o.kmaj[(2 * kk + 1) & 7]], a.big[3], a.small[3]);
-  return a;
-}
-
-// The A fragment of k-step j from accumulator block c (16 rows x 8 columns,
-// the columns being the reduction index): the thread's columns 2t and 2t+1
-// stand for k = t and t + 4, so B must be read with load_b_mn.
-__device__ __forceinline__ Frag<4> acc_a(const float (&c)[4]) {
-  Frag<4> a;
-  split(c[0], a.big[0], a.small[0]);
-  split(c[2], a.big[1], a.small[1]);
-  split(c[1], a.big[2], a.small[2]);
-  split(c[3], a.big[3], a.small[3]);
-  return a;
-}
-
-// B[k][n] = tile[8j + n][8kk + k]: a K-major B fragment (n-block j, k-step
-// kk) of a tile of R rows.
-template <int R>
-__device__ __forceinline__ Frag<2> load_b_k(const float* tile, int j, int kk, const Offsets& o) {
-  const float* p = tile + block_off<R>(8 * j, kk);
-  Frag<2> b;
-  split(p[o.kmaj[(2 * kk) & 7]], b.big[0], b.small[0]);
-  split(p[o.kmaj[(2 * kk + 1) & 7]], b.big[1], b.small[1]);
-  return b;
-}
-
-// B[k][n] = tile[8j + k][8jn + n] with k = t read from row 2t and k = t + 4
-// from row 2t + 1: the MN-major B fragment (k-step j, n-block jn) of a tile of
-// R rows, matching an A fragment from acc_a.
-template <int R>
-__device__ __forceinline__ Frag<2> load_b_mn(const float* tile, int j, int jn, const Offsets& o) {
-  const float* p = tile + block_off<R>(8 * j, jn);
-  Frag<2> b;
-  split(p[o.mn0[jn & 3]], b.big[0], b.small[0]);
-  split(p[o.mn1[jn & 3]], b.big[1], b.small[1]);
-  return b;
-}
-
-// acc[j] = A·Bᵀ for the 16 rows at m0 of resident `a_tile` against the BN
-// rows of streamed `b_tile`, over DP columns: acc[j] is n-block j (rows 8j ...
-// 8j + 7 of b_tile).
-template <int DP>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[BN / 8][4], const float* a_tile,
-                                             int m0, const float* b_tile, const Offsets& o) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 8; ++kk) {
-    const Frag<4> a = load_a<ROWS>(a_tile, m0, kk, o);
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) mma3(acc[j], a, load_b_k<BN>(b_tile, j, kk, o));
-  }
-}
-
-// out[jn] += X·tile for X the 16 x BN accumulator x (columns = the BN rows of
-// streamed `tile`), over the DP columns of tile: out[jn] is n-block jn.
-template <int DP>
-__device__ __forceinline__ void acc_by_tile(float (&out)[DP / 8][4], const float (&x)[BN / 8][4],
-                                            const float* tile, const Offsets& o) {
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const Frag<4> a = acc_a(x[j]);
-#pragma unroll
-    for (int jn = 0; jn < DP / 8; ++jn) mma3(out[jn], a, load_b_mn<BN>(tile, j, jn, o));
-  }
-}
-
-// Writes a 16 x DP accumulator, rows [row0, row0 + 16) of (b, h), columns < D.
-template <int DP>
-__device__ __forceinline__ void store_rows(float* __restrict__ out, const Strides& os, int b,
-                                           int h, int row0, int S, int D, int g, int t,
-                                           const float (&acc)[DP / 8][4]) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + g + 8 * half;
-    if (r >= S) continue;
-    float* row = out + b * os.b + r * os.s + h * os.h;
-#pragma unroll
-    for (int jn = 0; jn < DP / 8; ++jn) {
-      const int col = 8 * jn + 2 * t;
-      if (col < D) {  // D is a multiple of 8: col + 1 < D too
-        row[col * os.d] = acc[jn][2 * half];
-        row[(col + 1) * os.d] = acc[jn][2 * half + 1];
-      }
-    }
-  }
-}
-
-// Loads two tiles of R rows at row s0 (D/32 sub-tiles each, the second
-// right after the first) into dst, completing on bar. One thread calls it.
-template <int DP, int R>
-__device__ __forceinline__ void load_pair(const TileMap* ta, const TileMap* tb, uint64_t* bar,
-                                          float* dst, int b, int s0, int h) {
-  sm90::mbar_expect_tx(bar, 2 * R * DP * 4);
-  for (int s = 0; s < DP / 32; ++s) {
-    sm90::tma_load_tile(ta, bar, dst + s * R * 32, 32 * s, b, s0, h);
-    sm90::tma_load_tile(tb, bar, dst + R * DP + s * R * 32, 32 * s, b, s0, h);
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS, Smem<DP>::BLOCKS)
@@ -503,17 +328,6 @@ dq_tf32_kernel(const __grid_constant__ TileMap tq, const __grid_constant__ TileM
   store_rows<DP>(dq, dqs, b, h, q0 + m0, S, D, g, t, dq_acc);
 }
 
-// The shared-memory attribute is set at an instantiation's first launch only,
-// so a launch inside CUDA-graph capture makes no call but the launch itself.
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, int smem, bool* configured) {
-  if (*configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
-  if (err == cudaSuccess) *configured = true;
-  return err;
-}
-
 template <int DP>
 cudaError_t launch_dkv(const TileMap (&maps)[4], const float* lse, const float* delta, float* dk,
                        float* dv, int B, int H, int S, int D, Strides dks, Strides dvs,
@@ -541,24 +355,6 @@ cudaError_t launch_dq(const TileMap (&maps)[4], const float* lse, const float* d
   dq_tf32_kernel<DP><<<(unsigned)(n_qt * B * H), THREADS, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, dq, H, S, D, dqs, scale, causal, n_qt);
   return cudaGetLastError();
-}
-
-// TMA maps of q, k, v and dO, for tiles of rows[i] rows; 0 or the error of
-// the first refused one.
-int make_maps(TileMap (&maps)[4], const void* const (&ptrs)[4], const Strides (&st)[4],
-              const int (&rows)[4], int B, int S, int H, int D) {
-  for (int i = 0; i < 4; ++i) {
-    const int err = sm90::make_tile_map_f32(&maps[i], ptrs[i], B, S, H, D, st[i], rows[i]);
-    if (err) return err;
-  }
-  return 0;
-}
-
-bool accepted(int dtype, int D, const Strides (&st)[4]) {
-  if (dtype != 0 || D % 8 != 0 || D < 8 || D > 128) return false;
-  for (const Strides& s : st)
-    if (s.d != 1) return false;
-  return true;
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 // loads, mbarriers, wgmma with 128-byte-swizzled shared-memory descriptors.
 //
 // Used by flash_attention_fwd_sm90.cu, flash_attention_bwd_dkv_sm90.cu,
-// flash_attention_bwd_dq_sm90.cu and flash_attention_bwd_tf32.cu.
+// flash_attention_bwd_dq_sm90.cu and, through tf32x3.cuh,
+// flash_attention_fwd_tf32.cu and flash_attention_bwd_tf32.cu.
 // Conventions every user keeps:
 //   - A tile in shared memory is one or more sub-tiles 128 bytes wide (64
 //     16-bit or 32 f32 elements), each `rows` rows of 128 bytes, written by

@@ -14,26 +14,29 @@ to its plain version.
     ``bwd_plain``.
 
 The kernels are picked per launch from the tensors alone, before anything
-is built, by ``sm90_eligible`` and (backward only) ``tf32x3_eligible``:
+is built, by ``sm90_eligible`` and ``tf32x3_eligible`` (``_fwd_route`` and
+``_bwd_route``):
 
   - route ``"sm90"`` (``csrc/flash_attention_fwd_sm90.cu``,
     ``csrc/flash_attention_bwd_dkv_sm90.cu``,
     ``csrc/flash_attention_bwd_dq_sm90.cu``): the tensor cores through
     ``wgmma``, fed by TMA, for bf16 and fp16 inputs that TMA can read;
-  - route ``"tf32x3"`` (``csrc/flash_attention_bwd_tf32.cu``, dK/dV and dQ):
-    the tensor cores through ``mma.sync`` in 3xTF32, as accurate as f32, fed
-    by TMA, for f32 inputs that TMA can read;
+  - route ``"tf32x3"`` (``csrc/flash_attention_fwd_tf32.cu``, O and lse;
+    ``csrc/flash_attention_bwd_tf32.cu``, dK/dV and dQ; both over
+    ``csrc/tf32x3.cuh``): the tensor cores through ``mma.sync`` in 3xTF32,
+    as accurate as f32, fed by TMA, for f32 inputs that TMA can read;
   - route ``"simt"`` (``csrc/flash_attention_fwd.cu``,
     ``csrc/flash_attention_bwd.cu``): f32 FMAs on the CUDA cores, for every
-    other input the kernels accept (the f32 forward, a ragged head dim, odd
-    strides).
+    other input the kernels accept (a head dim the tensor-core routes have no
+    tile for, odd strides or alignment, a stride-0 input).
 
-dkv and dq decide on the same ``(q, k, v, dO)``, so both backward kernels of
-one call take one route. Each wrapper counts its launches in ``launches``
-and in ``launches_by_route``; ``_fwd_cuda``, ``_bwd_dkv_cuda`` and
-``_bwd_dq_cuda`` take the route as an argument, to launch one by name. A
-launch that fails raises, whatever its route: no route falls back to
-another.
+The forward decides on ``(q, k, v)`` and the backward on ``(q, k, v, dO)``,
+so dkv and dq of one call take one route, and GPT's fused-qkv views take
+the tensor-core route of their type forward and backward. Each wrapper
+counts its launches in ``launches`` and in ``launches_by_route``;
+``_fwd_cuda``, ``_bwd_dkv_cuda`` and ``_bwd_dq_cuda`` take the route as an
+argument, to launch one by name. A launch that fails raises, whatever its
+route: no route falls back to another.
 
 ``FlashAttention`` is the autograd function over them, the port of the
 ``_flash`` custom_vjp: the forward saves ``(q, k, v, o, lse)``; the backward
@@ -55,6 +58,7 @@ BWD_KERNEL_NAME = "flash_attention_bwd"
 SM90_FWD_KERNEL_NAME = "flash_attention_fwd_sm90"
 SM90_DKV_KERNEL_NAME = "flash_attention_bwd_dkv_sm90"
 SM90_DQ_KERNEL_NAME = "flash_attention_bwd_dq_sm90"
+TF32_FWD_KERNEL_NAME = "flash_attention_fwd_tf32"
 TF32_BWD_KERNEL_NAME = "flash_attention_bwd_tf32"
 ROUTES = ("sm90", "tf32x3", "simt")
 
@@ -106,8 +110,8 @@ def sm90_eligible(tensors) -> bool:
 
 
 def tf32x3_eligible(tensors) -> bool:
-    """Whether the 3xTF32 backward kernels take these ``[b, s, h, d]``
-    inputs (q, k, v, dO); the SIMT kernels take what neither this nor
+    """Whether the 3xTF32 kernels take these ``[b, s, h, d]`` inputs (q, k,
+    v, and dO for dkv and dq); the SIMT kernels take what neither this nor
     ``sm90_eligible`` takes.
 
     They need f32 for all; a head dim that is a multiple of 8 in [8, 128];
@@ -117,11 +121,20 @@ def tf32x3_eligible(tensors) -> bool:
     return _tma_tiles(tensors, (torch.float32,), 8)
 
 
-def _bwd_route(tensors) -> str:
-    """The route of both backward kernels for ``(q, k, v, dO)``."""
+def _route(tensors) -> str:
     if sm90_eligible(tensors):
         return "sm90"
     return "tf32x3" if tf32x3_eligible(tensors) else "simt"
+
+
+def _fwd_route(tensors) -> str:
+    """The forward's route for ``(q, k, v)``."""
+    return _route(tensors)
+
+
+def _bwd_route(tensors) -> str:
+    """The route of both backward kernels for ``(q, k, v, dO)``."""
+    return _route(tensors)
 
 
 def _scores(q, k, scale: float, causal: bool):
@@ -252,6 +265,7 @@ def _row_stats(name, lse, delta, q):
 # The C entry of each kernel by route: (source name, symbol).
 _FWD_ENTRIES = {
     "sm90": (SM90_FWD_KERNEL_NAME, "paddle_flash_attention_fwd_sm90"),
+    "tf32x3": (TF32_FWD_KERNEL_NAME, "paddle_flash_attention_fwd_tf32"),
     "simt": (KERNEL_NAME, "paddle_flash_attention_fwd"),
 }
 _DKV_ENTRIES = {
@@ -298,8 +312,7 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool):
     CUDA tensors launch the kernel of their route; CPU tensors run ``fwd_plain``."""
     _check_shapes("flash_attention_fwd", (q, k, v))
     if q.device.type == "cuda":
-        route = "sm90" if sm90_eligible((q, k, v)) else "simt"
-        return _fwd_cuda(q, k, v, scale, causal, route)
+        return _fwd_cuda(q, k, v, scale, causal, _fwd_route((q, k, v)))
     if q.device.type == "cpu":
         return fwd_plain(q, k, v, scale, causal)
     raise RuntimeError(f"flash_attention_fwd: no kernel for device {q.device}")

@@ -16,8 +16,10 @@ from paddle_tpu_torch.ops.kernels import _build
 SIMT_SOURCES = ["flash_attention_fwd", "flash_attention_bwd", "fused_update"]
 SM90_SOURCES = ["flash_attention_fwd_sm90", "flash_attention_bwd_dkv_sm90",
                 "flash_attention_bwd_dq_sm90"]
+# the 3xTF32 sources, which include tf32x3.cuh (and through it sm90_common.cuh)
+TF32_SOURCES = ["flash_attention_fwd_tf32", "flash_attention_bwd_tf32"]
 # every source that includes sm90_common.cuh (TMA maps, mbarriers)
-TMA_SOURCES = SM90_SOURCES + ["flash_attention_bwd_tf32"]
+TMA_SOURCES = SM90_SOURCES + TF32_SOURCES
 
 
 @pytest.fixture
@@ -81,3 +83,15 @@ def test_the_sm90_sources_include_the_common_header():
         assert data in _build._sources(name)
     for name in SIMT_SOURCES:
         assert len(_build._sources(name)) == 1
+
+
+def test_editing_the_tf32x3_header_moves_exactly_the_tf32_libraries(csrc):
+    header = os.path.join(_build.CSRC, "tf32x3.cuh")
+    with open(header, "rb") as f:
+        data = f.read()
+    for name in TF32_SOURCES:
+        assert data in _build._sources(name)
+    before = {n: _build.library_path(n) for n in TMA_SOURCES + SIMT_SOURCES}
+    _touch(csrc / "tf32x3.cuh")
+    for name, path in before.items():
+        assert (_build.library_path(name) != path) == (name in TF32_SOURCES), name

@@ -14,8 +14,9 @@ kernels are held to their plain versions bit for bit, the reference's own
 contract for kernel against rule (tests/test_pallas_update.py). The flash
 forward, dK/dV and dQ cases check the route each launch took: the sm90
 (wgmma) kernels for bf16 and fp16 inputs TMA can read, the tf32x3 (3xTF32
-mma.sync) backward kernels for f32 inputs TMA can read, the SIMT kernels
-otherwise.
+mma.sync) kernels for f32 inputs TMA can read, the SIMT kernels otherwise.
+The flash forward sums without atomics too: a second forward is bitwise
+equal.
 """
 import copy
 
@@ -188,35 +189,36 @@ def test_sm90_kernels_match_plain_and_repeat_bitwise(shape, causal, fused, dtype
 
 @pytest.mark.cuda
 def test_simt_route_takes_what_sm90_refuses():
-    """The forward of what sm90 refuses (f32, a ragged head dim, a stride
-    that is not a multiple of 8) runs on the CUDA cores; dQ of it runs on the
-    tf32x3 route where that takes it (f32 that TMA reads) and on the CUDA
-    cores where it does not (16-bit types, f32 with a head dim that is not a
-    multiple of 8 or a stride that is not a multiple of 4)."""
+    """What sm90 refuses (f32, a ragged head dim, a stride that is not a
+    multiple of 8) runs on the tf32x3 route, forward and dQ, where that takes
+    it (f32 that TMA reads), and on the CUDA cores where it does not (16-bit
+    types, f32 with a head dim that is not a multiple of 8 or a stride that
+    is not a multiple of 4)."""
     card = _card()
-    cases = [  # (x, the backward's route)
+    cases = [  # (x, the route of the forward and the backward)
         (torch.randn(1, 128, 2, 64, device=card), "tf32x3"),  # f32
         (torch.randn(1, 128, 2, 40, device=card).bfloat16(), "simt"),  # D % 16 != 0
         (torch.randn(1, 128, 2, 70, device=card).bfloat16()[..., :64], "simt"),  # h stride 70
         (torch.randn(1, 128, 2, 20, device=card), "simt"),  # f32, D % 8 != 0
         (torch.randn(1, 128, 2, 70, device=card)[..., :64], "simt"),  # f32, h stride 70
     ]
-    for x, bwd_route in cases:
+    for x, route in cases:
         assert not tfa.sm90_eligible((x, x, x))
+        assert tfa.tf32x3_eligible((x, x, x)) == (route == "tf32x3")
         before = dict(tfa.flash_attention_fwd.launches_by_route)
         o, lse = tfa.flash_attention_fwd(x, x, x, 0.125, True)
         o_p, _ = tfa.fwd_plain(x, x, x, 0.125, True)
         torch.cuda.synchronize()
-        assert tfa.flash_attention_fwd.launches_by_route == _plus(before, "simt", 1)
+        assert tfa.flash_attention_fwd.launches_by_route == _plus(before, route, 1)
         assert (o.float() - o_p.float()).abs().max().item() <= TOL[x.dtype]
         assert not tfa.sm90_eligible((x, x, x, x))
-        assert tfa.tf32x3_eligible((x, x, x, x)) == (bwd_route == "tf32x3")
+        assert tfa.tf32x3_eligible((x, x, x, x)) == (route == "tf32x3")
         delta = tfa.bwd_delta(o, x)
         before = dict(tfa.flash_attention_bwd_dq.launches_by_route)
         dq = tfa.flash_attention_bwd_dq(x, x, x, x, lse, delta, 0.125, True)
         dq_p = tfa.bwd_plain(x, x, x, x, lse, delta, 0.125, True)[0]
         torch.cuda.synchronize()
-        assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(before, bwd_route, 1)
+        assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(before, route, 1)
         assert (dq.float() - dq_p.float()).abs().max().item() <= GRAD_TOL[x.dtype]
 
 
@@ -264,6 +266,44 @@ def test_tf32x3_kernels_match_plain_and_repeat_bitwise(shape, causal, fused):
         assert err <= GRAD_TOL[torch.float32]
 
 
+# The tf32x3 forward (3xTF32 on mma.sync, fed by TMA): GPT's f32 fused-qkv
+# views at the 345M forward shape, a ragged S with D = 24, a non-causal
+# D = 32 and a causal D = 128. Its error against the f32 plain version reads
+# 1.4e-6 to 8.2e-6 on the H100 (the CPU emulation in
+# tests/test_torch_flash_tf32.py, which sums in another order, 1e-6 to
+# 2e-6); 2e-5 is the tolerance.
+TF32_FWD_CASES = [
+    ((4, 1024, 16, 64), True, True),
+    ((1, 600, 2, 24), True, True),
+    ((1, 128, 2, 32), False, False),
+    ((1, 512, 2, 128), True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal,fused", TF32_FWD_CASES)
+def test_tf32x3_forward_matches_plain_and_repeats_bitwise(shape, causal, fused):
+    q, k, v = _qkv(shape, torch.float32, fused, seed=8)
+    scale = shape[-1] ** -0.5
+    assert tfa.tf32x3_eligible((q, k, v)) and not tfa.sm90_eligible((q, k, v))
+    routes = dict(tfa.flash_attention_fwd.launches_by_route)
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale, causal)
+    assert tfa.flash_attention_fwd.launches_by_route == _plus(routes, "tf32x3", 1)
+    o2, lse2 = tfa.flash_attention_fwd(q, k, v, scale, causal)
+    assert tfa.flash_attention_fwd.launches_by_route == _plus(routes, "tf32x3", 2)
+    o_p, lse_p = tfa.fwd_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    err_o = (o - o_p).abs().max().item()
+    err_lse = (lse - lse_p).abs().max().item()
+    print(f"tf32x3 forward {shape} causal={causal}: max|d O|={err_o:.3e} "
+          f"max|d lse|={err_lse:.3e}")
+    assert o.dtype == torch.float32 and tuple(o.shape) == shape
+    assert tuple(lse.shape) == (shape[0], shape[2], shape[1])
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert err_o <= TOL[torch.float32] and err_lse <= TOL[torch.float32]
+
+
 @pytest.mark.cuda
 def test_flash_attention_autograd_runs_the_backward_kernels():
     card = _card()
@@ -278,8 +318,8 @@ def test_flash_attention_autograd_runs_the_backward_kernels():
     torch.cuda.synchronize()
     assert (tfa.flash_attention_fwd.launches, tfa.flash_attention_bwd_dkv.launches,
             tfa.flash_attention_bwd_dq.launches) == tuple(n + 1 for n in before)
-    # f32: the forward on the CUDA cores, both backward kernels in 3xTF32
-    assert tfa.flash_attention_fwd.launches_by_route == _plus(routes[0], "simt", 1)
+    # f32 that TMA reads: the forward and both backward kernels in 3xTF32
+    assert tfa.flash_attention_fwd.launches_by_route == _plus(routes[0], "tf32x3", 1)
     assert tfa.flash_attention_bwd_dkv.launches_by_route == _plus(routes[1], "tf32x3", 1)
     assert tfa.flash_attention_bwd_dq.launches_by_route == _plus(routes[2], "tf32x3", 1)
     qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))

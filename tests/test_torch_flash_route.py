@@ -1,11 +1,11 @@
 """Which flash-attention kernel a launch takes: ``sm90_eligible`` and
 ``tf32x3_eligible``.
 
-The forward has two kernels on the card and dK/dV and dQ three each: the
-sm90 route (wgmma, fed by TMA) for bf16 and fp16 inputs that TMA can read,
-the tf32x3 route (backward only: mma.sync in 3xTF32, fed by TMA) for f32
-inputs that TMA can read, and the SIMT route (f32 FMAs on the CUDA cores)
-for every other input. The eligibility functions decide from the tensors'
+The forward, dK/dV and dQ have three kernels each on the card: the sm90
+route (wgmma, fed by TMA) for bf16 and fp16 inputs that TMA can read, the
+tf32x3 route (mma.sync in 3xTF32, fed by TMA) for f32 inputs that TMA can
+read, and the SIMT route (f32 FMAs on the CUDA cores) for every other
+input. The eligibility functions decide from the tensors'
 metadata alone, so these tests run on the CPU; the card tests
 (tests/test_torch_cuda_kernels.py) check that each launch took the route it
 names.
@@ -244,11 +244,47 @@ def test_a_route_without_that_kernel_raises_before_any_build(monkeypatch):
 
     monkeypatch.setattr(tfa, "_bind", no_build)
     x = torch.empty(1, 64, 1, 64)
-    with pytest.raises(ValueError, match="no kernel on route 'tf32x3'"):
-        tfa._fwd_cuda(x, x, x, 0.125, True, "tf32x3")
+    with pytest.raises(ValueError, match="no kernel on route 'tf32'"):
+        tfa._fwd_cuda(x, x, x, 0.125, True, "tf32")
     with pytest.raises(ValueError, match="no kernel on route 'wgmma'"):
         tfa._bwd_dq_cuda(x, x, x, x, torch.empty(1, 1, 64), torch.empty(1, 1, 64), 0.125, True,
                          "wgmma")
+
+
+def _fwd_route_taken(monkeypatch, q, k, v):
+    """The route the forward wrapper hands its launcher for (q, k, v), with
+    the launcher replaced by a recorder: nothing is built or launched."""
+    taken = []
+    monkeypatch.setattr(tfa, "_fwd_cuda", lambda *args: taken.append(args[-1]))
+    tfa.flash_attention_fwd(*(_ReportsCard(t) for t in (q, k, v)), 0.125, True)
+    (route,) = taken
+    return route
+
+
+@pytest.mark.parametrize("batch", [4, 8])
+def test_the_forward_takes_tf32x3_for_the_345m_f32_fused_qkv_views(monkeypatch, batch):
+    q, k, v = _fused_qkv(batch, 1024, 16, 64, torch.float32)
+    do = torch.empty(batch, 1024, 16, 64)
+    assert _fwd_route_taken(monkeypatch, q, k, v) == "tf32x3"
+    assert _routes_taken(monkeypatch, q, k, v, do) == {"dkv": "tf32x3", "dq": "tf32x3"}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_the_forward_takes_sm90_for_the_345m_16_bit_fused_qkv_views(monkeypatch, dtype):
+    q, k, v = _fused_qkv(4, 1024, 16, 64, dtype)
+    assert _fwd_route_taken(monkeypatch, q, k, v) == "sm90"
+
+
+@pytest.mark.parametrize("make", [
+    lambda: _fused_qkv(1, 200, 2, 160, torch.float32),  # f32, D > 128
+    lambda: _fused_qkv(1, 7, 1, 5, torch.float32),  # f32, D not a multiple of 8
+    lambda: _fused_qkv(1, 128, 2, 24, torch.bfloat16),  # bf16, D not a multiple of 16
+    lambda: (torch.empty(2, 128, 2, 64),) * 2 + (torch.ones(()).expand(2, 128, 2, 64),),
+], ids=["f32-d160", "f32-d5", "bf16-d24", "f32-stride0-v"])
+def test_the_forward_takes_simt_for_what_the_tensor_core_routes_refuse(monkeypatch, make):
+    q, k, v = make()
+    assert not tfa.sm90_eligible((q, k, v)) and not tfa.tf32x3_eligible((q, k, v))
+    assert _fwd_route_taken(monkeypatch, q, k, v) == "simt"
 
 
 def test_dq_and_dkv_take_one_route_when_do_is_refused(monkeypatch):
