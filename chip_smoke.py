@@ -24,6 +24,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (24 tf32x3 launches), then in bf16 (24 sm90 launches);
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
+ 5b. serve GPT-2 345M f32 (``max_seq_len=2048``) through ``serving.Engine``
+     on bench.py ``bench_serving``'s mix (12 prompts of 32-128 tokens, 24
+     new tokens each): a warm serve that captures each prefill and decode
+     signature as one CUDA graph, a timed serve (requests/s, tokens/s,
+     token latency p50/p99 from the engine's step timings, one graph replay
+     per decode step, no re-capture, fallback, drop or leaked block, the
+     decode steps' host cost split from their device time), a profiler trace
+     of one decode tick; then a sustained run of 256 requests of the mix
+     arriving in a stagger into a 96-block pool, so admissions land
+     mid-decode, batch sizes change and backpressure fires (warm, then
+     timed, the same checks); the eager rung on both schedules with equal
+     tokens, and ``generate()`` per request of the mix, equal but for
+     recorded near-ties;
   6. hold the flash backward kernels (dK/dV and dQ, each on its three
      routes: sm90 for bf16/fp16, tf32x3 for f32, both fed by TMA, and simt
      for what neither takes) against their plain version on the card, at the
@@ -532,6 +545,308 @@ def flash_counts(fa):
             for route, n in getattr(fa, attr).launches_by_route.items()}
 
 
+SERVE_PROMPT_LENS = (32, 64, 48, 128, 64, 32)  # bench.py bench_serving's mix
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 24
+# the sustained run: the same mix arriving in a stagger (Poisson arrivals per
+# scheduler tick) into a pool that holds about 16 of its requests at once,
+# so admissions land mid-decode, batch sizes change and backpressure fires
+SUSTAINED_REQUESTS, SUSTAINED_ARRIVALS_PER_TICK, SUSTAINED_BLOCKS = 256, 0.7, 96
+
+
+def staggered_arrivals(n, rate, seed):
+    """Requests submitted before each scheduler tick: Poisson(``rate``)
+    draws from ``seed`` until ``n`` have arrived."""
+    import numpy as np
+
+    rng, out, total = np.random.default_rng(seed), [], 0
+    while total < n:
+        out.append(min(int(rng.poisson(rate)), n - total))
+        total += out[-1]
+    return out
+
+
+def serve_staggered(eng, prompts, arrivals, n_new):
+    """Drive ``eng`` as a server loop does: before each tick submit that
+    tick's arrivals, then ``step()``; go on stepping once every request has
+    arrived, until none is pending. Returns the responses in submit order,
+    the ticks that ended with requests still queued (backpressure: the pool
+    could not take them) and the deepest queue."""
+    ids, waiting, deepest, left, tick = [], 0, 0, iter(prompts), 0
+    while tick < len(arrivals) or eng.pending:
+        if tick < len(arrivals):
+            ids += [eng.submit(next(left), max_new_tokens=n_new) for _ in range(arrivals[tick])]
+        eng.step()
+        tick += 1
+        queued = eng.routing_signals()["queue_depth"]
+        waiting += queued > 0
+        deepest = max(deepest, queued)
+    eng.run_until_idle()  # the drop and leak audit
+    return [eng.pop_response(i) for i in ids], waiting, deepest
+
+
+def serve_window(eng, resps, dt, c, card):
+    """The numbers of one timed serve, from its responses, the dispatch
+    counters ``c`` and the engine's own step timings (host clock, CUDA
+    events for the device)."""
+    import numpy as np
+
+    st, steps = eng.stats(), eng.step_timings()
+    check(steps, "the engine recorded no step")
+    ok = [r for r in resps if r.ok]
+    # per-token latency: a request's first token takes its prefill step
+    # (feed, launch, wait); each later token the host-clock gap since the
+    # request's previous token, which counts the other groups' steps and the
+    # prefills between the two
+    last, lat = {}, []
+    for t in steps:
+        for rid in t.request_ids:
+            lat.append((t.end - last[rid]) * 1e3 if rid in last
+                       else t.feed_ms + t.launch_ms + t.wait_ms)
+            last[rid] = t.end
+    # the histogram's own samples (launch to tokens on the host, one per row
+    # of the step), exact, beside what its log buckets make of them
+    hist = [t.launch_ms + t.wait_ms for t in steps for _ in t.request_ids]
+    decode = [t for t in steps if t.kind == "decode"]
+    ms = {"feeds": [t.feed_ms for t in decode], "launch": [t.launch_ms for t in decode],
+          "wait_read": [t.wait_ms for t in decode], "device": [t.device_ms for t in decode]}
+    step_ms = [t.feed_ms + t.launch_ms + t.wait_ms for t in decode]
+    rows = {}
+    for t in decode:
+        rows[len(t.request_ids)] = rows.get(len(t.request_ids), 0) + 1
+    blocks = st["pool_blocks"]
+
+    def pct(v):
+        return [float(np.percentile(v, q)) for q in (50, 99)]
+
+    return {
+        "card": card,
+        "requests": len(resps), "completed": len(ok), "serve_s": dt,
+        "requests_per_s": len(ok) / dt,
+        "tokens_per_s": sum(len(r.tokens) for r in ok) / dt,
+        "token_lat_p50_p99_ms": pct(lat),
+        "token_lat_samples": len(lat),
+        "histogram_p50_p99_ms": [st["token_lat_p50_ms"], st["token_lat_p99_ms"]],
+        "histogram_samples_p50_p99_ms": pct(hist),
+        "ttft_p50_p99_ms": pct([(r.first_token_time - r.submit_time) * 1e3 for r in ok]),
+        "request_lat_p50_p99_ms": pct([(r.done_time - r.submit_time) * 1e3 for r in ok]),
+        "programs_per_decode_step": (c["serve_capture_replays"] - c["serve_prefills"])
+        / max(1, c["serve_decode_steps"]),
+        "decode_steps": c["serve_decode_steps"],
+        "prefills": c["serve_prefills"],
+        "capture_replays": c["serve_capture_replays"],
+        "capture_builds_steady": c["serve_capture_builds"],
+        "capture_evictions": c["serve_capture_evictions"],
+        "serve_capture_fallbacks": c["serve_capture_fallbacks"],
+        "dropped": c["serve_requests_dropped"],
+        "block_leaks": c["serve_block_leaks"],
+        "rows_per_decode_step": dict(sorted(rows.items())),
+        "decode_split_ms": {k: statistics.median(v) for k, v in ms.items()},
+        "decode_step_ms_p50_p99": pct(step_ms),
+        "decode_device_idle_share": 1.0 - sum(ms["device"]) / sum(step_ms),
+        "window_device_idle_share": 1.0 - sum(t.device_ms for t in steps) / (dt * 1e3),
+        "kv_pool_blocks": blocks,
+        "kv_pool_peak_blocks": round(st["pool_peak_occupancy"] * blocks),
+        "kv_pool_bytes": 2 * sum(t.numel() * t.element_size() for t in eng._pool.k),
+    }
+
+
+def print_window(label, rec):
+    lat, hist, exact = (rec["token_lat_p50_p99_ms"], rec["histogram_p50_p99_ms"],
+                        rec["histogram_samples_p50_p99_ms"])
+    print(f"  {label}: {rec['completed']} of {rec['requests']} ok in {rec['serve_s']:.3f} s, "
+          f"{rec['requests_per_s']:.2f} requests/s, {rec['tokens_per_s']:.1f} tokens/s; token "
+          f"latency p50/p99 {lat[0]:.3f}/{lat[1]:.3f} ms over {rec['token_lat_samples']} tokens "
+          f"(the engine's histogram {hist[0]}/{hist[1]}, its samples exactly "
+          f"{exact[0]:.3f}/{exact[1]:.3f}); first token p50/p99 {rec['ttft_p50_p99_ms'][0]:.1f}/"
+          f"{rec['ttft_p50_p99_ms'][1]:.1f} ms from submit, whole request "
+          f"{rec['request_lat_p50_p99_ms'][0]:.1f}/{rec['request_lat_p50_p99_ms'][1]:.1f} ms")
+    print(f"    {rec['decode_steps']} decode steps (rows per step: {rec['rows_per_decode_step']}), "
+          f"{rec['prefills']} prefills, {rec['capture_replays']} graph replays, "
+          f"{rec['programs_per_decode_step']:g} programs per decode step, "
+          f"{rec['capture_builds_steady']} builds, {rec['capture_evictions']} evictions; pool peak "
+          f"{rec['kv_pool_peak_blocks']} of {rec['kv_pool_blocks']} blocks")
+    print("    decode step medians in ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rec["decode_split_ms"].items())
+          + f"; step p50/p99 {rec['decode_step_ms_p50_p99'][0]:.3f}/"
+            f"{rec['decode_step_ms_p50_p99'][1]:.3f}; device idle "
+            f"{rec['decode_device_idle_share']:.1%} of the decode steps' host time, "
+            f"{rec['window_device_idle_share']:.1%} of the window")
+
+
+def check_window(rec, resps, n_new, vocab):
+    check(rec["completed"] == rec["requests"], f"{rec['requests'] - rec['completed']} requests "
+          f"did not end ok: {sorted({r.status for r in resps})}")
+    check(all(len(r.tokens) == n_new and all(0 <= t < vocab for t in r.tokens) for r in resps),
+          "a response has the wrong number of tokens or an id out of range")
+    check(rec["programs_per_decode_step"] == 1.0 and rec["capture_builds_steady"] == 0,
+          "the steady serve did not replay exactly one captured program per decode step")
+    check(rec["capture_replays"] > 0, "no CUDA graph was replayed")
+    check(rec["serve_capture_fallbacks"] == rec["dropped"] == rec["block_leaks"]
+          == rec["capture_evictions"] == 0,
+          f"fallbacks, drops, leaked blocks or evictions in the steady serve: {rec}")
+    check(rec["token_lat_samples"] == rec["requests"] * n_new, "the step timings miss a token")
+
+
+def serve_345m(torch, pt, fa, fu, card):
+    """Phase 5b: ``serving.Engine`` over GPT-2 345M f32 at full width and
+    depth (``gpt2_345m(max_seq_len=2048)``, bench.py's
+    BENCH_SERVING_MODEL=345m). First bench_serving's mix: a warm serve that
+    captures every signature, a timed one, a profiler trace of one decode
+    tick. Then a sustained run of the mix with staggered arrivals into a
+    small pool (warm, then timed). Then the eager rung (FLAGS_serving_capture
+    off) on both schedules, and ``generate()`` per request of the mix.
+    Returns the kernel launches over the serving path (none: it runs no
+    hand-written kernel)."""
+    import numpy as np
+
+    from paddle_tpu_torch import profiler, serving
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt2_345m
+
+    print(f"[5b] serving.Engine, GPT-2 345M f32, {SERVE_REQUESTS} requests, prompts "
+          f"{SERVE_PROMPT_LENS} cycled, {SERVE_NEW_TOKENS} new tokens each; {card}")
+    pt.seed(0)
+    cfg = gpt2_345m(max_seq_len=2048, dropout=0.0, attn_dropout=0.0)
+    model = GPTForPretraining(cfg, device="gpu:0").eval()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, SERVE_PROMPT_LENS[i % len(SERVE_PROMPT_LENS)])
+               for i in range(SERVE_REQUESTS)]
+    n_new = SERVE_NEW_TOKENS
+
+    def engine(**kw):
+        return serving.Engine(model, serving.ServingConfig(
+            block_size=16, prompt_buckets=[32, 64, 128], **kw))
+
+    def timed(eng, run):
+        profiler.reset_dispatch_counters()
+        eng.reset_stats()
+        t0 = time.perf_counter()
+        out = run()
+        return out, time.perf_counter() - t0, profiler.dispatch_counters()
+
+    reset_flash_counts(fa)  # the serving path's count starts here
+    for kernel in fu.KERNELS.values():
+        kernel.launches = 0
+    profiler.reset_dispatch_counters()
+    eng = engine()
+    t0 = time.perf_counter()
+    eng.serve(prompts, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm, capture = profiler.dispatch_counters(), lazy.serve_capture_state()
+    print(f"  warm serve {warm_s:.2f} s: {warm['serve_capture_builds']} programs built, "
+          f"{capture['cuda_graphs']} CUDA graphs, {warm['serve_prefills']} prefills, "
+          f"{warm['serve_decode_steps']} decode steps")
+    check(capture["cuda_graphs"] == warm["serve_capture_builds"] == capture["cached_programs"],
+          "a serve program was built without its CUDA graph")
+
+    resps, dt, c = timed(eng, lambda: eng.serve(prompts, max_new_tokens=n_new))
+    rec = serve_window(eng, resps, dt, c, card)
+    print_window("timed serve", rec)
+    check_window(rec, resps, n_new, cfg.vocab_size)
+
+    # a torch.profiler trace of one decode tick: one graph replay per
+    # context group (4, 6 and 10 blocks)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=n_new)
+    eng.step()  # admit, prefill, the first decode of each group
+    before = profiler.dispatch_counters()["serve_decode_steps"]
+    trace = device_trace(torch, eng.step)
+    steps = profiler.dispatch_counters()["serve_decode_steps"] - before
+    kinds = print_trace(f" in one decode tick ({steps} graph replays)", *trace)
+    eng.run_until_idle()
+    n_ops, window, busy, wall_ms, _ = trace
+    rec["decode_tick_trace"] = {
+        "graph_replays": steps, "device_ops": n_ops, "device_ms": window / 1e3,
+        "device_idle_share": 1 - busy / window, "host_ms": wall_ms,
+        "kinds_ms_count": {k: list(v) for k, v in kinds.items()}}
+    eng.close()
+
+    # the sustained run: the mix cycled over SUSTAINED_REQUESTS requests,
+    # Poisson arrivals per tick, a pool of SUSTAINED_BLOCKS blocks
+    lens = [SERVE_PROMPT_LENS[i % len(SERVE_PROMPT_LENS)] for i in range(SUSTAINED_REQUESTS)]
+    rng = np.random.default_rng(1)
+    many = [rng.integers(1, cfg.vocab_size, n) for n in lens]
+    arrivals = staggered_arrivals(SUSTAINED_REQUESTS, SUSTAINED_ARRIVALS_PER_TICK, 2)
+    print(f"  sustained: {SUSTAINED_REQUESTS} requests of the mix, Poisson "
+          f"{SUSTAINED_ARRIVALS_PER_TICK} arrivals per tick over {len(arrivals)} ticks, "
+          f"{n_new} new tokens each, a pool of {SUSTAINED_BLOCKS} blocks")
+    sus = engine(num_blocks=SUSTAINED_BLOCKS)
+    profiler.reset_dispatch_counters()
+    t0 = time.perf_counter()
+    warm_out = serve_staggered(sus, many, arrivals, n_new)[0]
+    built, capture = profiler.dispatch_counters()["serve_capture_builds"], lazy.serve_capture_state()
+    print(f"  sustained warm run {time.perf_counter() - t0:.2f} s, {built} programs built, "
+          f"{capture['cuda_graphs']} CUDA graphs")
+    check(all(r.ok for r in warm_out), "a request of the sustained warm run did not end ok: "
+                                      f"{sorted({r.status for r in warm_out})}")
+    check(0 < built == capture["cuda_graphs"],
+          "the sustained run's engine did not capture its signatures as CUDA graphs")
+    (sresps, waiting, deepest), dt, c = timed(
+        sus, lambda: serve_staggered(sus, many, arrivals, n_new))
+    srec = serve_window(sus, sresps, dt, c, card)
+    srec.update(ticks_with_backpressure=waiting, deepest_queue=deepest,
+                arrival_ticks=len(arrivals))
+    print_window("sustained timed run", srec)
+    print(f"    backpressure: {waiting} ticks ended with requests queued for blocks, "
+          f"the deepest queue {deepest}")
+    check_window(srec, sresps, n_new, cfg.vocab_size)
+    check(waiting > 0, "the sustained run never queued a request for blocks")
+    check(len(srec["rows_per_decode_step"]) > 2, "the sustained run's batch sizes never changed")
+    rec["sustained"] = srec
+    sus.close()
+
+    # the eager rung on both schedules, and generate() per request of the mix
+    pt.set_flags({"FLAGS_serving_capture": False})
+    try:
+        eager_eng = engine(keep_logits=True)
+        t0 = time.perf_counter()
+        eager = eager_eng.serve(prompts, max_new_tokens=n_new)
+        rec["eager_tokens_per_s"] = sum(len(r.tokens) for r in eager) / (
+            time.perf_counter() - t0)
+        eager_eng.close()
+        eager_sus = engine(num_blocks=SUSTAINED_BLOCKS)
+        t0 = time.perf_counter()
+        eager_many = serve_staggered(eager_sus, many, arrivals, n_new)[0]
+        srec["eager_tokens_per_s"] = sum(len(r.tokens) for r in eager_many) / (
+            time.perf_counter() - t0)
+        eager_sus.close()
+    finally:
+        pt.set_flags({"FLAGS_serving_capture": True})
+    check(all(r.ok for r in eager + eager_many), "an eager request did not end ok")
+    check([r.tokens for r in eager] == [r.tokens for r in resps],
+          "the captured serve's tokens differ from the eager serve's")
+    differ = sum(a.tokens != b.tokens for a, b in zip(eager_many, sresps))
+    check(not differ, f"{differ} requests of the sustained run differ from the eager rung's")
+    near_ties = []
+    for i, (p, r) in enumerate(zip(prompts, eager)):
+        want = model.generate(p[None, :], max_new_tokens=n_new).cpu().numpy()[0, len(p):]
+        diff = [j for j, (a, b) in enumerate(zip(r.tokens, want.tolist())) if a != b]
+        if not diff:
+            continue
+        j = diff[0]  # past the first difference the two contexts differ
+        top2 = np.sort(r.logits[j])[-2:]
+        near_ties.append({"request": i, "token": j, "margin": float(top2[1] - top2[0])})
+        check(top2[1] - top2[0] < TOL_LOGITS,
+              f"request {i} token {j}: engine {r.tokens[j]} vs generate() {want[j]} with a "
+              f"top-2 margin {top2[1] - top2[0]:.3e} >= {TOL_LOGITS:g}")
+    rec["generate_near_ties"] = near_ties
+    print(f"  eager rung: the mix {rec['eager_tokens_per_s']:.1f} tokens/s, the sustained run "
+          f"{srec['eager_tokens_per_s']:.1f} tokens/s; both give the captured runs' tokens; "
+          f"generate() per request of the mix agrees except {len(near_ties)} near-ties "
+          f"(top-2 margin < {TOL_LOGITS:g}): {near_ties}")
+
+    launches = flash_counts(fa)  # the serving path's count ends here
+    launches.update({k: n.launches for k, n in fu.KERNELS.items()})
+    print(f"  kernel launches over the serving path: {launches}")
+    check(not any(launches.values()), "the serving path launched a hand-written kernel: its "
+                                      "attention is the paged torch composition")
+    print("serving: " + json.dumps(rec))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_345m(torch, pt, fa, gen, dev):
     """Phases 7 and 8: the 345M training step as one CUDA graph, against an
     eager copy, then a profiler trace of one replay. Returns the launches of
@@ -647,21 +962,22 @@ OP_KINDS = [
 ]
 
 
-def profile_replay(torch, step, x, y, n_layers):
-    """Phase 8: a torch.profiler trace of one replayed step."""
+def device_trace(torch, fn):
+    """Run ``fn`` once under torch.profiler. Returns the device operations'
+    count, their window and busy time in µs, the host-clock ms, and
+    {name: (µs, count)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print("[8] torch.profiler trace of one replayed step")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(x, y)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    check(spans, "the profiler recorded no device activity in a replayed step")
+    check(spans, "the profiler recorded no device activity")
     spans.sort()
     window = spans[-1][1] - spans[0][0]
     busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
@@ -676,10 +992,16 @@ def profile_replay(torch, step, x, y, n_layers):
     for a, e, name in spans:
         total, n = by_name.get(name, (0.0, 0))
         by_name[name] = (total + e - a, n + 1)
-    print(f"  {len(spans)} device operations over {window / 1e3:.2f} ms of device time "
+    return len(spans), window, busy, wall_ms, by_name
+
+
+def print_trace(label, n_ops, window, busy, wall_ms, by_name):
+    """The top device operations and the operations by kind; returns the kinds
+    as {kind: (ms, count)}."""
+    print(f"  {n_ops} device operations over {window / 1e3:.2f} ms of device time "
           f"({wall_ms:.2f} ms host clock, profiler on); device idle share "
           f"{1 - busy / window:.1%} of that window")
-    print("  top device operations by time:")
+    print(f"  top device operations by time{label}:")
     for name, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {total / 1e3:8.3f} ms {total / window:6.1%} x{n:<5d} {name[:110]}")
     groups = {}  # kind of device operation -> (ms, count)
@@ -690,6 +1012,14 @@ def profile_replay(torch, step, x, y, n_layers):
     print("  by kind: " + "; ".join(
         f"{k} {ms:.2f} ms ({ms * 1e3 / window:.1%}, x{n})"
         for k, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+    return groups
+
+
+def profile_replay(torch, step, x, y, n_layers):
+    """Phase 8: a torch.profiler trace of one replayed step."""
+    print("[8] torch.profiler trace of one replayed step")
+    n_ops, window, busy, wall_ms, by_name = device_trace(torch, lambda: step(x, y))
+    print_trace("", n_ops, window, busy, wall_ms, by_name)
     # the bf16 step runs the sm90 forward, dK/dV and dQ kernels, each once per
     # layer, and no SIMT or tf32x3 flash kernel
     for label, pattern, want in (("fwd_sm90", r"::fwd_sm90_kernel<", n_layers),
@@ -1230,6 +1560,10 @@ def main() -> int:
     check(unexcused == 0, f"{unexcused} generated tokens disagree with the kernel path")
     inference = flash_counts(fa)  # the inference path's count ends here
     del model, full, out, again
+    torch.cuda.empty_cache()
+
+    # 5b. the serving engine
+    serve_345m(torch, pt, fa, fu, card)
 
     bwd = check_backward_kernels(torch, fa, gen, dev)
     simt_path = simt_backward_path(torch, pt, fa, gen, dev)

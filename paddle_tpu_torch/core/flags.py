@@ -74,6 +74,15 @@ def flag(name: str):
     return _registry[_norm(name)]["value"]
 
 
+def describe_flags(match: str = None):
+    """Sorted ``[{"name": "FLAGS_x", "value", "default", "doc"}]`` for every
+    flag, or for those whose name contains the substring ``match``."""
+    return [
+        {"name": "FLAGS_" + n, "value": e["value"], "default": e["default"], "doc": e["doc"]}
+        for n, e in sorted(_registry.items()) if match is None or match in n
+    ]
+
+
 define_flag(
     "use_flash_attention",
     True,
@@ -110,4 +119,109 @@ define_flag(
     "numeric_rescue_lr_factor", 0.5,
     "lr multiplier applied by the 'lr_backoff' numeric-rescue policy on "
     "each rescued step",
+)
+define_flag(
+    "memory_budget_mb", 0.0,
+    "estimated peak device-memory budget (MB). The serving engine reads it: "
+    "with FLAGS_serving_num_blocks 0 and a budget above 0, the JAX package "
+    "sizes the KV block pool with its memory planner, which the port has not "
+    "ported yet, so the engine raises; at 0 the pool takes "
+    "FLAGS_serving_num_blocks or its 256-block default",
+)
+# ---------------------------------------------------------------------------
+# Serving runtime (paddle_tpu_torch.serving)
+# ---------------------------------------------------------------------------
+define_flag(
+    "serving_block_size", 16,
+    "tokens per KV-cache block in the serving engine's paged cache: every "
+    "sequence's context is stored as a chain of fixed-size blocks drawn "
+    "from one shared pool, so device memory is bounded by the pool, not by "
+    "max_seq_len times the number of admitted sequences",
+)
+define_flag(
+    "serving_num_blocks", 0,
+    "KV block-pool size of the serving engine (shared logical blocks, each "
+    "spanning all layers). 0 = a 256-block default when no memory budget is "
+    "configured (FLAGS_memory_budget_mb 0); a budget-derived size needs the "
+    "memory planner, which the port has not ported yet",
+)
+define_flag(
+    "serving_prompt_buckets", "32,64,128",
+    "ascending prompt-length pad boundaries for the serving prefill "
+    "programs (io/bucketing.py BucketSpec policy): each admitted prompt is "
+    "padded up to its bucket so the number of captured prefill programs is "
+    "bounded; lengths beyond the table round up to multiples of the "
+    "largest boundary. Every boundary must divide evenly into "
+    "FLAGS_serving_block_size blocks",
+)
+define_flag(
+    "serving_decode_batch_buckets", "1,2,4,8",
+    "ascending decode batch-size buckets for continuous batching: each "
+    "decode step pads its active-sequence batch up to a bucket (idle rows "
+    "attend a per-slot scratch block), so one captured decode program per "
+    "(batch bucket, context bucket) signature serves steady state",
+)
+define_flag(
+    "serving_capture", True,
+    "capture each serving prefill/decode signature as ONE program (a CUDA "
+    "graph on the card, core/lazy.py) and replay it from an LRU cache; "
+    "off = every serve step runs eagerly, op by op",
+)
+define_flag(
+    "serving_capture_donate", True,
+    "let the captured program update the paged KV block pool in place (the "
+    "CUDA graph writes the pool tensors it was captured over); 0 runs each "
+    "step on copies of the pool and puts them back on success, so a failed "
+    "step leaves the pool intact",
+)
+define_flag(
+    "serving_capture_cache_size", 16,
+    "LRU cap on captured serving programs (prefill + decode signatures; "
+    "0 = unbounded); evictions are counted in "
+    "paddle_tpu_torch.profiler.dispatch_counters()['serve_capture_evictions']",
+)
+define_flag(
+    "serving_max_new_tokens", 128,
+    "default generation cap per serving request when the request does not "
+    "set max_new_tokens",
+)
+define_flag(
+    "serving_request_retries", 2,
+    "times the serving engine re-enqueues a request whose sequence was "
+    "torn down by a fault mid-decode before answering it with an error "
+    "response; greedy decode is deterministic, so a re-run reproduces the "
+    "same tokens",
+)
+define_flag(
+    "serving_default_deadline_ms", 0.0,
+    "default per-request deadline for the serving engine, in ms from "
+    "submit: requests that do not set deadline_ms inherit this. The "
+    "deadline is enforced at admission (predicted misses are shed with a "
+    "retriable 'overloaded' response), in queue (expired requests answer "
+    "'timeout' before wasting a prefill), and mid-decode (expired "
+    "sequences leave the batch with a partial 'timeout' response, per "
+    "FLAGS_serving_deadline_partial). 0 = no default deadline",
+)
+define_flag(
+    "serving_deadline_partial", True,
+    "what a sequence that passes its deadline MID-DECODE answers: on (the "
+    "default), a 'timeout' response carrying the tokens generated so far "
+    "(partial output is usable under greedy decode); off, the 'timeout' "
+    "response carries no tokens. Either way the request gets a terminal "
+    "response and its KV blocks are recycled, never a hang or a drop",
+)
+define_flag(
+    "serving_queue_max", 256,
+    "cap on the serving RequestQueue (queued, not-yet-admitted requests): "
+    "a submit past the cap is shed immediately with a structured, "
+    "retriable 'overloaded' response instead of growing host memory "
+    "without bound. 0 = unbounded",
+)
+define_flag(
+    "serving_queue_wait_p99_ms", 0.0,
+    "queue-wait p99 trip wire for SLO-aware admission: when the p99 of "
+    "recently observed queue waits exceeds this many ms, newly arriving "
+    "batch-priority requests are shed with 'overloaded' until the p99 "
+    "recovers, so batch traffic sheds first and cannot starve interactive "
+    "under a storm. 0 = trip wire off",
 )

@@ -10,15 +10,17 @@ Same configuration, parameter names and layouts as the JAX model, so a
   - the full-sequence forward goes through ``F.scaled_dot_product_attention``,
     which launches the flash kernel on the card;
   - ``generate()`` decodes over a preallocated KV cache per layer
-    (``ops/nn_ops.cached_attention``);
+    (``ops/nn_ops.cached_attention``); a non-dict cache is the serving
+    engine's paged view (``serving.PagedCacheView``,
+    ``ops/nn_ops.paged_decode_attention``);
   - the LM head is tied to the word embeddings: ``h @ W_embᵀ``.
 
 ``GPTPretrainingCriterion`` is the training loss: token cross-entropy,
 masked mean.
 
-Not ported yet: the paged KV-cache view (the serving engine's), ring and
-ulysses sequence parallelism (multi-GPU), and recompute (ROADMAP queue 1
-item 5). Each raises NotImplementedError when asked for.
+Not ported yet: ring and ulysses sequence parallelism (multi-GPU), and
+recompute (ROADMAP queue 1 item 5). Each raises NotImplementedError when
+asked for.
 """
 from __future__ import annotations
 
@@ -94,15 +96,15 @@ class GPTAttention(torch.nn.Module):
     def forward(self, x, cache=None):
         cfg = self.cfg
         b, s = x.shape[0], x.shape[1]
-        if cache is not None and not isinstance(cache, dict):
-            raise NotImplementedError(
-                "paged KV-cache views are not ported yet: they come with the "
-                "serving engine"
-            )
         qkv = self.qkv_proj(x)
         # heads-major fused layout: 3h splits as H x 3 x hd
         q, k, v = qkv.reshape(b, s, self.num_heads, 3, self.head_dim).unbind(dim=3)
         scale = 1.0 / math.sqrt(self.head_dim)
+        if cache is not None and not isinstance(cache, dict):
+            # the serving engine's paged view (serving.PagedCacheView): the
+            # block pool, tables and per-row lengths live in the view
+            out = cache.append_attend(q, k, v, scale=scale)
+            return self.out_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         if cache is not None:
             if cache.get("k") is None:
                 shape = (b, cfg.max_seq_len, self.num_heads, self.head_dim)

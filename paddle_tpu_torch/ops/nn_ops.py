@@ -119,6 +119,66 @@ def cached_attention(q, k_cache, v_cache, k_new, v_new, cur_len, *, scale):
     return out.to(q.dtype), k_cache, v_cache
 
 
+def paged_decode_attention(q, k_pool, v_pool, tables, lens, k_new, v_new, *,
+                           scale, block_size, prefill=False):
+    """Paged-KV variant of ``cached_attention``: each sequence's context is a
+    chain of fixed-size blocks in one shared pool.
+
+      q            [b, s, h, d]   query chunk (s == 1 for decode steps)
+      k/v_pool     [n_blocks, block_size, h, d]  the shared block pool
+      tables       [b, n_blk] int  physical block id per logical block
+      lens         [b] int  tokens already cached per row (pre-append)
+      k/v_new      [b, s, h, d]   this chunk's K/V, written at lens..lens+s-1
+
+    Writes the new K/V into the pools IN PLACE and returns ``(out [b, s, h,
+    d], k_pool, v_pool)``. ``lens`` and ``tables`` stay on the device: no
+    value is read on the host, so the function can be captured in a CUDA
+    graph. The attention math is ``cached_attention``'s (einsum, f32 logits,
+    −1e30 mask, softmax, cast to q's dtype), so over the same context
+    length the two are bitwise equal.
+
+    ``prefill=True`` asserts the chunk starts at position 0 with ``s`` a
+    block multiple and writes whole blocks in one indexed store; otherwise
+    (decode: s == 1) each of the s positions is one store at (block,
+    offset). Rows padded into a batch bucket must point their table at a
+    PRIVATE scratch block (one per batch slot): a duplicate index in one
+    store lands in an undefined order on the card.
+    """
+    b, s = q.shape[0], q.shape[1]
+    tables = tables.long()
+    if prefill:
+        if s % block_size != 0:
+            raise ValueError(
+                f"paged prefill chunk length {s} is not a multiple of "
+                f"block_size {block_size}"
+            )
+        nb = s // block_size
+        shape = (b, nb, block_size) + tuple(k_new.shape[2:])
+        k_pool[tables[:, :nb]] = k_new.to(k_pool.dtype).reshape(shape)
+        v_pool[tables[:, :nb]] = v_new.to(v_pool.dtype).reshape(shape)
+    else:
+        for i in range(s):
+            pos = lens.long() + i
+            blk = torch.gather(tables, 1, (pos // block_size)[:, None])[:, 0]
+            off = pos % block_size
+            k_pool[blk, off] = k_new[:, i].to(k_pool.dtype)
+            v_pool[blk, off] = v_new[:, i].to(v_pool.dtype)
+    L = tables.shape[1] * block_size
+    k_cache = k_pool[tables].reshape((b, L) + tuple(k_pool.shape[-2:]))
+    v_cache = v_pool[tables].reshape((b, L) + tuple(v_pool.shape[-2:]))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k_cache.to(q.dtype)).float() * scale
+    # token i of the chunk may attend positions j <= lens + i: the
+    # cached_attention mask with a per-row cur
+    allowed = (
+        torch.arange(L, device=q.device)[None, None, :]
+        <= (lens.long()[:, None] + torch.arange(s, device=q.device)[None, :])[:, :, None]
+    )  # [b, s, L]
+    logits = logits.masked_fill(~allowed[:, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v_cache.float())
+    return out.to(q.dtype), k_pool, v_pool
+
+
 def softmax_with_cross_entropy(
     logits, label, *, soft_label=False, ignore_index=-100, axis=-1, reduction="none",
 ):

@@ -435,3 +435,131 @@ def test_adam_step_launches_the_kernel_for_every_parameter():
     assert losses["on"] == losses["off"]
     for a, b in zip(model.parameters(), ref.parameters()):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_serving_engine_replays_cuda_graphs():
+    """The serving engine on the card: each prefill and decode signature is
+    one CUDA graph, replayed in steady state. Tokens equal the retained and
+    eager rungs' and generate()'s; logits within 1e-5 of the eager rung's
+    (the graph replays the eager kernels; 1e-5 is test_torch_gpt.py's
+    logits tolerance)."""
+    from paddle_tpu_torch import profiler, serving
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    pt.seed(0)
+    cfg = tgpt.GPTConfig(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+                         max_seq_len=64, dropout=0.0, attn_dropout=0.0, initializer_range=0.2)
+    model = tgpt.GPTForPretraining(cfg, device=card).eval()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 128, n) for n in (8, 8, 16, 5, 12)]
+
+    def serve(**flags):
+        pt.set_flags(flags)
+        try:
+            eng = serving.Engine(model, serving.ServingConfig(
+                block_size=8, prompt_buckets=[8, 16], num_blocks=32, keep_logits=True))
+            assert eng._pool.k[0].device == card
+            out = eng.serve(prompts, max_new_tokens=8)
+            eng.close()
+            return out
+        finally:
+            pt.set_flags({"FLAGS_serving_capture": True, "FLAGS_serving_capture_donate": True})
+
+    profiler.reset_dispatch_counters()
+    lazy.reset_serve_programs()
+    try:
+        eng = serving.Engine(model, serving.ServingConfig(
+            block_size=8, prompt_buckets=[8, 16], num_blocks=32, keep_logits=True))
+        eng.serve(prompts, max_new_tokens=8)  # warm: captures every signature
+        state = lazy.serve_capture_state()
+        assert state["cuda_graphs"] == state["cached_programs"] > 0
+        profiler.reset_dispatch_counters()
+        captured = eng.serve(prompts, max_new_tokens=8)
+        c = profiler.dispatch_counters()
+        assert c["serve_capture_builds"] == 0 and c["serve_capture_fallbacks"] == 0
+        assert c["serve_capture_replays"] == c["serve_decode_steps"] + c["serve_prefills"] > 0
+        eng.close()
+        retained = serve(FLAGS_serving_capture_donate=False)
+        eager = serve(FLAGS_serving_capture=False)
+    finally:
+        lazy.reset_serve_programs()
+    for p, a, b, e in zip(prompts, captured, retained, eager):
+        assert a.ok and b.ok and e.ok
+        want = model.generate(np.asarray(p)[None, :], max_new_tokens=8).cpu().numpy()
+        assert a.tokens == b.tokens == e.tokens == [int(t) for t in want[0, len(p):]]
+        for x, y in zip(a.logits, e.logits):
+            np.testing.assert_allclose(x, y, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_serving_engine_batches_continuously_on_card():
+    """Continuous batching on the card: requests arrive while others decode,
+    into a pool of 12 blocks that holds 6 of them at once, so admissions
+    land mid-decode, the decode batch changes size and backpressure queues
+    the rest. A first engine is closed, releasing its graphs and their
+    memory pool, and a second one captures anew; its second run of the same
+    schedule replays only captured graphs, each step's device time comes
+    from the engine's CUDA events, and the tokens equal the first engine's
+    and the eager rung's on the same schedule."""
+    from paddle_tpu_torch import profiler, serving
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    pt.seed(0)
+    cfg = tgpt.GPTConfig(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+                         max_seq_len=64, dropout=0.0, attn_dropout=0.0, initializer_range=0.2)
+    model = tgpt.GPTForPretraining(cfg, device=card).eval()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 128, n) for n in (8, 5, 8, 3, 8, 6, 8, 7, 4, 8, 2, 8, 8, 6)]
+    arrivals = [3, 0, 1, 2, 0, 3, 1, 0, 2, 2]
+
+    def run(eng):
+        ids, depth, left, t = [], [], iter(prompts), 0
+        while t < len(arrivals) or eng.pending:
+            if t < len(arrivals):
+                ids += [eng.submit(next(left), max_new_tokens=6) for _ in range(arrivals[t])]
+            eng.step()
+            depth.append(eng.routing_signals()["queue_depth"])
+            t += 1
+        eng.run_until_idle()
+        return [eng.pop_response(i) for i in ids], depth
+
+    def engine():
+        return serving.Engine(model, serving.ServingConfig(
+            block_size=8, prompt_buckets=[8], num_blocks=12))
+
+    lazy.reset_serve_programs()
+    try:
+        first = engine()
+        first_out, _ = run(first)
+        first.close()
+        assert lazy.serve_capture_state()["cuda_graphs"] == 0
+        eng = engine()
+        run(eng)  # warm: captures every signature of the schedule anew
+        assert lazy.serve_capture_state()["cuda_graphs"] > 0
+        profiler.reset_dispatch_counters()
+        eng.reset_stats()
+        captured, depth = run(eng)
+        c = profiler.dispatch_counters()
+        steps = eng.step_timings()
+        eng.close()
+        pt.set_flags({"FLAGS_serving_capture": False})
+        try:
+            eager, _ = run(engine())
+        finally:
+            pt.set_flags({"FLAGS_serving_capture": True})
+    finally:
+        lazy.reset_serve_programs()
+    kinds = [t.kind for t in steps]
+    assert max(depth) > 0  # backpressure fired
+    assert len({len(t.request_ids) for t in steps if t.kind == "decode"}) >= 3
+    assert "prefill" in kinds[kinds.index("decode"):]  # admitted mid-decode
+    assert c["serve_capture_builds"] == c["serve_capture_fallbacks"] == 0
+    assert c["serve_capture_replays"] == c["serve_decode_steps"] + c["serve_prefills"] > 0
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    assert all(t.device_ms is not None and t.device_ms > 0 for t in steps)
+    assert all(r.ok for r in first_out + captured + eager)
+    assert ([r.tokens for r in first_out] == [r.tokens for r in captured]
+            == [r.tokens for r in eager])

@@ -130,8 +130,19 @@ def test_unported_branches_raise():
     ids = torch.as_tensor(_ids((1, 8), seed=9))
     with torch.no_grad(), pytest.raises(NotImplementedError, match="multi-GPU"):
         m(ids)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="serving engine"):
-        m.gpt.layers[0].attn(torch.zeros(1, 8, 64), cache=object())
+    # a non-dict cache is the serving engine's paged view, ported: the layer
+    # hands it q, k, v (tests/test_torch_serving.py holds the paged branch
+    # bitwise against the dict cache)
+    seen = []
+
+    class View:
+        def append_attend(self, q, k, v, *, scale):
+            seen.append((tuple(q.shape), scale))
+            return q
+
+    with torch.no_grad():
+        out = m.gpt.layers[0].attn(torch.zeros(1, 8, 64), cache=View())
+    assert out.shape == (1, 8, 64) and seen == [((1, 8, 4, 16), 0.25)]
     m.cfg.sequence_parallel, m.cfg.use_recompute = False, True
     with torch.no_grad(), pytest.raises(NotImplementedError, match="recompute.*ROADMAP"):
         m(ids)

@@ -73,6 +73,24 @@ def test_fused_update_path_loads_neither_jax_nor_paddle_tpu():
     assert out.strip() == "[]"
 
 
+def test_serving_path_loads_neither_jax_nor_paddle_tpu():
+    # the serving engine: paged prefill and decode through the capture cache
+    out = _run(
+        "import sys, numpy as np\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForPretraining\n"
+        "pt.set_device('cpu')\n"
+        f"m = GPTForPretraining(GPTConfig(**{TINY!r}))\n"
+        "eng = pt.serving.create_engine(m, block_size=8, prompt_buckets=[8], num_blocks=4)\n"
+        "(r,) = eng.serve([np.arange(1, 6)], max_new_tokens=3)\n"
+        "assert r.ok and len(r.tokens) == 3, r\n"
+        "c = pt.profiler.dispatch_counters()\n"
+        "assert c['serve_capture_builds'] == 2 and c['serve_capture_replays'] == 1, dict(c)\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
+
+
 def test_fused_update_source_has_plain_c_entries():
     """csrc/fused_update.cu is plain CUDA C++: no PyTorch or library headers,
     the three launchers the wrappers bind, round-to-nearest intrinsics only."""
