@@ -30,13 +30,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      signature as one CUDA graph, a timed serve (requests/s, tokens/s,
      token latency p50/p99 from the engine's step timings, one graph replay
      per decode step, no re-capture, fallback, drop or leaked block, the
-     decode steps' host cost split from their device time), a profiler trace
-     of one decode tick; then a sustained run of 256 requests of the mix
+     decode steps' host cost split from their device time); then a
+     sustained run of 256 requests of the mix
      arriving in a stagger into a 96-block pool, so admissions land
      mid-decode, batch sizes change and backpressure fires (warm, then
      timed, the same checks); the eager rung on both schedules with equal
      tokens, and ``generate()`` per request of the mix, equal but for
      recorded near-ties;
+ 5c. the same engine configuration and mix under faults, each scenario of
+     ``tools/serve_probe.py``'s list answering every request with no drop
+     and no leaked block: injected faults at p=0.2 (tokens equal the clean
+     serve's); a decode storm the ladder demotes to the retained rung, then
+     a clean serve in which the cooldown re-promotes the buckets and their
+     graphs replay again (demoted and captured step ms); prefill faults; a
+     fault raised after a decode graph wrote the pool (zeroed in place,
+     every sequence requeued); under ``serving.Supervisor`` a tick that
+     raises once (one restart, re-capture beside another engine's live
+     graphs, health degraded then ready, the restart's ms to the next
+     token), a permanently wedged one (every request an error, the engine
+     dead, a postmortem written); a tick stalled past
+     ``FLAGS_trace_stall_ms`` with nothing decoded (a restart, with no other
+     graph alive) and one as slow that decoded (none); SIGTERM with the
+     preemption handler (a drain); ``inference.create_predictor`` on a
+     generative Config and a ``PredictorPool`` routing around a draining
+     replica; then the clean mix with ``resilience.execute`` on its fast
+     path, a second time on it and bypassed, in turns (the fast path's cost
+     per decode step, beside its cost per call in a loop); last, a profiler
+     trace of one decode tick (a profiler session leaves every later launch
+     ~0.2 ms of host cost, so it follows every timed serving window);
   6. hold the flash backward kernels (dK/dV and dQ, each on its three
      routes: sm90 for bf16/fp16, tf32x3 for f32, both fed by TMA, and simt
      for what neither takes) against their plain version on the card, at the
@@ -68,7 +89,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      with ``FLAGS_pallas_fused_update`` on, against a deep copy stepped with
      the flag off: bitwise-equal losses, parameters and moments, one Adam
      kernel launch per parameter per step, and ``opt.step()`` and the
-     forward + backward timed; in f32 the flash forward and both backward
+     forward + backward timed; a third copy runs the same steps under
+     ``FLAGS_fault_inject="execute:optimizer:p=1:x=1,nan:grads:step=2"``
+     (each update launch faulted once and retried, the NaN gradient from
+     the fault plan), bitwise equal to the flag-on run; in f32 the flash forward and both backward
      kernels run on the tf32x3 route; then the forward + backward with the
      flash kernels on their route, with the forward forced to SIMT and with
      the backward forced to SIMT, in turns;
@@ -328,6 +352,13 @@ def check_forward_kernels(torch, fa, gen, dev):
         print(f"  {shape} causal={causal} {dname} {layout}: route {route} "
               f"({took}); max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} tol={TOL[dname]:g}; "
               f"second forward bitwise equal: {bitwise} {'ok' if ok else 'FAIL'}")
+        if not bitwise:
+            # the witness an open fault needs (ROADMAP queue 3): where the
+            # two launches differ, by [batch, row, head] of O
+            rows = (o_k != o_2).any(dim=-1).nonzero().tolist()
+            print(f"    the two forwards differ in {len(rows)} O rows (first {rows[:8]}), "
+                  f"by at most {(o_k.float() - o_2.float()).abs().max().item():.3e}; lse in "
+                  f"{int((lse_k != lse_2).sum())} entries")
         check(took[route] == 2 and sum(took.values()) == 2,
               f"the forward at {shape} {dname} did not take the {route} route: {took}")
         check(ok, f"forward kernel disagrees with its plain version at {shape} {dname}")
@@ -547,6 +578,15 @@ def flash_counts(fa):
 
 SERVE_PROMPT_LENS = (32, 64, 48, 128, 64, 32)  # bench.py bench_serving's mix
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 12, 24
+# execute's fast path, held against a direct call of the thunk at the end
+# of phase 5c. Per call (a loop of FAST_PATH_CALLS calls): at most
+# FAST_PATH_CALL_US more. Per decode step of the clean mix, execute against
+# bypassed in turns: the step's launch and device ms medians at most
+# FAST_PATH_STEP_MS apart (the median over rounds of each round's gap). The
+# bounds sit several times above the sound readings (PERF.md section 5) and
+# far below what a host wait for the card inside execute would add (a
+# decode step's ~4 ms)
+FAST_PATH_CALLS, FAST_PATH_CALL_US, FAST_PATH_STEP_MS = 200_000, 3.0, 0.1
 # the sustained run: the same mix arriving in a stagger (Poisson arrivals per
 # scheduler tick) into a pool that holds about 16 of its requests at once,
 # so admissions land mid-decode, batch sizes change and backpressure fires
@@ -691,12 +731,12 @@ def serve_345m(torch, pt, fa, fu, card):
     """Phase 5b: ``serving.Engine`` over GPT-2 345M f32 at full width and
     depth (``gpt2_345m(max_seq_len=2048)``, bench.py's
     BENCH_SERVING_MODEL=345m). First bench_serving's mix: a warm serve that
-    captures every signature, a timed one, a profiler trace of one decode
-    tick. Then a sustained run of the mix with staggered arrivals into a
+    captures every signature and a timed one. Then a sustained run of the
+    mix with staggered arrivals into a
     small pool (warm, then timed). Then the eager rung (FLAGS_serving_capture
     off) on both schedules, and ``generate()`` per request of the mix.
-    Returns the kernel launches over the serving path (none: it runs no
-    hand-written kernel)."""
+    Checks that the path launches no hand-written kernel. Returns what phase
+    5c serves with: the model, the mix, its tokens and its tokens/s."""
     import numpy as np
 
     from paddle_tpu_torch import profiler, serving
@@ -745,21 +785,9 @@ def serve_345m(torch, pt, fa, fu, card):
     print_window("timed serve", rec)
     check_window(rec, resps, n_new, cfg.vocab_size)
 
-    # a torch.profiler trace of one decode tick: one graph replay per
-    # context group (4, 6 and 10 blocks)
-    for p in prompts:
-        eng.submit(p, max_new_tokens=n_new)
-    eng.step()  # admit, prefill, the first decode of each group
-    before = profiler.dispatch_counters()["serve_decode_steps"]
-    trace = device_trace(torch, eng.step)
-    steps = profiler.dispatch_counters()["serve_decode_steps"] - before
-    kinds = print_trace(f" in one decode tick ({steps} graph replays)", *trace)
-    eng.run_until_idle()
-    n_ops, window, busy, wall_ms, _ = trace
-    rec["decode_tick_trace"] = {
-        "graph_replays": steps, "device_ops": n_ops, "device_ms": window / 1e3,
-        "device_idle_share": 1 - busy / window, "host_ms": wall_ms,
-        "kinds_ms_count": {k: list(v) for k, v in kinds.items()}}
+    # (the torch.profiler trace of one decode tick is taken at the end of
+    # phase 5c: after a profiler session every launch costs the host ~0.2 ms
+    # more, which would skew every host-clock window after it)
     eng.close()
 
     # the sustained run: the mix cycled over SUSTAINED_REQUESTS requests,
@@ -842,9 +870,441 @@ def serve_345m(torch, pt, fa, fu, card):
     check(not any(launches.values()), "the serving path launched a hand-written kernel: its "
                                       "attention is the paged torch composition")
     print("serving: " + json.dumps(rec))
-    del model
     torch.cuda.empty_cache()
-    return launches
+    return {"model": model, "prompts": prompts, "tokens": [r.tokens for r in resps],
+            "tokens_per_s": rec["tokens_per_s"]}
+
+
+def serve_under_faults(torch, pt, fa, fu, card, served):
+    """Phase 5c: phase 5b's 345M f32 engine configuration and mix under the
+    resilience runtime, scenario by scenario as ``tools/serve_probe.py``
+    lists them: injected faults, a decode storm the ladder demotes and
+    re-promotes, prefill faults, a fault after a graph wrote the pool, a
+    wedged tick under ``serving.Supervisor`` (restart, then a permanent
+    wedge that fails clean), a stalled tick, SIGTERM, the generative
+    predictor, then the cost of ``execute``'s fast path (per call in a
+    loop, and per decode step of the clean mix in turns against execute
+    bypassed), and a profiler
+    trace of one decode tick. Every scenario answers every request with no
+    drop and no leaked block."""
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from paddle_tpu_torch import inference, profiler, resilience, serving
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.profiler import trace
+    from paddle_tpu_torch.resilience import runtime as rt
+
+    model, prompts, clean = served["model"], served["prompts"], served["tokens"]
+    n_new = SERVE_NEW_TOKENS
+    clean_tps = served["tokens_per_s"]
+    print(f"[5c] serving under faults: the mix of 5b on GPT-2 345M f32, clean "
+          f"{clean_tps:.1f} tokens/s in 5b; {card}")
+    reset_flash_counts(fa)  # 5c's count starts here
+    for kernel in fu.KERNELS.values():
+        kernel.launches = 0
+    # several engines hold graphs at once here: room for all of them
+    pt.set_flags({"FLAGS_serving_capture_cache_size": 64})
+    out = {"card": card}
+
+    def engine(**kw):
+        return serving.Engine(model, serving.ServingConfig(
+            block_size=16, prompt_buckets=[32, 64, 128], **kw))
+
+    def fresh(spec=""):
+        resilience.reset()
+        profiler.reset_dispatch_counters()
+        pt.set_flags({"FLAGS_fault_inject": spec, "FLAGS_retry_backoff_ms": 0.5})
+
+    def audit(name, resps, dt, statuses=("ok",), keys=()):
+        c = profiler.dispatch_counters()
+        check(all(r is not None for r in resps), f"{name}: a request got no response")
+        check(all(r.status in statuses for r in resps),
+              f"{name}: statuses {sorted({r.status for r in resps})}, expected {statuses}")
+        check(c["serve_requests_dropped"] == c["serve_block_leaks"] == 0,
+              f"{name}: {c['serve_requests_dropped']} dropped, "
+              f"{c['serve_block_leaks']} leaked blocks")
+        toks = sum(len(r.tokens) for r in resps if r.ok)
+        rec = {"requests": len(resps), "ok": sum(r.ok for r in resps), "wall_s": dt,
+               "tokens_per_s": toks / dt}
+        rec.update({k: (dict(c[k]) if hasattr(c[k], "items") else c[k]) for k in keys})
+        print(f"  [{name}] {rec['ok']} of {rec['requests']} ok in {dt:.3f} s "
+              f"({rec['tokens_per_s']:.1f} tokens/s), 0 dropped, 0 leaked blocks; "
+              + ", ".join(f"{k} {rec[k]}" for k in keys))
+        out[name] = rec
+        return rec
+
+    def serve(eng):
+        t0 = time.perf_counter()
+        resps = eng.serve(prompts, max_new_tokens=n_new)
+        return resps, time.perf_counter() - t0
+
+    def step_ms(eng, rung):
+        return [t.feed_ms + t.launch_ms + t.wait_ms for t in eng.step_timings()
+                if t.kind == "decode" and t.rung == rung]
+
+    fault_keys = ("injected_faults", "retry_attempts", "retry_exhausted", "fault_events",
+                  "ladder_demotions", "ladder_promotions", "serve_capture_fallbacks",
+                  "serve_request_requeues", "fault_sites")
+    fresh()
+    eng = engine()
+    check([r.tokens for r in serve(eng)[0]] == clean, "5c's engine gave other tokens")
+
+    # faults: transient injected faults at p=0.2, every one retried
+    fresh("execute:p=0.2")
+    resps, dt = serve(eng)
+    rec = audit("faults", resps, dt, keys=fault_keys)
+    check([r.tokens for r in resps] == clean, "faults: tokens differ from the clean serve's")
+    check(rec["injected_faults"] > 0, "faults: nothing was injected")
+    print(f"    {rec['tokens_per_s']:.1f} tokens/s under p=0.2 against {clean_tps:.1f} clean")
+
+    # storm: every decode step faults past its retries; the ladder demotes
+    # the buckets to the retained rung, and after the storm the cooldown
+    # re-promotes them and their graphs replay again
+    fresh("execute:p=1:x=3:decode")
+    eng.reset_stats()
+    resps, dt = serve(eng)
+    rec = audit("storm", resps, dt, keys=fault_keys)
+    check([r.tokens for r in resps] == clean, "storm: tokens differ from the clean serve's")
+    check(rec["ladder_demotions"] >= 1 and rec["serve_capture_fallbacks"] > 0,
+          "storm: the ladder did not demote")
+    storm_ms = {rung: step_ms(eng, rung) for rung in ("captured", "retained", "eager")}
+    pt.set_flags({"FLAGS_fault_inject": ""})  # the ladder keeps its state
+    profiler.reset_dispatch_counters()
+    eng.reset_stats()
+    resps, dt = serve(eng)
+    rec = audit("storm_cooldown", resps, dt,
+                keys=("ladder_promotions", "serve_capture_replays", "serve_capture_builds"))
+    rungs = [t.rung for t in eng.step_timings() if t.kind == "decode"]
+    check([r.tokens for r in resps] == clean, "storm cooldown: tokens differ")
+    check(rec["ladder_promotions"] >= 1, "storm cooldown: no bucket was re-promoted")
+    check("retained" in rungs and rungs[-1] == "captured"
+          and rungs.index("captured") > rungs.index("retained"),
+          f"storm cooldown: no graph replayed after the demotion: {rungs}")
+    demoted, captured = step_ms(eng, "retained"), step_ms(eng, "captured")
+    rec.update(demoted_step_ms_median=statistics.median(demoted),
+               captured_step_ms_median=statistics.median(captured),
+               demoted_steps=len(demoted), captured_steps=len(captured),
+               storm_step_ms_median={k: statistics.median(v) for k, v in storm_ms.items() if v})
+    print(f"    decode step medians: demoted (retained rung, copies of the pool) "
+          f"{rec['demoted_step_ms_median']:.3f} ms over {len(demoted)} steps, captured "
+          f"{rec['captured_step_ms_median']:.3f} ms over {len(captured)} (x"
+          f"{rec['demoted_step_ms_median'] / rec['captured_step_ms_median']:.1f}); in the "
+          f"storm, by rung: {rec['storm_step_ms_median']}")
+
+    # prefill: the first prefill of every tick faults once and is retried
+    fresh("execute:p=1:x=1:prefill")
+    resps, dt = serve(eng)
+    rec = audit("prefill", resps, dt, keys=fault_keys)
+    check([r.tokens for r in resps] == clean, "prefill: tokens differ")
+    check(rec["retry_attempts"] > 0, "prefill: nothing was retried")
+
+    # pool consumed: a real fault raised after a decode graph's replay wrote
+    # the pool; the pool is zeroed in place and every sequence requeued
+    fresh()
+    real_captured = lazy._ServeProgram._captured
+    fired = []
+
+    def fails_after_replay(prog, k_pools, v_pools, feeds):
+        result = real_captured(prog, k_pools, v_pools, feeds)
+        if prog.key[0] == "decode" and not fired:
+            fired.append(prog.key)
+            raise RuntimeError("simulated fault after the graph replay wrote the pool")
+        return result
+
+    pools = list(eng._pool.k + eng._pool.v)
+    lazy._ServeProgram._captured = fails_after_replay
+    try:
+        resps, dt = serve(eng)
+    finally:
+        lazy._ServeProgram._captured = real_captured
+    rec = audit("pool_consumed", resps, dt, keys=fault_keys + ("fatal_faults",))
+    check(fired and rec["serve_capture_fallbacks"] == 1 and rec["fatal_faults"] == 1,
+          "pool consumed: the fault did not take the captured rung's recovery")
+    check(rec["serve_request_requeues"] == SERVE_REQUESTS,
+          "pool consumed: not every in-flight sequence was requeued")
+    check(all(a is b for a, b in zip(pools, eng._pool.k + eng._pool.v)),
+          "pool consumed: the pool tensors were replaced, not zeroed in place")
+    check([r.tokens for r in resps] == clean, "pool consumed: tokens differ")
+
+    # wedge: under the Supervisor a tick raises once, with a second engine's
+    # graphs alive in the shared graph pool while this one re-captures
+    bystander = engine()
+    bystander.serve(prompts[:2], max_new_tokens=4)
+    fresh()
+    sup = serving.Supervisor(eng)
+    restarted = []
+    real_restart, real_decode = eng.restart, eng._decode_batch
+
+    def timed_restart(err):
+        restarted.append(time.perf_counter())
+        real_restart(err)
+
+    def wedge_once(chunk, n_blk):
+        if not restarted:
+            raise RuntimeError("tick bug escaped the ladder")
+        return real_decode(chunk, n_blk)
+
+    eng.restart, eng._decode_batch = timed_restart, wedge_once
+    trace.clear()
+    eng.reset_stats()
+    try:
+        ids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+        t0 = time.perf_counter()
+        sup.run_until_idle()
+        dt = time.perf_counter() - t0
+        resps = [eng.pop_response(i) for i in ids]
+    finally:
+        sup.close()
+        del eng.restart, eng._decode_batch
+    rec = audit("wedge", resps, dt,
+                keys=("serve_engine_restarts", "serve_request_requeues",
+                      "serve_capture_builds", "serve_health_transitions"))
+    health = [e.attrs["state"] for e in trace.events(kind="serve")
+              if e.attrs.get("phase") == "health" and e.attrs.get("engine") == eng._uid]
+    first = min(t.end for t in eng.step_timings() if t.end > restarted[0])
+    rec.update(restart_to_next_token_ms=(first - restarted[0]) * 1e3, health=health)
+    check(sup.restarts == 1 and rec["serve_engine_restarts"] == 1, "wedge: not one restart")
+    check([r.tokens for r in resps] == clean, "wedge: tokens differ from the clean serve's")
+    check(health[:2] == ["degraded", "ready"], f"wedge: health went {health}")
+    check(rec["serve_capture_builds"] > 0, "wedge: the restarted engine did not re-capture")
+    print(f"    restart to the next token {rec['restart_to_next_token_ms']:.1f} ms (re-capture "
+          f"included, another engine's graphs alive); health {health}")
+
+    # the permanent wedge: past max_restarts=2 the engine fails clean
+    with tempfile.TemporaryDirectory() as pm_dir:
+        pt.set_flags({"FLAGS_postmortem_dir": pm_dir})
+        dead = engine()
+        sup = serving.Supervisor(dead, max_restarts=2)
+
+        def always_wedged(chunk, n_blk):
+            raise RuntimeError("permanently wedged")
+
+        dead._decode_batch = always_wedged
+        try:
+            ids = [dead.submit(p, max_new_tokens=n_new) for p in prompts]
+            t0 = time.perf_counter()
+            sup.run_until_idle()
+            dt = time.perf_counter() - t0
+            resps = [dead.pop_response(i) for i in ids]
+        finally:
+            sup.close()
+            pt.set_flags({"FLAGS_postmortem_dir": ""})
+        rec = audit("wedge_dead", resps, dt, statuses=("error",),
+                    keys=("serve_engine_restarts",))
+        dumps = sorted(os.listdir(pm_dir))
+        check(dead.health == "dead" and sup.restarts == 3, "permanent wedge: not dead")
+        dead_dumps = [d for d in dumps if d.startswith("postmortem_engine_dead")]
+        check(dead_dumps, f"permanent wedge: no engine_dead postmortem in {dumps}")
+        doc = trace.read_postmortem(os.path.join(pm_dir, dead_dumps[0]))
+        rec.update(postmortems=dumps, postmortem_memory=doc["memory"])
+        print(f"    health {dead.health}; postmortems {dumps}; memory section {doc['memory']}")
+    dead.close()
+    bystander.close()
+
+    # stall: a tick sleeps 0.5 s having decoded nothing; the watchdog
+    # (FLAGS_trace_stall_ms 200) trips, the Supervisor restarts the engine,
+    # this time with no other engine's graphs alive. Then a tick as slow
+    # that did decode: no restart
+    fresh()
+    pt.set_flags({"FLAGS_trace_stall_ms": 200.0})
+    for productive in (False, True):
+        sup = serving.Supervisor(eng)
+        stalled, real_decode = [], eng._decode_batch
+
+        def stall_tick(chunk, n_blk):
+            if not stalled:
+                stalled.append(eng._tick_no)
+                time.sleep(0.5)
+            if stalled[0] == eng._tick_no and not productive:
+                return True  # no group of the tick decodes
+            return real_decode(chunk, n_blk)
+
+        try:
+            ids = [eng.submit(p, max_new_tokens=n_new) for p in prompts]
+            eng.step()  # admit everything and arm the heartbeat
+            eng._decode_batch = stall_tick
+            t0 = time.perf_counter()
+            sup.run_until_idle()
+            dt = time.perf_counter() - t0
+            resps = [eng.pop_response(i) for i in ids]
+        finally:
+            sup.close()
+            del eng._decode_batch
+        name = "stall_productive" if productive else "stall"
+        rec = audit(name, resps, dt, keys=("serve_engine_restarts",))
+        rec["supervisor_restarts"] = sup.restarts
+        check([r.tokens for r in resps] == clean, f"{name}: tokens differ")
+        check(sup.restarts == (0 if productive else 1), f"{name}: {sup.restarts} restarts")
+        profiler.reset_dispatch_counters()
+    pt.set_flags({"FLAGS_trace_stall_ms": 0.0})
+    out["watchdog_stalls"] = trace.stall_count()
+
+    # sigterm: SIGTERM from a timer thread mid-serve, the handler installed
+    fresh()
+    sig = engine()
+    sig.install_preemption_handler()
+    try:
+        ids = [sig.submit(p, max_new_tokens=n_new) for p in prompts]
+        t0 = time.perf_counter()
+        sig.step()
+        killer = threading.Timer(0.01, lambda: os.kill(os.getpid(), signal.SIGTERM))
+        killer.start()
+        killer.join()
+        sig.run_until_idle()
+        dt = time.perf_counter() - t0
+        late = sig.submit(prompts[0], max_new_tokens=n_new)
+        resps = [sig.pop_response(i) for i in ids]
+    finally:
+        sig.uninstall_preemption_handler()
+    rec = audit("sigterm", resps, dt, keys=("serve_preempt_drains",))
+    rec["late_submit"] = sig.response(late).status
+    check(rec["late_submit"] == "rejected" and rec["serve_preempt_drains"] == 1,
+          f"sigterm: late submit {rec['late_submit']}, drains {rec['serve_preempt_drains']}")
+    check([r.tokens for r in resps] == clean, "sigterm: tokens differ")
+    sig.close()
+
+    # predictor: create_predictor on a generative Config, then a pool of two
+    # independent replicas that routes around a draining one
+    fresh()
+    config = inference.Config()
+    config.enable_generative_serving(model, block_size=16, prompt_buckets=[32, 64, 128],
+                                     max_new_tokens=n_new)
+    rows = [i for i, p in enumerate(prompts) if p.size == 32][:4]
+    ids = np.stack([prompts[i] for i in rows])
+    pred = inference.create_predictor(config)
+    t0 = time.perf_counter()
+    (tokens,) = pred.run([ids])
+    dt = time.perf_counter() - t0
+    check(tokens.shape == (4, n_new), f"predictor: tokens of shape {tokens.shape}")
+    check(tokens.tolist() == [clean[i] for i in rows], "predictor: tokens differ")
+    pool = inference.PredictorPool(config, size=2, clone=False)
+    a, b = pool.retrieve(0), pool.retrieve(1)
+    a.engine.begin_drain()
+    picks = [pool.acquire() for _ in range(4)]
+    check(all(p is b for p in picks), "predictor pool: did not route around the draining one")
+    check(b.run([ids])[0].tolist() == tokens.tolist(), "predictor pool: tokens differ")
+    out["predictor"] = {"shape": list(tokens.shape), "wall_s": dt, "pool_healths": pool.healths()}
+    print(f"  [predictor] run([ids]) on {list(ids.shape)}: tokens {list(tokens.shape)} equal to "
+          f"the engine's, {dt:.3f} s; pool healths {pool.healths()}, 4 of 4 acquires on the "
+          f"ready replica, its tokens equal")
+    for p in (pred, a, b):
+        p.engine.close()
+
+    # execute's fast path costs nothing measurable. Per call: a loop of
+    # execute over a thunk that returns at once, in turns with the direct
+    # call, the smallest of three of each
+    fresh()
+    pt.set_flags({"FLAGS_retry_backoff_ms": 5.0})
+    key = ("decode", eng._uid)
+
+    def per_call_ns(fn):
+        t0 = time.perf_counter_ns()
+        for _ in range(FAST_PATH_CALLS):
+            fn()
+        return (time.perf_counter_ns() - t0) / FAST_PATH_CALLS
+
+    calls = {"execute": [], "direct": []}
+    for _ in range(3):
+        calls["execute"].append(per_call_ns(
+            lambda: rt.execute("decode", lambda: key, ladder_key=key, retry_unsafe=True)))
+        calls["direct"].append(per_call_ns(lambda: key))
+    call_us = (min(calls["execute"]) - min(calls["direct"])) / 1e3
+
+    # per decode step: the clean mix with execute on its fast path (twice, A
+    # and A2: the turns' own noise) and bypassed (B, a direct call of the
+    # thunk), in turns. The fast path runs inside the step's launch ms, and
+    # the device ms (CUDA events) span the launch too. Each round serves
+    # A, B, A2, A2, B, A and gives each mode's median step; a gap is the
+    # median over the rounds of the round's difference, so neither a drift
+    # of the host nor a round in which the card's step time moved decides it
+    serve(eng)  # re-capture after the stall restart
+    real_execute = rt.execute
+    fields, rounds = ("launch_ms", "device_ms"), 4
+    rows = {"A": [], "A2": [], "B": []}
+    turns = {"A": [], "A2": [], "B": []}
+    per_round = []
+    rungs = set()
+    profiler.reset_dispatch_counters()
+    for _ in range(rounds):
+        this = {"A": [], "A2": [], "B": []}
+        for mode in ("A", "B", "A2", "A2", "B", "A"):
+            if mode == "B":
+                rt.execute = lambda site, thunk, **kw: thunk()
+            eng.reset_stats()
+            try:
+                resps, dt = serve(eng)
+            finally:
+                rt.execute = real_execute
+            check([r.tokens for r in resps] == clean, f"clean mix ({mode}): tokens differ")
+            turns[mode].append(sum(len(r.tokens) for r in resps) / dt)
+            this[mode] += [t for t in eng.step_timings() if t.kind == "decode"]
+            rungs.update(t.rung for t in eng.step_timings())
+        per_round.append({m: {f: statistics.median(getattr(t, f) for t in r) for f in fields}
+                          for m, r in this.items()})
+        for m, r in this.items():
+            rows[m] += r
+    c = profiler.dispatch_counters()
+    check(rungs == {"captured"} and c["serve_capture_builds"] == c["serve_capture_fallbacks"]
+          == c["fault_events"] == 0
+          and c["serve_capture_replays"] == c["serve_decode_steps"] + c["serve_prefills"],
+          f"the clean mix after 5c left the fast path: rungs {rungs}, counters {dict(c)}")
+    med = {m: {f: statistics.median(getattr(t, f) for t in r) for f in fields}
+           for m, r in rows.items()}
+    gap = {f: {f"{a}-{b}": statistics.median(r[a][f] - r[b][f] for r in per_round)
+               for a, b in (("A", "B"), ("A2", "B"), ("A", "A2"))} for f in fields}
+    after = statistics.median(turns["A"] + turns["A2"])
+    out["fast_path"] = {"per_call_ns": calls, "per_call_us": call_us,
+                        "decode_steps_per_mode": len(rows["B"]), "step_medians_ms": med,
+                        "round_medians_ms": per_round,
+                        "step_gaps_ms": gap, "turns_tokens_per_s": turns,
+                        "clean_mix_after_tokens_per_s": after, "clean_mix_5b_tokens_per_s": clean_tps}
+    print(f"  [fast path] per call: execute {min(calls['execute']):.1f} ns, the direct call "
+          f"{min(calls['direct']):.1f} ns ({call_us:.3f} us more, bound {FAST_PATH_CALL_US} us)")
+    print(f"    per decode step, {len(rows['B'])} steps each, medians in ms: "
+          + "; ".join(f"{m} launch {v['launch_ms']:.4f} device {v['device_ms']:.4f}"
+                      for m, v in med.items())
+          + f"; gaps, median of {rounds} rounds: "
+          + "; ".join(f"{f} " + " ".join(f"{k} {v:+.4f}" for k, v in g.items())
+                      for f, g in gap.items())
+          + f" (bound {FAST_PATH_STEP_MS} ms)")
+    print("    tokens/s by turn: " + "; ".join(
+        f"{m} " + " ".join(f"{v:.1f}" for v in t) for m, t in turns.items())
+          + f"; the clean mix after 5c {after:.1f} against {clean_tps:.1f} in 5b (host clock, "
+            f"not gated: PERF.md)")
+    check(call_us <= FAST_PATH_CALL_US,
+          f"execute's fast path costs {call_us:.3f} us a call, more than {FAST_PATH_CALL_US} us")
+    for f, g in gap.items():
+        check(abs(g["A-B"]) <= FAST_PATH_STEP_MS and abs(g["A2-B"]) <= FAST_PATH_STEP_MS,
+              f"execute's fast path moves the decode step's median {f} by {g}, more than "
+              f"{FAST_PATH_STEP_MS} ms")
+
+    # a torch.profiler trace of one decode tick: one graph replay per
+    # context group (4, 6 and 10 blocks); last, after every timed window
+    for p in prompts:
+        eng.submit(p, max_new_tokens=n_new)
+    eng.step()  # admit, prefill, the first decode of each group
+    before = profiler.dispatch_counters()["serve_decode_steps"]
+    traced = device_trace(torch, eng.step)
+    steps = profiler.dispatch_counters()["serve_decode_steps"] - before
+    kinds = print_trace(f" in one decode tick ({steps} graph replays)", *traced)
+    eng.run_until_idle()
+    n_ops, window, busy, wall_ms, _ = traced
+    out["decode_tick_trace"] = {
+        "graph_replays": steps, "device_ops": n_ops, "device_ms": window / 1e3,
+        "device_idle_share": 1 - busy / window, "host_ms": wall_ms,
+        "kinds_ms_count": {k: list(v) for k, v in kinds.items()}}
+    eng.close()
+    pt.set_flags({"FLAGS_serving_capture_cache_size": 16})
+    resilience.reset()
+
+    launches = flash_counts(fa)  # 5c's count ends here
+    launches.update({k: n.launches for k, n in fu.KERNELS.items()})
+    check(not any(launches.values()), f"5c launched a hand-written kernel: {launches}")
+    print("serving under faults: " + json.dumps(out, default=str))
 
 
 def train_345m(torch, pt, fa, gen, dev):
@@ -1178,9 +1638,10 @@ def bitwise_same(torch, model_a, model_b, opt_a, opt_b):
 
 def train_f32_adam(torch, pt, fa, fu, gen, dev):
     """Phase 10: eager f32 GPT-2 345M with Adam through the fused kernel,
-    against a flag-off copy; then the forward + backward of the step with the
-    flash kernels on their route, the forward forced to SIMT and the backward
-    forced to SIMT, in turns. Returns ({"adam": launches over the path},
+    against a flag-off copy and against a copy stepped under the resilience
+    runtime's optimizer fault and nan:grads; then the forward + backward of
+    the step with the flash kernels on their route, the forward forced to
+    SIMT and the backward forced to SIMT, in turns. Returns ({"adam": launches over the path},
     {"flash": flash launches over the path, "fwd_bwd_ms", "turns": {config:
     median ms}, "steps", "layers"})."""
     from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
@@ -1194,6 +1655,7 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
     cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
     model = GPTForPretraining(cfg, device=dev)
     copy_off = copy.deepcopy(model)  # before any step
+    copy_fault = copy.deepcopy(model)
     n_params = len(list(model.parameters()))
     numel = sum(p.numel() for p in model.parameters())
     largest = max(p.numel() for p in model.parameters())
@@ -1204,7 +1666,10 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
     x, y = ids[:, :-1], ids[:, 1:]
     pt.set_flags({"FLAGS_numeric_rescue": "skip"})
 
-    def run(m, flag):
+    def run(m, flag, spec=None):
+        """Steps of ``m`` with the fused-update flag ``flag``: the NaN
+        gradient poisoned by hand, or through the fault spec ``spec`` (the
+        resilience runtime reset first, so its step counts from here)."""
         sched = pt.optimizer.lr.LinearWarmup(
             pt.optimizer.lr.CosineAnnealingDecay(1e-4, T_max=10), warmup_steps=2,
             start_lr=1e-5, end_lr=1e-4)
@@ -1213,6 +1678,9 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
                                 grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
         pt.set_flags({"FLAGS_pallas_fused_update": flag})
         pt.resilience.rescue.reset_counters()
+        if spec is not None:
+            pt.resilience.reset()
+            pt.set_flags({"FLAGS_fault_inject": spec, "FLAGS_retry_backoff_ms": 0.5})
         losses, step_ms, per_step, fwd_bwd_ms = [], [], [], []
         for i in range(steps):
             start = torch.cuda.Event(enable_timing=True)
@@ -1226,8 +1694,8 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
                 fwd_bwd_ms.append(start.elapsed_time(end))
             snap = None
             if i == nan_at:
-                first = next(m.parameters())
-                first.grad.fill_(float("nan"))
+                if spec is None:
+                    next(m.parameters()).grad.fill_(float("nan"))
                 snap = ([p.detach().clone() for p in m.parameters()],
                         [{k: t.clone() for k, t in opt._accumulators[id(p)].items()}
                          for p in m.parameters()])
@@ -1256,6 +1724,7 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
         check(pt.resilience.rescue.counters["numeric_rescues"] == 1,
               f"flag {flag}: numeric_rescues is "
               f"{pt.resilience.rescue.counters['numeric_rescues']}, not 1")
+        pt.set_flags({"FLAGS_fault_inject": "", "FLAGS_retry_backoff_ms": 5.0})
         return opt, losses, step_ms, per_step, fwd_bwd_ms
 
     for kernel in fu.KERNELS.values():
@@ -1264,15 +1733,22 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
     opt_on, losses_on, ms_on, per_step_on, fb_on = run(model, True)
     on_s = time.perf_counter() - t0
     opt_off, losses_off, ms_off, per_step_off, fb_off = run(copy_off, False)
+    # the same run through the resilience runtime: every step's update
+    # launch faults once (injected before the launch, so retried) and the
+    # NaN gradient comes from a nan:grads clause
+    spec = f"execute:optimizer:p=1:x=1,nan:grads:step={nan_at}"
+    pt.profiler.reset_dispatch_counters()
+    opt_fault, losses_fault, _, per_step_fault, _ = run(copy_fault, True, spec)
+    faults = pt.profiler.dispatch_counters()
     launches = fu.fused_adam.launches  # ... and ends here
     pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_numeric_rescue": ""})
     mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"  flag on: {steps} steps in {on_s:.1f} s; Adam kernel launches per step "
           f"{per_step_on}; flag off: {per_step_off}; peak memory allocated {mem_gb:.1f} GB "
-          f"(both models)")
+          f"(the three models)")
     check(all(n == n_params for n in per_step_on), "not one Adam launch per parameter per step")
     check(all(n == 0 for n in per_step_off), "the flag-off run launched the kernel")
-    check(launches == n_params * steps, "Adam launches over the path")
+    check(launches == 2 * n_params * steps, "Adam launches over the path")
     check(fu.fused_momentum.launches == fu.fused_sgd.launches == 0,
           "Adam's path launched another update kernel")
     print("  losses (flag on):  " + " ".join(f"{v:.6f}" for v in losses_on))
@@ -1284,6 +1760,16 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
           f"parameter, moment and beta-pow bitwise equal {same}; NaN step rescued in both, "
           f"leaving params, moments and beta-pows unchanged")
     check(losses_on == losses_off and same, "the fused kernel and the rule disagree")
+    same_fault = bitwise_same(torch, model, copy_fault, opt_on, opt_fault)
+    print(f"  under FLAGS_fault_inject={spec!r}: {faults['retry_attempts']} retries, "
+          f"{faults['injected_faults']} injected faults (sites {dict(faults['fault_sites'])}), "
+          f"Adam kernel launches per step {per_step_fault}; losses bitwise equal to the flag-on "
+          f"run {losses_fault == losses_on}; parameters and moments {same_fault}")
+    check(faults["retry_attempts"] > 0, "the faulted run retried nothing")
+    check(all(n == n_params for n in per_step_fault),
+          "the faulted run: not one Adam launch per parameter per step")
+    check(losses_fault == losses_on and same_fault,
+          "the faulted run is not bitwise equal to the flag-on run")
     med = {name: (statistics.median(d for d, _ in t), statistics.median(h for _, h in t))
            for name, t in (("on", ms_on), ("off", ms_off))}
     print(f"  opt.step() (clip, sentinel, update, host read of the sentinel), median of "
@@ -1342,10 +1828,10 @@ def train_f32_adam(torch, pt, fa, fu, gen, dev):
           f"({med['bwd_simt'] - med['route']:.2f} ms more); "
           + "; ".join(f"{config} " + " ".join(f"{v:.2f}" for v in t)
                       for config, t in turns.items()))
-    del model, copy_off, opt_on, opt_off
+    del model, copy_off, copy_fault, opt_on, opt_off, opt_fault
     torch.cuda.empty_cache()
     return {"adam": launches}, {"flash": flash, "fwd_bwd_ms": fwd_bwd, "turns": med,
-                                "steps": 2 * steps, "layers": cfg.num_layers}
+                                "steps": 3 * steps, "layers": cfg.num_layers}
 
 
 def train_momentum_sgd(torch, pt, fu, gen, dev):
@@ -1563,7 +2049,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. the serving engine
-    serve_345m(torch, pt, fa, fu, card)
+    served = serve_345m(torch, pt, fa, fu, card)
+    # 5c. serving under faults
+    serve_under_faults(torch, pt, fa, fu, card, served)
+    del served
+    torch.cuda.empty_cache()
 
     bwd = check_backward_kernels(torch, fa, gen, dev)
     simt_path = simt_backward_path(torch, pt, fa, gen, dev)

@@ -8,14 +8,16 @@ package imports torch and never jax or ``paddle_tpu``.
 from __future__ import annotations
 
 from . import (  # noqa: F401
-    amp, io, jit, models, nn, optimizer, profiler, regularizer, resilience, serving,
+    amp, inference, io, jit, models, nn, optimizer, profiler, regularizer, resilience,
+    serving,
 )
 from .core.flags import get_flags, set_flags  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace, get_device, set_device  # noqa: F401
 from .core.random import seed  # noqa: F401
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "amp", "get_device", "get_flags", "io", "jit", "models", "nn",
+    "CPUPlace", "CUDAPlace", "amp", "get_device", "get_flags", "inference", "io", "jit",
+    "models", "nn",
     "optimizer", "profiler", "regularizer", "resilience", "seed", "serving", "set_device",
     "set_flags",
 ]

@@ -225,3 +225,101 @@ define_flag(
     "recovers, so batch traffic sheds first and cannot starve interactive "
     "under a storm. 0 = trip wire off",
 )
+# ---------------------------------------------------------------------------
+# Resilience runtime (paddle_tpu_torch.resilience)
+# ---------------------------------------------------------------------------
+define_flag(
+    "fault_inject", "",
+    "deterministic fault-injection spec for the resilience chaos harness, "
+    "e.g. 'execute:p=0.2,compile:step>=3,nan:grads' — comma-separated "
+    "clauses of kind (execute/compile/hang/nan/kill) with p=/step>=/x= "
+    "qualifiers and an optional site target; decisions are seeded per "
+    "(clause, site, step) from FLAGS_fault_seed so failures replay exactly "
+    "(empty = off)",
+)
+define_flag(
+    "fault_seed", 0,
+    "seed for the fault-injection harness's per-(clause, site, step) "
+    "decisions — same seed, same spec: same faults at the same steps",
+)
+define_flag(
+    "fault_hang_ms", 20.0,
+    "stall duration of an injected 'hang' fault before the simulated "
+    "watchdog raises (classified transient, so the retry path runs)",
+)
+define_flag(
+    "retry_max", 2,
+    "max retries of a transiently-failed program launch (serving prefill/"
+    "decode rungs, the eager floor, the fused optimizer update) before the "
+    "error propagates; 0 disables retrying",
+)
+define_flag(
+    "retry_backoff_ms", 5.0,
+    "base delay of the capped exponential retry backoff (doubles per "
+    "attempt, multiplied by up to 25% jitter); accumulated delay is "
+    "counted in dispatch_counters()['retry_backoff_ms']",
+)
+define_flag(
+    "retry_backoff_max_ms", 1000.0,
+    "cap on a single retry backoff delay",
+)
+define_flag(
+    "ladder_demote_after", 2,
+    "faults observed at an execution tier (captured / lazy) before the "
+    "degradation ladder demotes it one rung (captured→lazy→per-op); "
+    "numerics are identical across rungs, only programs-per-step changes",
+)
+define_flag(
+    "ladder_cooldown_steps", 8,
+    "clean steps a demoted tier waits before the ladder re-promotes it "
+    "and the fast path is attempted again",
+)
+# ---------------------------------------------------------------------------
+# Runtime observability (paddle_tpu_torch.profiler.trace)
+# ---------------------------------------------------------------------------
+define_flag(
+    "trace_ring_size", 4096,
+    "capacity of the flight recorder — the bounded in-memory ring of "
+    "structured runtime events (paddle_tpu_torch.profiler.trace) emitted "
+    "at the execution choke points: retries and faults, ladder demotions, "
+    "serving request phases and health transitions, numeric rescues and "
+    "preemptions. Default on; 0 disables emission entirely (the off-mode "
+    "fast path is one dict read per would-be event)",
+)
+define_flag(
+    "trace_stall_ms", 0.0,
+    "step-stall watchdog threshold: when > 0, a background watchdog "
+    "observes the step heartbeat (resilience.runtime.on_step_end) and — if "
+    "no step boundary lands for this many ms — emits a 'stall' event and "
+    "dumps a crash postmortem (FLAGS_postmortem_dir). One postmortem per "
+    "stall episode; the next completed step re-arms it. 0 = off",
+)
+define_flag(
+    "postmortem_dir", "",
+    "directory for crash postmortems: unrecovered faults, Preempted, "
+    "numeric rescues, dead serving engines and step-stall watchdog trips "
+    "dump a JSON file here with the flight recorder's event tail, the "
+    "dispatch counters and latency histograms, the card's allocator "
+    "figures, and the resilience/ladder state. Empty = postmortems disabled",
+)
+define_flag(
+    "postmortem_events", 256,
+    "number of trailing flight-recorder events included in each postmortem "
+    "dump (the event tail that explains what led up to the crash)",
+)
+define_flag(
+    "postmortem_keep", 32,
+    "bound on the number of postmortem JSON files kept in "
+    "FLAGS_postmortem_dir: every dump prunes the OLDEST dumps past this "
+    "count (a flapping watchdog or a rescue storm cannot grow the "
+    "directory without limit); pruned files are counted in "
+    "dispatch_counters()['postmortems_pruned']. 0 = unbounded",
+)
+define_flag(
+    "serving_max_engine_restarts", 3,
+    "restarts the serving Supervisor may attempt on a wedged or crashed "
+    "engine (tick exceptions escaping the resilience ladder, or the "
+    "FLAGS_trace_stall_ms watchdog firing mid-tick) before failing "
+    "cleanly: past the cap every queued and in-flight request is answered "
+    "with an error response and the engine goes 'dead' — zero hangs",
+)

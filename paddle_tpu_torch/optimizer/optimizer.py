@@ -18,7 +18,11 @@ its results IN PLACE into the parameters and the state tensors:
     same storage.
 
 ``step()`` applies the optimizer's ``grad_clip`` first and reads the lr
-through ``get_lr()``, which calls an ``LRScheduler`` when one was given.
+through ``get_lr()``, which calls an ``LRScheduler`` when one was given. It
+is the training step boundary of the resilience runtime: the fused update
+launches under ``resilience.runtime.execute("optimizer", ...)``, a
+``nan:grads`` fault clause poisons the first gradient, and ``step()`` ends
+with ``on_step_end()`` whatever happened.
 State is one dict of tensors per parameter, on the parameter's device, in
 ``_accumulators`` keyed by ``id(param)``. ``lr`` reaches the rule as a 0-d
 float32 tensor on that device. Not ported yet (ROADMAP, open items, queue 1
@@ -31,8 +35,11 @@ from typing import Dict, List
 
 import torch
 
+from .. import profiler
 from ..ops.kernels import fused_update as _fu
+from ..resilience import faults as _faults
 from ..resilience import rescue as _rescue
+from ..resilience import runtime as _rrt
 from .lr import LRScheduler
 
 
@@ -182,24 +189,43 @@ class Optimizer:
     def step(self):
         """Update every parameter that has a gradient, in place: the grad
         clip, then the fused update (``make_fused_update``), then the
-        numeric-rescue policy when ``FLAGS_numeric_rescue`` is set."""
-        params_grads = [(p, p.grad) for p in self._param_list()
-                        if p.requires_grad and p.grad is not None]
-        if self._grad_clip is not None:
-            params_grads = self._grad_clip(params_grads)
-        self._step_count += 1
-        if params_grads:
-            self._apply_fused(params_grads)
+        numeric-rescue policy when ``FLAGS_numeric_rescue`` is set; then the
+        resilience step boundary."""
+        try:
+            params_grads = [(p, p.grad) for p in self._param_list()
+                            if p.requires_grad and p.grad is not None]
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            self._step_count += 1
+            if params_grads:
+                self._apply_fused(params_grads)
+        finally:
+            # advances the fault-injection step counter, the ladder's
+            # cooldown clocks and the 'train' heartbeat
+            _rrt.on_step_end()
 
     def _apply_fused(self, params_grads):
         params = [p for p, _ in params_grads]
         grads = [g for _, g in params_grads]
+        # chaos harness: a `nan:grads` clause poisons the first gradient this
+        # step (a new tensor: p.grad stays as it was); the numeric-rescue
+        # sentinel must catch it
+        plan = _faults.active_plan()
+        if plan is not None and plan.nan_fires("grads", _faults.current_step()):
+            profiler.count("injected_faults")
+            grads[0] = torch.full_like(grads[0], float("nan"))
         sentinel = _rescue.active()
         states = [self._state_of(p) for p in params]
         # a fill on the device, not a copy from the host: nothing here
         # waits for the card
         lr = torch.full((), self.get_lr(), dtype=torch.float32, device=params[0].device)
-        bad = make_fused_update(self, params, sentinel=sentinel)(params, grads, lr, states)
+        update = make_fused_update(self, params, sentinel=sentinel)
+        # the kernels write p, m and v IN PLACE, where the JAX update is
+        # pure: a real fault after the launch may have applied part of the
+        # update, so it must propagate, never re-run (retry_unsafe). An
+        # injected fault is raised before the launch and still retries.
+        bad = _rrt.execute("optimizer", lambda: update(params, grads, lr, states),
+                           retry_unsafe=True)
         if bad is not None:
             # the one host read of the step: applies skip / lr_backoff / abort
             _rescue.handle_sentinel(self, bad)

@@ -1,23 +1,27 @@
-"""Profiler: the port's dispatch-counter registry and ``metrics``.
+"""Profiler: the port's dispatch-counter registry, ``metrics`` and ``trace``.
 
 ``dispatch_counters()`` / ``reset_dispatch_counters()`` keep the JAX
 package's names (``paddle_tpu.profiler``) for the counters the serving
-engine keeps. The port has no per-op dispatcher, so the JAX package's
-program and flush counters are not here; the numeric-rescue counters stay
-in ``resilience.rescue.counters``. Tracing, the sentinel, attribution and
-the diagnostics server are not ported yet (ROADMAP queue 1 item 12).
+engine and the resilience runtime keep. The port has no per-op dispatcher,
+so the JAX package's program and flush counters are not here; the
+numeric-rescue counters stay in ``resilience.rescue.counters``. ``trace``
+is the flight recorder, the stall watchdog and the crash postmortem. The
+sentinel, attribution and the diagnostics server are not ported yet
+(ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
+import threading
 from types import MappingProxyType
 from typing import Any, Dict, Mapping
 
-from . import metrics  # noqa: F401
+from . import metrics, trace  # noqa: F401
 
-__all__ = ["count", "count_labeled", "dispatch_counters", "metrics",
-           "reset_dispatch_counters"]
+__all__ = ["count", "count_labeled", "count_locked", "dispatch_counters", "metrics",
+           "reset_dispatch_counters", "trace"]
 
-# the keys and what counts them (serving/engine.py, core/lazy.py)
+# the keys and what counts them (serving/engine.py, core/lazy.py,
+# resilience/, profiler/trace.py)
 _COUNTERS = (
     "serve_prefills",             # prefill programs run
     "serve_decode_steps",         # decode batches run
@@ -35,10 +39,25 @@ _COUNTERS = (
     "serve_deadline_expired",
     "serve_health_transitions",
     "serve_block_leaks",          # blocks still out at idle (must stay 0)
+    "serve_engine_restarts",      # Engine.restart (the Supervisor's budgeted ones)
+    "fault_events",               # every fault resilience.runtime.execute saw
+    "injected_faults",            # ... of them from FLAGS_fault_inject (and nan:grads)
+    "transient_faults",
+    "fatal_faults",
+    "retry_attempts",
+    "retry_exhausted",
+    "retry_backoff_ms",           # summed backoff delay, ms
+    "ladder_demotions",
+    "ladder_promotions",
+    "preemptions",                # PreemptionGuard signals
+    "emergency_saves",
+    "postmortems_pruned",         # postmortem files dropped past FLAGS_postmortem_keep
 )
-_FAMILIES = ("serve_shed_reasons", "serve_expire_stages")
+_FAMILIES = ("serve_shed_reasons", "serve_expire_stages", "fault_sites")
 
 _counters: Dict[str, Any] = {}
+# the stall watchdog's thread prunes postmortems too: its counts take this
+_lock = threading.Lock()
 
 
 def reset_dispatch_counters():
@@ -49,6 +68,12 @@ def reset_dispatch_counters():
 
 def count(key: str, n: int = 1):
     _counters[key] += n
+
+
+def count_locked(key: str, n: int = 1):
+    """``count`` for a writer off the main thread (the stall watchdog)."""
+    with _lock:
+        _counters[key] += n
 
 
 def count_labeled(family: str, key: str, n: int = 1):

@@ -14,12 +14,13 @@ the configured policy:
     abort       raise FloatingPointError (fail fast, e.g. under a debugger)
 
 Each rescue and each lr back-off is counted in ``counters``, under the JAX
-package's counter names. The step number in messages is the optimizer's
-``_step_count``.
+package's counter names, and each rescue emits a ``rescue`` event into the
+flight recorder and dumps a ``numeric_rescue`` postmortem (a no-op unless
+FLAGS_postmortem_dir is set). The step number is the resilience runtime's
+(``faults.current_step()``), as in the JAX package.
 
-Not ported (ROADMAP, open items, queue 1 item 7 and the resilience item):
-the GradScaler hook (``_rescue_scaler``: a rescued step marking the scaler's
-found_inf), the ``dispatch._emit`` trace event and the postmortem dump.
+Not ported (ROADMAP, open items, queue 1 item 7): the GradScaler hook
+(``_rescue_scaler``: a rescued step marking the scaler's found_inf).
 """
 from __future__ import annotations
 
@@ -98,8 +99,14 @@ class Abort(RescuePolicy):
     def apply(self, optimizer):
         raise FloatingPointError(
             "non-finite gradients at optimizer.step "
-            f"(step {optimizer._step_count}): numeric_rescue=abort"
+            f"(step {_current_step()}): numeric_rescue=abort"
         )
+
+
+def _current_step() -> int:
+    from . import faults
+
+    return faults.current_step()
 
 
 _POLICIES = {p.name: p for p in (SkipStep(), LRBackoff(), Abort())}
@@ -126,7 +133,12 @@ def handle_sentinel(optimizer, bad) -> bool:
     launches nothing."""
     if not bool(bad):
         return False
+    from ..profiler import trace
+
     counters["numeric_rescues"] += 1
+    step = _current_step()
+    trace.emit("rescue", site="optimizer", policy=mode(), step=step)
+    trace.dump_postmortem("numeric_rescue", policy=mode(), step=step)
     pol = policy()
     if pol is not None:
         pol.apply(optimizer)

@@ -3,11 +3,14 @@
 A request queue feeding shape-bucketed continuous batches, a **paged KV
 cache** (one shared block pool per layer; admission is refused when a
 request can never fit it), and prefill/decode steps captured as **one CUDA
-graph per bucket signature** (``core/lazy.py``). Per-request deadlines,
-SLO-aware admission with load shedding, and health states are ported;
-the JAX package's Supervisor, fleet FrontDoor, inference
-``GenerativePredictor``, fault ladder and memory planner are not yet
-(ROADMAP queue 1 items 10-12).
+graph per bucket signature** (``core/lazy.py``). The resilience ladder runs
+through the serve loop: a transient fault mid-decode demotes that bucket's
+program from its graph to the retained rung and retries the batch without
+dropping requests; SIGTERM drains in-flight sequences. Per-request
+deadlines, SLO-aware admission with load shedding, health states and the
+**Supervisor** that restarts a wedged engine (bounded, then fails cleanly)
+are ported. The fleet FrontDoor and the memory planner are not yet
+(ROADMAP queue 1 items 13 and 12).
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
@@ -30,6 +33,7 @@ from .scheduler import (  # noqa: F401
     Response,
     ServingBuckets,
 )
+from .supervisor import Supervisor  # noqa: F401
 
 __all__ = [
     "AdmissionController",
@@ -44,6 +48,7 @@ __all__ = [
     "ServingBuckets",
     "ServingConfig",
     "StepTiming",
+    "Supervisor",
     "create_engine",
 ]
 

@@ -8,20 +8,31 @@ One ``Engine`` owns one model and runs a simple synchronous loop:
     →  recycle completed sequences' blocks  →  repeat
 
 Every program launch goes through three execution rungs
-(``core/lazy.py``):
+(``core/lazy.py``), the serving instance of the resilience ladder, each
+under ``resilience.runtime.execute`` (fault injection, retry with backoff,
+ladder accounting):
 
   captured   one CUDA graph per bucket signature, replayed over the pool
              tensors it writes in place (on a CPU tensor: the function,
-             eagerly, in place);
+             eagerly, in place); skipped while the ladder has the bucket
+             demoted;
   retained   the same function on copies of the pool tensors, copied back
              on success — the retry-safe middle rung;
-  eager      the same function, called directly — the floor.
+  eager      the same function, called directly — the floor, run once
+             under the ``op`` site.
 
 All three run the SAME function over the same values, so numerics never
-change across rungs. A failure on the captured rung may have left the pool
-half-written: the engine zeroes the pool in place and re-enqueues every
-in-flight sequence (greedy decode is deterministic, so re-runs reproduce
-the same tokens).
+change across rungs — a mid-decode fault demotes the bucket's program and
+the batch retries without dropping a request. Injected faults
+(FLAGS_fault_inject) raise before the program runs, so the lower rungs
+reuse the intact pool; a REAL fault on the captured rung may have left the
+pool half-written: the engine zeroes the pool in place and re-enqueues
+every in-flight sequence (greedy decode is deterministic, so re-runs
+reproduce the same tokens).
+
+The JAX floor runs the step op by op, each op its own resilience site
+(``op``); the port has no per-op dispatcher, so its floor is one ``op``
+site around the whole eager step.
 
 Overload robustness wraps that loop in three layers:
 
@@ -38,18 +49,19 @@ Overload robustness wraps that loop in three layers:
               arrivals past the queue-wait p99 trip wire, always with a
               structured retriable 'overloaded' response;
   health      the engine exposes warming/ready/degraded/draining/dead
-              (``Engine.health``).
+              (``Engine.health``) so a Supervisor (serving/supervisor.py)
+              and the inference PredictorPool can route traffic around an
+              unhealthy replica, restart a wedged engine, or fail cleanly.
 
-Not ported yet, each raising NotImplementedError where a caller reaches
-it: the resilience runtime (fault injection, retries, the ladder's
-demotion, ``restart``, ``fail_clean``, the preemption signal handler:
-ROADMAP queue 1 item 11) and the planner-budgeted pool (item 12). The
-trace events, the perf sentinel, the stall watchdog and the diagnostics
-server (item 12) have no counterpart here.
+Every request phase, health transition and restart is a ``serve`` event in
+the flight recorder (``profiler.trace``). Not ported yet: the
+planner-budgeted pool (raises NotImplementedError naming ROADMAP queue 1
+item 12), and the perf sentinel and the diagnostics server (item 12).
 """
 from __future__ import annotations
 
 import itertools
+import signal as _signal
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -60,6 +72,9 @@ import torch
 
 from .. import profiler
 from ..core import flags
+from ..profiler import trace as _trace
+from ..resilience import faults as _faults
+from ..resilience import runtime as _rt
 from .admission import AdmissionController
 from .cache import BlockPool, PagedCacheView, _BatchState, default_num_blocks
 from .scheduler import (
@@ -112,8 +127,9 @@ def _feed(rows) -> torch.Tensor:
 
 
 class _PoolsConsumed(RuntimeError):
-    """A fault escaped the captured rung: the graph may have written part of
-    the pool before failing. Recovery zeroes the pool and requeues."""
+    """A REAL (non-injected) fault escaped the captured rung: the graph may
+    have written part of the pool before failing. Recovery zeroes the pool
+    and requeues."""
 
     def __init__(self, cause: BaseException):
         super().__init__(str(cause))
@@ -132,7 +148,8 @@ class StepTiming:
     None on the CPU). ``end`` is ``time.perf_counter()`` when the tokens
     reached the host. ``request_ids`` are the rows that got a token, in row
     order; ``batch`` is the padded rows the program ran and ``blocks`` its
-    context blocks."""
+    context blocks. ``rung`` is the rung that completed the step:
+    ``captured``, ``retained`` or ``eager``."""
 
     kind: str
     request_ids: Tuple[int, ...]
@@ -143,6 +160,7 @@ class StepTiming:
     launch_ms: float
     wait_ms: float
     device_ms: Optional[float]
+    rung: str
 
 
 @dataclass
@@ -239,6 +257,12 @@ class Engine:
         # with exactly one Response; anything else is a counted drop)
         self._accepted: set = set()
         self._draining = False
+        # the drain BARRIER: the ids the preemption-drain contract covers
+        # (snapshot at begin_drain). A concurrent Supervisor restart may
+        # requeue in-flight work only from inside the barrier; anything
+        # else lands as a terminal response, never re-admitted past it
+        self._drain_barrier: Optional[set] = None
+        self._prev_handlers: Dict[int, Any] = {}
         # streaming log-bucketed histogram (profiler.metrics): O(1) observe,
         # fixed memory, lifetime coverage. Registered in the default
         # registry, labeled by engine uid; close() unregisters.
@@ -260,11 +284,15 @@ class Engine:
         self._admission = AdmissionController(
             self._uid, bucket_of=self._buckets.prompt_bucket)
         # health lifecycle: warming until the first successful tick;
-        # degraded after a pool rebuild until a cooldown of clean ticks;
-        # draining/dead refuse new admissions
+        # degraded after a restart/pool rebuild until a cooldown of clean
+        # ticks; draining/dead refuse new admissions
         self._health = "warming"
         self._tick_no = 0
         self._degraded_until: Optional[int] = None
+        self._restarts = 0
+        self._last_restart_error: Optional[str] = None
+        # the rung that completed the last step (StepTiming.rung)
+        self._rung = "captured"
 
     # ------------------------------------------------------------------
     # step functions (shared by all three execution rungs)
@@ -308,13 +336,15 @@ class Engine:
         """May this engine accept NEW work right now?"""
         return self._health not in ("draining", "dead")
 
-    def _set_health(self, state: str):
+    def _set_health(self, state: str, why: str):
         if state == self._health:
             return
         if state not in HEALTH_STATES:
             raise ValueError(f"unknown health state {state!r}")
-        self._health = state
+        prev, self._health = self._health, state
         profiler.count("serve_health_transitions")
+        _trace.emit("serve", site="engine", phase="health", engine=self._uid,
+                    prev=prev, state=state, why=why[:120])
 
     @staticmethod
     def _now() -> float:
@@ -350,7 +380,8 @@ class Engine:
             priority=priority,
         )
         if self._health == "dead":
-            self._reject(req, "engine is dead (closed)")
+            self._reject(req, "engine is dead (closed, or supervisor "
+                              "restarts exhausted)")
             return req.request_id
         if self._draining:
             self._reject(req, "engine is draining (preemption)")
@@ -381,6 +412,8 @@ class Engine:
             return req.request_id
         self._queue.push(req)
         self._accepted.add(req.request_id)
+        _trace.emit("serve", site="engine", phase="admit", rid=req.request_id,
+                    prompt_len=plen, blocks=n_blk, priority=req.priority)
         return req.request_id
 
     def response(self, request_id: int) -> Optional[Response]:
@@ -419,13 +452,16 @@ class Engine:
         self._end_tick()
 
     def _end_tick(self):
+        # a per-ENGINE heartbeat source: one engine going idle must not
+        # erase a still-wedged sibling's stall signal
+        _rt.on_step_end(source=f"serve[{self._uid}]")
         if self._health == "warming":
-            self._set_health("ready")
+            self._set_health("ready", "first tick completed")
         elif (self._health == "degraded"
               and self._degraded_until is not None
               and self._tick_no >= self._degraded_until):
             self._degraded_until = None
-            self._set_health("ready")
+            self._set_health("ready", "degraded cooldown elapsed")
 
     def _expire_deadlines(self, stage: str):
         """Answer every queued/active request whose deadline has passed.
@@ -445,6 +481,10 @@ class Engine:
         while self._queue or self._active:
             self.step()
         self._audit_drops()
+        # an IDLE engine looks exactly like a stalled one to the stall
+        # watchdog: stand THIS engine's heartbeat down (the next tick
+        # re-arms it)
+        _trace.watchdog_disarm(f"serve[{self._uid}]")
 
     def _audit_drops(self):
         """The zero-drop tripwire: at idle, every accepted request must
@@ -464,7 +504,10 @@ class Engine:
             )
         self._accepted.clear()
         if not self._active and self._pool.used_blocks:
-            profiler.count("serve_block_leaks", self._pool.reclaim_all())
+            leaked = self._pool.reclaim_all()
+            profiler.count("serve_block_leaks", leaked)
+            _trace.emit("serve", site="engine", phase="block_leak",
+                        engine=self._uid, blocks=leaked)
 
     def serve(self, requests: Seq, **submit_kw) -> List[Response]:
         """Convenience: submit every prompt, run to completion, return (and
@@ -473,12 +516,73 @@ class Engine:
         self.run_until_idle()
         return [self.pop_response(i) for i in ids]
 
-    # -- supervision (the resilience runtime) ------------------------------
+    # -- supervision -----------------------------------------------------
     def restart(self, err: BaseException):
-        raise _not_ported("Engine.restart (the Supervisor's restart path)", 11)
+        """Tear the runtime down to a known-good state after a wedge or a
+        tick exception escaped the resilience ladder: evict this engine's
+        captured programs (a wedged graph must not be replayed; the next
+        tick captures them again), requeue every in-flight sequence through
+        the requeue path without burning its retries (greedy decode ⇒ the
+        re-run reproduces the same tokens), and zero the pool in place. The
+        engine comes back 'degraded' until a cooldown of clean ticks. The
+        Supervisor owns the restart BUDGET
+        (FLAGS_serving_max_engine_restarts) and calls :meth:`fail_clean`
+        past it."""
+        from ..core.lazy import reset_serve_programs
 
-    def fail_clean(self, err: BaseException):
-        raise _not_ported("Engine.fail_clean (the Supervisor's restart budget)", 11)
+        self._restarts += 1
+        self._last_restart_error = f"{type(err).__name__}: {err}"
+        profiler.count("serve_engine_restarts")
+        _trace.emit("serve", site="engine", phase="restart", engine=self._uid,
+                    restarts=self._restarts, error=type(err).__name__)
+        reset_serve_programs(owner=self._uid)
+        for seq in list(self._active):
+            if (self._draining and self._drain_barrier is not None
+                    and seq.req.request_id not in self._drain_barrier):
+                # a restart racing a preemption drain: work that landed
+                # AFTER the barrier snapshot must not be re-admitted past
+                # it; it answers a terminal retriable response instead,
+                # never re-enters a draining engine's queue
+                self._release(seq)
+                self._n_shed += 1
+                profiler.count("serve_requests_shed")
+                self._responses[seq.req.request_id] = Response(
+                    request_id=seq.req.request_id, status="overloaded",
+                    error=("engine restarted while draining: request was "
+                           "outside the drain barrier — retry on a peer"),
+                    retriable=True,
+                    prompt_len=int(seq.req.prompt.size),
+                    submit_time=seq.req.submit_time, done_time=time.time(),
+                    retry_after_ms=self._admission.retry_after_ms(),
+                )
+                _trace.emit("serve", site="engine", phase="drain_barrier_refusal",
+                            rid=seq.req.request_id, engine=self._uid)
+                continue
+            self._requeue_seq(seq, err, count_retry=False)
+        self._pool.reset_storage()
+        self._mark_degraded(f"engine restart: {type(err).__name__}")
+
+    def fail_clean(self, err: BaseException, why: Optional[str] = None):
+        """The restart budget is exhausted (or, with ``why`` saying so, the
+        engine cannot be restarted): answer EVERY queued and in-flight
+        request with a terminal error response (zero hangs, zero silent
+        drops), release their blocks, go 'dead' (submits from here on are
+        rejected) and dump an ``engine_dead`` postmortem. Host work only:
+        it runs on a lost CUDA context too."""
+        if why is None:
+            why = (f"engine dead after {self._restarts} restarts "
+                   f"(FLAGS_serving_max_engine_restarts): {err}")
+        for seq in list(self._active):
+            self._release(seq)
+            self._error(seq.req, why, seq)
+        while True:
+            req = self._queue.pop()
+            if req is None:
+                break
+            self._error(req, why)
+        self._set_health("dead", why)
+        _trace.dump_postmortem("engine_dead", exc=err, engine=self._uid,
+                               restarts=self._restarts)
 
     @property
     def pending(self) -> int:
@@ -488,18 +592,29 @@ class Engine:
     # -- preemption ------------------------------------------------------
     def begin_drain(self):
         """Stop admitting NEW requests; everything already submitted still
-        completes (the drain contract — zero dropped requests)."""
+        completes (the SIGTERM drain contract — zero dropped requests)."""
         if not self._draining:
             self._draining = True
+            # snapshot the drain BARRIER: exactly the accepted-but-
+            # unanswered ids the drain contract covers
+            self._drain_barrier = set(self._accepted) - set(self._responses)
             profiler.count("serve_preempt_drains")
             if self._health != "dead":
-                self._set_health("draining")
+                self._set_health("draining", "preemption drain")
 
-    def install_preemption_handler(self, signals=None):
-        raise _not_ported("the serving preemption signal handler", 11)
+    def install_preemption_handler(self, signals=(_signal.SIGTERM,)):
+        """Make each of ``signals`` call :meth:`begin_drain`. Call from the
+        main thread (``signal.signal`` works only there)."""
+        for s in signals:
+            if s in self._prev_handlers:
+                continue  # already installed — keep the ORIGINAL previous
+            self._prev_handlers[s] = _signal.signal(
+                s, lambda signum, frame: self.begin_drain())
 
     def uninstall_preemption_handler(self):
-        raise _not_ported("the serving preemption signal handler", 11)
+        for s, h in self._prev_handlers.items():
+            _signal.signal(s, h)
+        self._prev_handlers.clear()
 
     def drain(self) -> List[Response]:
         """begin_drain + run to idle; returns every retained response."""
@@ -509,10 +624,13 @@ class Engine:
 
     def close(self):
         """Release this engine's captured programs (their step functions
-        hold the model and their graphs hold device memory) and unregister
-        its latency histograms. Safe to call twice."""
+        hold the model and their graphs hold device memory), unregister its
+        latency histograms, restore any signal handlers and stand its
+        heartbeat down. Safe to call twice."""
         from ..core.lazy import reset_serve_programs
 
+        self.uninstall_preemption_handler()
+        _trace.watchdog_disarm(f"serve[{self._uid}]")
         reset_serve_programs(owner=self._uid)
         profiler.metrics.default_registry().remove(
             "serve_token_lat_ms", labels={"engine": str(self._uid)})
@@ -554,6 +672,7 @@ class Engine:
             "shed": self._n_shed,
             "expired": self._n_expired,
             "errors": self._n_errors,
+            "restarts": self._restarts,
             "admission": self._admission.state(),
             "pending": self.pending,
             "pool_blocks": self._pool.num_blocks,
@@ -603,6 +722,8 @@ class Engine:
             request_id=req.request_id, status="rejected", error=why,
             prompt_len=int(req.prompt.size), submit_time=req.submit_time,
         )
+        _trace.emit("serve", site="engine", phase="reject", rid=req.request_id,
+                    why=why[:120])
 
     def _shed(self, req: Request, decision):
         """Load shedding: a structured, retriable 'overloaded' response —
@@ -621,6 +742,8 @@ class Engine:
             done_time=time.time(),
             retry_after_ms=self._admission.retry_after_ms(),
         )
+        _trace.emit("serve", site="engine", phase="shed", rid=req.request_id,
+                    reason=decision.reason, priority=req.priority)
 
     def _expire(self, req: Request, stage: str,
                 seq: Optional[Sequence] = None):
@@ -643,6 +766,8 @@ class Engine:
             first_token_time=getattr(req, "_first_token_time", None),
             done_time=time.time(),
         )
+        _trace.emit("serve", site="engine", phase="expire", rid=req.request_id,
+                    stage=stage, tokens=n_gen, priority=req.priority)
 
     def _error(self, req: Request, why: str, seq: Optional[Sequence] = None):
         self._n_errors += 1
@@ -652,10 +777,14 @@ class Engine:
             prompt_len=int(req.prompt.size), submit_time=req.submit_time,
             done_time=time.time(),
         )
+        _trace.emit("serve", site="engine", phase="error", rid=req.request_id,
+                    why=why[:120])
 
     def _complete(self, seq: Sequence):
         self._release(seq)
         profiler.count("serve_requests_completed")
+        _trace.emit("serve", site="engine", phase="complete",
+                    rid=seq.req.request_id, tokens=len(seq.tokens))
         self._n_completed += 1
         self._responses[seq.req.request_id] = Response(
             request_id=seq.req.request_id, status="ok",
@@ -666,19 +795,26 @@ class Engine:
             logits=list(seq.logits) if self._keep_logits else None,
         )
 
-    def _requeue_seq(self, seq: Sequence, err: BaseException):
+    def _requeue_seq(self, seq: Sequence, err: BaseException,
+                     count_retry: bool = True):
         """Tear one sequence down and re-run it from its prompt (greedy
         decode is deterministic — the re-run reproduces the same tokens).
         Past FLAGS_serving_request_retries, the request gets an error
-        response."""
+        response. ``count_retry=False`` is the restart path: the engine
+        wedged, not the request, so in-flight work must not burn its
+        retries — the restart budget (FLAGS_serving_max_engine_restarts →
+        fail_clean) is the bound there."""
         self._release(seq)
         req = seq.req
-        req.retries += 1
-        if req.retries > int(flags.flag("serving_request_retries")):
-            self._error(
-                req, f"failed after {req.retries - 1} retries: {err}", seq)
-            return
+        if count_retry:
+            req.retries += 1
+            if req.retries > int(flags.flag("serving_request_retries")):
+                self._error(
+                    req, f"failed after {req.retries - 1} retries: {err}", seq)
+                return
         profiler.count("serve_request_requeues")
+        _trace.emit("serve", site="engine", phase="requeue", rid=req.request_id,
+                    retries=req.retries, error=type(err).__name__)
         self._queue.push_front(req)
 
     def _recover_pools(self, err: _PoolsConsumed):
@@ -687,13 +823,13 @@ class Engine:
         self._pool.reset_storage()
         for seq in list(self._active):
             self._requeue_seq(seq, err.cause)
-        self._mark_degraded()
+        self._mark_degraded(f"pool rebuilt after {type(err.cause).__name__}")
 
-    def _mark_degraded(self):
+    def _mark_degraded(self, why: str):
         if self._health in ("draining", "dead"):
             return  # terminal-ish states outrank degraded
         self._degraded_until = self._tick_no + _DEGRADED_COOLDOWN_TICKS
-        self._set_health("degraded")
+        self._set_health("degraded", why)
 
     def _admit(self):
         from ..models.gpt import CacheOverflow
@@ -747,12 +883,14 @@ class Engine:
             _feed([seq.table_row()]), _feed(padded[None, :]), _feed([plen]),
         )
         key = ("prefill", self._uid, P, seq.n_blk)
-        row, nxt, prefill_ms = self._run_step(
-            key, self._prefill_fn, args, t0, (req.request_id,))
+        row, nxt, prefill_ms = self._finish(
+            key, self._launch(key, self._prefill_fn, args), t0, (req.request_id,))
         tok = int(nxt[0])
         profiler.count("serve_prefills")
         self._token_lat.observe(prefill_ms)
         self._admission.note_prefill(P, prefill_ms)
+        _trace.emit("serve", site="engine", phase="prefill", rid=req.request_id,
+                    bucket=P, blocks=seq.n_blk, ms=round(prefill_ms, 3))
         seq.length = plen
         seq.tokens.append(tok)
         seq.last_token = tok
@@ -800,9 +938,7 @@ class Engine:
         )
         key = ("decode", self._uid, B, n_blk)
         try:
-            row_np, out, step_ms = self._run_step(
-                key, self._decode_fn, args, t0,
-                tuple(s.req.request_id for s in ready))
+            launched = self._launch(key, self._decode_fn, args)
         except _PoolsConsumed as e:
             self._recover_pools(e)
             return False
@@ -810,7 +946,14 @@ class Engine:
             for s in ready:
                 self._requeue_seq(s, e)
             return True
+        # outside the try, as the JAX engine's device_get: an error the
+        # device reports at the read escapes the tick to the Supervisor
+        row_np, out, step_ms = self._finish(
+            key, launched, t0, tuple(s.req.request_id for s in ready))
         profiler.count("serve_decode_steps")
+        _trace.emit("serve", site="engine", phase="decode",
+                    rids=tuple(s.req.request_id for s in ready), batch=B,
+                    blocks=n_blk, ms=round(step_ms, 3))
         self._admission.note_decode(step_ms, len(ready))
         now = self._now()
         for i, s in enumerate(ready):
@@ -831,18 +974,24 @@ class Engine:
                 self._expire(s.req, stage="decode", seq=s)
         return True
 
-    def _run_step(self, key, fn, args, t_feed, request_ids):
-        """One step through the rungs, its next tokens (and logits rows with
-        keep_logits) read back to the host and its ``StepTiming`` recorded.
-        Returns ``(rows or None, tokens, ms)``: ``ms`` runs from the launch
-        to the tokens on the host, what the latency histogram and the
-        admission controller's cost EMAs observe."""
+    def _launch(self, key, fn, args):
+        """One step through the rungs; returns what ``_finish`` reads."""
         t_launch = time.perf_counter()
         if self._events:
             self._events[0].record()
         _, _, row, nxt = self._run_tiered(key, fn, args)
         if self._events:
             self._events[1].record()
+        return row, nxt, t_launch
+
+    def _finish(self, key, launched, t_feed, request_ids):
+        """A launched step's next tokens (and logits rows with keep_logits)
+        read back to the host and its ``StepTiming`` recorded. Returns
+        ``(rows or None, tokens, ms)``: ``ms`` runs from the launch to the
+        tokens on the host, what the latency histogram and the admission
+        controller's cost EMAs observe. The read is where an asynchronous
+        CUDA error of the step surfaces."""
+        row, nxt, t_launch = launched
         t_wait = time.perf_counter()
         nxt = nxt.cpu().numpy()
         row = row.cpu().numpy() if self._keep_logits else None
@@ -852,30 +1001,48 @@ class Engine:
             blocks=key[3], end=end,
             feed_ms=(t_launch - t_feed) * 1e3, launch_ms=(t_wait - t_launch) * 1e3,
             wait_ms=(end - t_wait) * 1e3,
-            device_ms=self._events[0].elapsed_time(self._events[1]) if self._events else None))
+            device_ms=self._events[0].elapsed_time(self._events[1]) if self._events else None,
+            rung=self._rung))
         return row, nxt, (end - t_launch) * 1e3
 
     def _run_tiered(self, key, fn, args):
-        """captured → retained → eager (see the module docstring)."""
+        """captured (in place) → retained (on copies) → eager, each rung
+        under ``resilience.runtime.execute`` at site ``key[0]`` (prefill or
+        decode), the floor at site ``op``."""
         from ..core import lazy as _lazy
 
+        kind = key[0]
         device = args[0][0].device
-        if not flags.flag("serving_capture"):
+
+        def floor():
             return fn(args[0], args[1], *_lazy.stage_feeds(args[2:], device))
+
+        if not flags.flag("serving_capture"):
+            self._rung = "eager"
+            return _rt.execute(kind, floor)
         prog = _lazy.serve_program(key, fn)
-        if flags.flag("serving_capture_donate"):
+        if flags.flag("serving_capture_donate") and _rt.captured_tier_ok(key):
             try:
-                return prog.run(args, donate=True)
+                self._rung = "captured"
+                return _rt.execute(
+                    kind, lambda: prog.run(args, donate=True),
+                    fresh=not prog.built(True), ladder_key=key, retry_unsafe=True)
             except Exception as e:
-                # the graph may have written part of the pool before it
-                # failed: never reuse those contents
                 profiler.count("serve_capture_fallbacks")
-                raise _PoolsConsumed(e)
+                if not isinstance(e, _faults.InjectedFault):
+                    # the graph may have written part of the pool before it
+                    # failed: never reuse those contents
+                    raise _PoolsConsumed(e)
+                # injected faults raise BEFORE the graph runs: the pool is
+                # intact, take the retry-safe rung over it
         try:
-            return prog.run(args, donate=False)
+            self._rung = "retained"
+            return _rt.execute(kind, lambda: prog.run(args, donate=False),
+                               fresh=not prog.built(False), ladder_key=key)
         except Exception:
             # the retained rung wrote only copies, so the floor runs over
             # an intact pool; a deterministic bug fails again below and
             # propagates to the requeue/error path
             profiler.count("serve_capture_fallbacks")
-        return fn(args[0], args[1], *_lazy.stage_feeds(args[2:], device))
+        self._rung = "eager"
+        return _rt.execute("op", floor)

@@ -184,3 +184,88 @@ def test_dtype_names():
     assert to_torch_dtype(torch.bfloat16) is torch.bfloat16
     with pytest.raises(ValueError, match="unsupported dtype"):
         to_torch_dtype("complex64")
+
+
+def test_resilience_serving_inference_load_neither_jax_nor_paddle_tpu():
+    # the modules of slice 9: a supervised serve under fault injection that
+    # restarts once, a generative predictor, the flight recorder
+    out = _run(
+        "import sys, numpy as np\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch import inference, resilience, serving\n"
+        "from paddle_tpu_torch.profiler import trace\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForPretraining\n"
+        "pt.set_device('cpu')\n"
+        f"m = GPTForPretraining(GPTConfig(**{TINY!r}))\n"
+        "pt.set_flags({'FLAGS_fault_inject': 'execute:p=1:x=3:decode',\n"
+        "              'FLAGS_retry_backoff_ms': 0.0})\n"
+        "eng = serving.create_engine(m, block_size=8, prompt_buckets=[8], num_blocks=8)\n"
+        "sup = serving.Supervisor(eng)\n"
+        "rid = eng.submit(np.arange(1, 6), max_new_tokens=3)\n"
+        "eng.step()\n"
+        "eng.restart(RuntimeError('forced'))\n"
+        "sup.run_until_idle()\n"
+        "r = eng.response(rid)\n"
+        "assert r.ok and len(r.tokens) == 3, r\n"
+        "c = pt.profiler.dispatch_counters()\n"
+        "assert c['ladder_demotions'] >= 1 and c['serve_engine_restarts'] == 1, dict(c)\n"
+        "assert any(e.kind == 'fault' for e in trace.events())\n"
+        "pt.set_flags({'FLAGS_fault_inject': ''})\n"
+        "config = inference.Config()\n"
+        "config.disable_gpu()\n"
+        "config.enable_generative_serving(m, block_size=8, prompt_buckets=[8],\n"
+        "                                 num_blocks=8, max_new_tokens=2)\n"
+        "(out,) = inference.create_predictor(config).run([np.ones((2, 4), np.int64)])\n"
+        "assert out.shape == (2, 2)\n"
+        "assert resilience.is_transient(resilience.InjectedExecuteError('x'))\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
+
+
+# paddle.serving names of the fleet front door (ROADMAP queue 1 item 13)
+FLEET_NAMES = {"FleetAutoscaler", "FrontDoor", "LocalReplica", "RemoteReplica",
+               "ReplicaServer", "ReplicaUnreachable"}
+
+
+def _api_names():
+    """The public names of ``API.spec``: one per line, ``paddle.x.y (sig)``."""
+    lines = (ROOT / "API.spec").read_text().splitlines()
+    return [line.split(" ", 1)[0] for line in lines if line.strip()]
+
+
+def _resolve(name):
+    """The port's object for a ``paddle.`` name, or None."""
+    import importlib
+
+    parts = name.split(".")[1:]
+    obj = pt
+    for i, part in enumerate(parts):
+        if hasattr(obj, part):
+            obj = getattr(obj, part)
+            continue
+        try:
+            obj = importlib.import_module(".".join(["paddle_tpu_torch", *parts[:i + 1]]))
+        except ImportError:
+            return None
+    return obj
+
+
+def test_api_spec_surface_of_resilience_serving_inference():
+    names = _api_names()
+    assert len(names) == 1208
+    scoped = [n for n in names
+              if n.split(".")[1] in ("resilience", "inference", "serving")]
+    assert len(scoped) > 40
+    missing = [n for n in scoped
+               if _resolve(n) is None and n.rsplit(".", 1)[1] not in FLEET_NAMES]
+    assert missing == []
+    assert {n.rsplit(".", 1)[1] for n in scoped if n.startswith("paddle.serving.")
+            and _resolve(n) is None} == FLEET_NAMES
+    # the artifact predictor is present and says what it waits for
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        pt.inference.Predictor(pt.inference.Config("model"))
+    covered = sum(_resolve(n) is not None for n in names)
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names "
+          f"({covered / len(names):.1%}); resilience, inference and serving: "
+          f"{sum(_resolve(n) is not None for n in scoped)} of {len(scoped)}")

@@ -18,9 +18,19 @@ fixed-shape cache over the same context length, the engine against
 ``generate()``, and the three execution rungs against each other (on the
 CPU each runs the same function eagerly).
 
+Under fault injection (``FLAGS_fault_inject``) the port's engine gives the
+JAX engine's tokens, and under the targeted specs the same fault, retry,
+ladder and fallback counters. The Supervisor, restart, fail-clean, drain and
+health tests are ports of ``tests/test_serving_overload.py``'s and
+``tests/test_serving.py``'s, with the tokens of a restarted serve equal to
+``generate()``'s.
+
 On the CPU no CUDA graph is captured; ``tests/test_torch_cuda_kernels.py``
 holds the graphs on the card.
 """
+import os
+import signal
+import threading
 import time
 
 import jax.numpy as jnp
@@ -30,6 +40,7 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.profiler as jprof
+import paddle_tpu.resilience as jres
 import paddle_tpu_torch as pt
 from paddle_tpu import serving as jserving
 from paddle_tpu.core.lazy import reset_serve_programs as jreset_serve_programs
@@ -44,6 +55,7 @@ from paddle_tpu_torch.core.flags import describe_flags
 from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
 from paddle_tpu_torch.models.gpt import CacheOverflow
 from paddle_tpu_torch.ops import nn_ops as tops
+from paddle_tpu_torch.profiler import trace
 from paddle_tpu_torch.serving.cache import PagedCacheView, _BatchState
 
 VOCAB = 64
@@ -72,8 +84,14 @@ def model(models):
 @pytest.fixture(autouse=True)
 def _isolation():
     prof.reset_dispatch_counters()
+    pt.resilience.reset()
     yield
     pt.set_flags({
+        "FLAGS_fault_inject": "",
+        "FLAGS_retry_backoff_ms": 5.0,
+        "FLAGS_serving_max_engine_restarts": 3,
+        "FLAGS_trace_stall_ms": 0.0,
+        "FLAGS_postmortem_dir": "",
         "FLAGS_serving_capture": True,
         "FLAGS_serving_capture_donate": True,
         "FLAGS_serving_capture_cache_size": 16,
@@ -84,6 +102,7 @@ def _isolation():
         "FLAGS_serving_request_retries": 2,
         "FLAGS_memory_budget_mb": 0.0,
     })
+    pt.resilience.reset()
     lazy.reset_serve_programs()
 
 
@@ -512,7 +531,7 @@ def test_engine_stats_and_flags_surface(model):
             "FLAGS_serving_capture_cache_size", "FLAGS_serving_max_new_tokens",
             "FLAGS_serving_request_retries", "FLAGS_serving_default_deadline_ms",
             "FLAGS_serving_deadline_partial", "FLAGS_serving_queue_max",
-            "FLAGS_serving_queue_wait_p99_ms"} == names
+            "FLAGS_serving_queue_wait_p99_ms", "FLAGS_serving_max_engine_restarts"} == names
     assert all(d["doc"] for d in describe_flags("serving"))
     # the same names and defaults as the JAX package's flags
     jdocs = {d["name"]: d["default"] for d in paddle.core.flags.describe_flags("serving")}
@@ -582,17 +601,6 @@ def test_budgeted_pool_raises_not_ported(model):
         make_engine(model, num_blocks=0)
     pt.set_flags({"FLAGS_memory_budget_mb": 0.0})
     assert make_engine(model, num_blocks=0)._pool.num_blocks == 256
-
-
-@pytest.mark.parametrize("call", [
-    lambda e: e.restart(RuntimeError("x")),
-    lambda e: e.fail_clean(RuntimeError("x")),
-    lambda e: e.install_preemption_handler(),
-    lambda e: e.uninstall_preemption_handler(),
-], ids=["restart", "fail_clean", "install_preemption_handler", "uninstall_preemption_handler"])
-def test_resilience_runtime_raises_not_ported(model, call):
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        call(make_engine(model))
 
 
 def test_create_engine_and_default_device(model):
@@ -836,3 +844,501 @@ def test_block_leak_audit_counts_and_repairs(model):
     eng.run_until_idle()
     assert prof.dispatch_counters()["serve_block_leaks"] == 3
     assert eng._pool.free_blocks == eng._pool.num_blocks
+
+
+# ---------------------------------------------------------------------------
+# (h): serving under faults, against the JAX engine
+# ---------------------------------------------------------------------------
+FAULT_COUNTERS = ("injected_faults", "retry_attempts", "ladder_demotions",
+                  "serve_capture_fallbacks")
+
+
+def _serve_faulted_jax(jm, spec, prompts):
+    jres.reset()
+    jprof.reset_dispatch_counters()
+    paddle.set_flags({"FLAGS_fault_inject": spec, "FLAGS_retry_backoff_ms": 0.5})
+    try:
+        jeng = jserving.Engine(jm, jserving.ServingConfig(
+            block_size=8, prompt_buckets=[8, 16], num_blocks=24))
+        resps = jeng.serve(prompts, max_new_tokens=8)
+        jeng.close()
+        return resps, dict(jprof.dispatch_counters())
+    finally:
+        paddle.set_flags({"FLAGS_fault_inject": "", "FLAGS_retry_backoff_ms": 5.0})
+        jres.reset()
+        jreset_serve_programs()
+
+
+def _serve_faulted(tm, spec, prompts, **kw):
+    pt.resilience.reset()
+    prof.reset_dispatch_counters()
+    pt.set_flags({"FLAGS_fault_inject": spec, "FLAGS_retry_backoff_ms": 0.5})
+    try:
+        eng = make_engine(tm, **kw)
+        resps = eng.serve(prompts, max_new_tokens=8)
+        return resps, dict(prof.dispatch_counters()), eng
+    finally:
+        pt.set_flags({"FLAGS_fault_inject": "", "FLAGS_retry_backoff_ms": 5.0})
+        pt.resilience.reset()
+
+
+@pytest.mark.parametrize("spec", ["execute:p=0.2", "execute:p=1:x=3:decode",
+                                  "execute:p=1:x=1:prefill"])
+def test_faulted_serve_matches_jax_engine(models, spec):
+    jm, tm = models
+    prompts = _engine_prompts()
+    ref, jc = _serve_faulted_jax(jm, spec, prompts)
+    got, c, _ = _serve_faulted(tm, spec, prompts)
+    clean = [_generate(tm, p, 8) for p in prompts]
+    assert all(r.ok for r in ref) and all(g.ok for g in got)
+    assert [g.tokens for g in got] == [r.tokens for r in ref] == clean
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    assert c["injected_faults"] > 0
+    if spec != "execute:p=0.2":
+        # the targeted specs fire only at the rungs both engines share; the
+        # untargeted one also fires at the JAX floor's per-op sites, which
+        # the port's floor has as one 'op' site
+        assert {k: c[k] for k in FAULT_COUNTERS} == {k: jc[k] for k in FAULT_COUNTERS}
+    if spec == "execute:p=1:x=3:decode":
+        assert c["ladder_demotions"] >= 1 and c["serve_capture_fallbacks"] > 0
+    if spec == "execute:p=1:x=1:prefill":
+        assert c["retry_attempts"] > 0
+
+
+def test_fault_injection_serve_bitwise_to_clean(model):
+    prompts = _engine_prompts()
+    clean = _serve_logged(model, prompts)
+    pt.set_flags({"FLAGS_fault_inject": "execute:p=0.2", "FLAGS_retry_backoff_ms": 0.5})
+    faulted = make_engine(model, keep_logits=True).serve(prompts, max_new_tokens=6)
+    assert prof.dispatch_counters()["injected_faults"] > 0
+    for a, b in zip(clean, faulted):
+        assert b.ok and a.tokens == b.tokens
+        assert all(np.array_equal(x, y) for x, y in zip(a.logits, b.logits))
+
+
+def test_storm_demotes_then_cooldown_repromotes_and_replays(model):
+    prompts = _engine_prompts()
+    pt.set_flags({"FLAGS_fault_inject": "execute:p=1:x=3:decode",
+                  "FLAGS_retry_backoff_ms": 0.5, "FLAGS_ladder_cooldown_steps": 3})
+    try:
+        eng = make_engine(model)
+        stormed = eng.serve(prompts, max_new_tokens=8)
+        assert prof.dispatch_counters()["ladder_demotions"] >= 1
+        demoted = [t for t in eng.step_timings()
+                   if t.kind == "decode" and t.rung != "captured"]
+        assert demoted and {t.rung for t in demoted} <= {"retained", "eager"}
+        # the clean serve after the storm: the demoted buckets run retained
+        # until FLAGS_ladder_cooldown_steps clean ticks re-promote them, then
+        # their graphs replay again
+        pt.set_flags({"FLAGS_fault_inject": ""})
+        eng.reset_stats()
+        prof.reset_dispatch_counters()
+        again = eng.serve(prompts, max_new_tokens=8)
+    finally:
+        pt.set_flags({"FLAGS_ladder_cooldown_steps": 8})
+    c = prof.dispatch_counters()
+    rungs = [t.rung for t in eng.step_timings() if t.kind == "decode"]
+    assert c["ladder_promotions"] >= 1 and c["serve_capture_replays"] > 0
+    assert "retained" in rungs and rungs[-1] == "captured"
+    assert rungs.index("captured") > rungs.index("retained")
+    assert [r.tokens for r in again] == [r.tokens for r in stormed]
+    assert [r.tokens for r in again] == [_generate(model, p, 8) for p in prompts]
+
+
+def test_request_requeue_on_floor_failure(model):
+    # a storm that exhausts every rung INCLUDING the eager floor errors the
+    # request after its retry budget: an error RESPONSE, never a drop
+    pt.set_flags({"FLAGS_serving_request_retries": 1})
+    rng = np.random.default_rng(3)
+    (r,), c, _ = _serve_faulted(model, "execute:p=1:x=9", [_prompt(rng)])
+    assert r.status == "error" and r.error
+    assert c["serve_request_requeues"] >= 1
+    assert c["serve_requests_dropped"] == 0
+    assert dict(c["fault_sites"]).get("op", 0) > 0  # the floor is a site
+
+
+def test_pool_consumed_after_replay_recovers(model):
+    # a real fault raised AFTER the captured rung wrote the pool: recovery
+    # zeroes the pool in place and requeues every in-flight sequence
+    rng = np.random.default_rng(3)
+    prompts = [_prompt(rng), _prompt(rng, 16)]
+    eng = make_engine(model)
+    ids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+    real = lazy._ServeProgram._captured
+    state = {"armed": True}
+
+    def fails_after_write(prog, k_pools, v_pools, feeds):
+        out = real(prog, k_pools, v_pools, feeds)
+        if prog.key[0] == "decode" and state["armed"]:
+            state["armed"] = False
+            raise RuntimeError("device fault after the replay wrote the pool")
+        return out
+
+    pools = list(eng._pool.k + eng._pool.v)
+    lazy._ServeProgram._captured = fails_after_write
+    try:
+        eng.run_until_idle()
+    finally:
+        lazy._ServeProgram._captured = real
+    c = prof.dispatch_counters()
+    assert c["serve_capture_fallbacks"] == 1 and c["fatal_faults"] == 1
+    assert c["serve_request_requeues"] == 2 and c["serve_requests_dropped"] == 0
+    for p, i in zip(prompts, ids):
+        r = eng.response(i)
+        assert r.ok and r.tokens == _generate(model, p, 4)
+    assert all(a is b for a, b in zip(pools, eng._pool.k + eng._pool.v))
+    assert eng.health == "degraded"
+
+
+def test_no_leaks_under_mixed_storm(model):
+    # sheds + expiries + faults + requeues in one run: every exit path
+    # recycles its blocks and every request ends terminal
+    pt.set_flags({"FLAGS_fault_inject": "execute:p=0.2", "FLAGS_retry_backoff_ms": 0.5,
+                  "FLAGS_serving_queue_max": 4})
+    eng = make_engine(model, num_blocks=8)
+    rng = np.random.default_rng(1)
+    ids = []
+    for k in range(10):
+        ids.append(eng.submit(
+            _prompt(rng), max_new_tokens=4,
+            deadline_ms=5.0 if k % 3 == 0 else None,
+            priority="batch" if k % 2 else "interactive"))
+    eng.run_until_idle()
+    statuses = [eng.response(i).status for i in ids]  # no Nones: terminal
+    assert set(statuses) <= {"ok", "timeout", "overloaded", "error", "rejected"}
+    c = prof.dispatch_counters()
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    assert eng._pool.free_blocks == eng._pool.num_blocks
+
+
+def test_serve_events_in_the_flight_recorder(model):
+    trace.clear()
+    eng = make_engine(model)
+    rng = np.random.default_rng(0)
+    eng.serve([_prompt(rng), _prompt(rng)], max_new_tokens=3)
+    eng.submit(_prompt(rng, 64), max_new_tokens=4)  # rejected: past max positions
+    phases = [e.attrs["phase"] for e in trace.events(kind="serve")]
+    for phase in ("admit", "prefill", "decode", "complete", "health", "reject"):
+        assert phase in phases, phase
+    assert trace.events(kind="serve")[-1].attrs["phase"] == "reject"
+    lanes = [e for e in trace.chrome_trace_events() if e["name"] == "request"]
+    assert {e["ph"] for e in lanes} == {"b", "n", "e"}
+
+
+# ---------------------------------------------------------------------------
+# (i): ports of tests/test_serving_overload.py's supervisor and health tests
+# ---------------------------------------------------------------------------
+def test_supervisor_restarts_on_tick_exception_bitwise(model):
+    rng = np.random.default_rng(3)
+    prompts = [_prompt(rng) for _ in range(3)]
+    clean = [_generate(model, p, 6) for p in prompts]
+    eng = make_engine(model)
+    sup = serving.Supervisor(eng)
+    try:
+        ids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        orig = eng._decode_batch
+        state = {"armed": True}
+
+        def wedge(chunk, n_blk):
+            if state["armed"]:
+                state["armed"] = False
+                raise RuntimeError("tick bug escaped the ladder")
+            return orig(chunk, n_blk)
+
+        eng._decode_batch = wedge
+        sup.run_until_idle()
+        resps = [eng.pop_response(i) for i in ids]
+    finally:
+        sup.close()
+    assert sup.restarts == 1
+    assert [r.tokens for r in resps] == clean
+    assert all(r.ok for r in resps)
+    c = prof.dispatch_counters()
+    assert c["serve_engine_restarts"] == 1
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    assert eng._pool.free_blocks == eng._pool.num_blocks
+    assert sup.state()["last_restart_error"] == "RuntimeError: tick bug escaped the ladder"
+
+
+def test_supervisor_restart_budget_fails_clean(model, tmp_path):
+    pt.set_flags({"FLAGS_postmortem_dir": str(tmp_path)})
+    rng = np.random.default_rng(0)
+    eng = make_engine(model)
+    sup = serving.Supervisor(eng, max_restarts=2)
+    try:
+        ids = [eng.submit(_prompt(rng), max_new_tokens=4) for _ in range(3)]
+
+        def always_wedged(chunk, n_blk):
+            raise RuntimeError("permanently wedged")
+
+        eng._decode_batch = always_wedged
+        sup.run_until_idle()  # must RETURN — fail clean, never hang
+    finally:
+        sup.close()
+    assert sup.restarts == 3  # 2 restarts + the final over-budget attempt
+    assert eng.health == "dead"
+    for i in ids:
+        r = eng.response(i)
+        assert r is not None and r.status == "error"
+        assert "restarts" in r.error
+    late = eng.submit(_prompt(rng), max_new_tokens=2)
+    assert eng.response(late).status == "rejected"
+    c = prof.dispatch_counters()
+    assert c["serve_engine_restarts"] == 2  # the budgeted ones
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    doc = trace.read_postmortem(trace.last_postmortem_path())
+    assert doc["reason"] == "engine_dead" and doc["attrs"]["restarts"] == 2
+    assert doc["exception"]["message"] == "permanently wedged"
+
+
+def _serve_supervised_until_dead(model, tmp_path, tick_error, restart_error=None):
+    """Three requests under a Supervisor whose engine's first decode tick
+    raises ``tick_error``; with ``restart_error`` set, zeroing the pool in
+    the restart raises it. Returns (engine, supervisor, responses, restarts
+    attempted)."""
+    pt.set_flags({"FLAGS_postmortem_dir": str(tmp_path)})
+    rng = np.random.default_rng(0)
+    eng = make_engine(model)
+    sup = serving.Supervisor(eng)
+    attempted = []
+    real_restart = eng.restart
+
+    def restart(err):
+        attempted.append(err)
+        real_restart(err)
+
+    def wedged(chunk, n_blk):
+        raise tick_error
+
+    def reset_storage():
+        raise restart_error
+
+    eng.restart, eng._decode_batch = restart, wedged
+    if restart_error is not None:
+        eng._pool.reset_storage = reset_storage
+    try:
+        ids = [eng.submit(_prompt(rng), max_new_tokens=4) for _ in range(3)]
+        sup.run_until_idle()  # must RETURN with every request answered
+    finally:
+        sup.close()
+    return eng, sup, [eng.response(i) for i in ids], attempted
+
+
+def test_supervisor_fails_clean_when_restart_raises(model, tmp_path):
+    # a restart that cannot zero the pool must not strand the requests it
+    # requeued: the engine fails clean instead
+    lost = RuntimeError("CUDA error: an illegal memory access was encountered")
+    eng, sup, resps, attempted = _serve_supervised_until_dead(
+        model, tmp_path, RuntimeError("tick bug escaped the ladder"), restart_error=lost)
+    assert len(attempted) == 1 and sup.restarts == 1
+    assert eng.health == "dead"
+    assert all(r is not None and r.status == "error" for r in resps)
+    assert all("its restart failed" in r.error for r in resps)
+    c = prof.dispatch_counters()
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    assert eng._pool.free_blocks == eng._pool.num_blocks
+    doc = trace.read_postmortem(trace.last_postmortem_path())
+    assert doc["reason"] == "engine_dead" and doc["exception"]["message"] == str(lost)
+
+
+def test_supervisor_sticky_cuda_error_fails_clean_without_restart(model, tmp_path):
+    # a CUDA error escaping the tick means a lost context: no restart is
+    # tried (its own device work would raise again), every request errors
+    lost = RuntimeError("CUDA error: an illegal memory access was encountered")
+    eng, sup, resps, attempted = _serve_supervised_until_dead(model, tmp_path, lost)
+    assert not attempted and sup.restarts == 1
+    assert eng.health == "dead"
+    assert all(r is not None and r.status == "error" for r in resps)
+    assert all("CUDA context is lost" in r.error for r in resps)
+    c = prof.dispatch_counters()
+    assert c["serve_engine_restarts"] == 0
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+    assert eng._pool.free_blocks == eng._pool.num_blocks
+    late = eng.submit(_prompt(np.random.default_rng(1)), max_new_tokens=2)
+    assert eng.response(late).status == "rejected"
+
+
+def test_supervisor_consumes_stall_watchdog(model):
+    # a tick that trips the stall watchdog AND makes no observable progress
+    # is a wedge: the supervisor restarts the engine
+    rng = np.random.default_rng(3)
+    prompts = [_prompt(rng) for _ in range(2)]
+    clean = [_generate(model, p, 4) for p in prompts]
+    pt.set_flags({"FLAGS_trace_stall_ms": 40.0})
+    eng = make_engine(model)
+    sup = serving.Supervisor(eng)
+    try:
+        ids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        eng.step()  # a healthy tick arms the watchdog heartbeat
+        orig = eng._decode_batch
+        state = {"armed": True}
+
+        def wedged_tick(chunk, n_blk):
+            if state["armed"]:
+                state["armed"] = False
+                time.sleep(0.25)  # way past FLAGS_trace_stall_ms...
+                return True       # ...and NOTHING decoded: a true wedge
+            return orig(chunk, n_blk)
+
+        eng._decode_batch = wedged_tick
+        sup.run_until_idle()
+        resps = [eng.pop_response(i) for i in ids]
+    finally:
+        sup.close()
+    assert sup.restarts >= 1
+    assert all(r.ok for r in resps)
+    assert [r.tokens for r in resps] == clean
+    assert prof.dispatch_counters()["serve_requests_dropped"] == 0
+    assert trace.heartbeat_age_ms(f"serve[{eng._uid}]") is None  # disarmed at idle
+
+
+def test_slow_but_productive_tick_is_not_a_wedge(model):
+    rng = np.random.default_rng(3)
+    pt.set_flags({"FLAGS_trace_stall_ms": 40.0})
+    eng = make_engine(model)
+    sup = serving.Supervisor(eng)
+    try:
+        ids = [eng.submit(_prompt(rng), max_new_tokens=4) for _ in range(2)]
+        eng.step()  # arm the heartbeat
+        orig = eng._decode_batch
+        state = {"armed": True}
+
+        def slow_tick(chunk, n_blk):
+            if state["armed"]:
+                state["armed"] = False
+                time.sleep(0.25)  # trips the watchdog...
+            return orig(chunk, n_blk)  # ...but the decode happens
+
+        eng._decode_batch = slow_tick
+        sup.run_until_idle()
+        resps = [eng.pop_response(i) for i in ids]
+    finally:
+        sup.close()
+    assert sup.restarts == 0
+    assert all(r.ok for r in resps)
+    assert any(e.attrs.get("phase") == "stall_benign" for e in trace.events(kind="serve"))
+
+
+def test_restart_requeues_do_not_burn_request_retries(model):
+    # the engine wedged, not the request: with default budgets
+    # (request_retries=2 < max_engine_restarts=3) an in-flight request
+    # survives all three in-budget restarts and finishes with its tokens
+    rng = np.random.default_rng(3)
+    prompts = [_prompt(rng) for _ in range(2)]
+    clean = [_generate(model, p, 4) for p in prompts]
+    eng = make_engine(model)
+    sup = serving.Supervisor(eng)
+    try:
+        ids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        orig = eng._decode_batch
+        state = {"wedges": 3}
+
+        def wedge(chunk, n_blk):
+            if state["wedges"]:
+                state["wedges"] -= 1
+                raise RuntimeError("wedge")
+            return orig(chunk, n_blk)
+
+        eng._decode_batch = wedge
+        sup.run_until_idle()
+        resps = [eng.pop_response(i) for i in ids]
+    finally:
+        sup.close()
+    assert sup.restarts == 3
+    assert all(r.ok for r in resps)
+    assert [r.tokens for r in resps] == clean
+
+
+def test_restart_and_fail_clean_health(model):
+    eng = make_engine(model)
+    rng = np.random.default_rng(0)
+    eng.serve([_prompt(rng)], max_new_tokens=2)
+    assert eng.health == "ready"
+    eng.restart(RuntimeError("forced"))
+    assert eng.health == "degraded" and eng.stats()["restarts"] == 1
+    for _ in range(10):  # cooldown of clean ticks re-promotes
+        eng.step()
+    assert eng.health == "ready"
+    eng.begin_drain()
+    assert eng.health == "draining" and not eng.serviceable()
+    eng.fail_clean(RuntimeError("done"))
+    assert eng.health == "dead"
+    assert prof.dispatch_counters()["serve_health_transitions"] >= 5
+
+
+def test_health_events_explain_transitions(model):
+    trace.clear()
+    eng = make_engine(model)
+    rng = np.random.default_rng(0)
+    eng.serve([_prompt(rng)], max_new_tokens=2)
+    eng.restart(RuntimeError("forced"))
+    health = [e.attrs for e in trace.events(kind="serve") if e.attrs.get("phase") == "health"]
+    assert [h["state"] for h in health[:2]] == ["ready", "degraded"]
+    assert health[1]["why"] == "engine restart: RuntimeError"
+    assert health[1]["prev"] == "ready"
+
+
+def test_restart_releases_graphs_and_recaptures(model):
+    # the restart evicts THIS engine's programs only; a second engine's stay
+    rng = np.random.default_rng(0)
+    eng, other = make_engine(model), make_engine(model)
+    eng.serve([_prompt(rng)], max_new_tokens=3)
+    other.serve([_prompt(rng)], max_new_tokens=3)
+    before = lazy.serve_capture_state()["cached_programs"]
+    eng.restart(RuntimeError("forced"))
+    assert lazy.serve_capture_state()["cached_programs"] == before // 2
+    prof.reset_dispatch_counters()
+    p = _prompt(rng)
+    (r,) = eng.serve([p], max_new_tokens=3)
+    assert r.ok and r.tokens == _generate(model, p, 3)
+    assert prof.dispatch_counters()["serve_capture_builds"] > 0  # captured again
+    prof.reset_dispatch_counters()
+    other.serve([_prompt(rng)], max_new_tokens=3)
+    assert prof.dispatch_counters()["serve_capture_builds"] == 0
+
+
+def test_restart_during_drain_refuses_work_past_the_barrier(model):
+    rng = np.random.default_rng(0)
+    eng = make_engine(model)
+    inside = eng.submit(_prompt(rng), max_new_tokens=4)
+    eng.step()
+    eng.begin_drain()
+    # work that raced in past the barrier (a submit racing the signal)
+    late = serving.Request(prompt=_prompt(rng), max_new_tokens=4)
+    eng._queue.push(late)
+    eng._accepted.add(late.request_id)
+    eng.step()  # the late request is admitted and in flight
+    assert any(s.req.request_id == late.request_id for s in eng._active)
+    eng.restart(RuntimeError("wedge during drain"))
+    r = eng.response(late.request_id)
+    assert r.status == "overloaded" and r.retriable and "drain barrier" in r.error
+    eng.run_until_idle()
+    assert eng.response(inside).ok
+    c = prof.dispatch_counters()
+    assert c["serve_requests_dropped"] == c["serve_block_leaks"] == 0
+
+
+def test_preemption_handler_sigterm_drains(model):
+    assert threading.current_thread() is threading.main_thread()
+    rng = np.random.default_rng(3)
+    prompts = [_prompt(rng) for _ in range(3)]
+    clean = [_generate(model, p, 6) for p in prompts]
+    eng = make_engine(model, prompt_buckets=[8])
+    prev = signal.getsignal(signal.SIGTERM)
+    eng.install_preemption_handler()
+    eng.install_preemption_handler()  # twice: keeps the original previous
+    try:
+        ids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        eng.step()
+        killer = threading.Timer(0.01, lambda: os.kill(os.getpid(), signal.SIGTERM))
+        killer.start()
+        killer.join()
+        eng.run_until_idle()
+        late = eng.submit(prompts[0], max_new_tokens=6)
+    finally:
+        eng.uninstall_preemption_handler()
+    assert signal.getsignal(signal.SIGTERM) is prev
+    assert [eng.response(i).tokens for i in ids] == clean
+    assert eng.response(late).status == "rejected"
+    c = prof.dispatch_counters()
+    assert c["serve_preempt_drains"] == 1 and c["serve_requests_dropped"] == 0
