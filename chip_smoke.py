@@ -75,6 +75,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      timed replays, against an eager copy of the model stepped with
      ``loss.backward(); opt.step(); opt.clear_grad()``; every flash forward,
      dK/dV and dQ launch takes the sm90 route;
+  7b. the same step with ``GPTConfig(use_recompute=True)``, dropout 0.1 and
+     attention dropout 0 (bench.py ``main()`` with ``BENCH_RECOMPUTE=1``):
+     two eager steps, the capture, 10 timed replays beside phase 7's step
+     (ms, tokens/s, peak memory), 48 sm90 forward launches (24 recomputed)
+     and 24 each of dK/dV and dQ per step; two replays at lr 0 draw other
+     masks, and at dropout 0 (4 layers) the same; a captured recompute
+     replays its forwards' masks (2 layers, against an eager step drawing
+     from the same generator states); an eager copy with recompute and one
+     without give bitwise-equal losses and gradients over three steps. Then
+     the classic fp16 loop: ``auto_cast(level="O1", dtype="float16")``,
+     ``GradScaler``, Adam with the fused update on against a deep copy with
+     it off (bitwise), 24 fp16 sm90 launches of each flash kernel and 292
+     Adam launches per step, two steps with an inf gradient skipped (the
+     scale halved), one rescued under ``FLAGS_numeric_rescue="skip"``
+     marking the scaler, a good step timed. Then ``compile_train_step(...,
+     grad_input_idx=(0,))`` over float rows: the input gradient of three
+     replays against eager autograd's;
   8. a ``torch.profiler`` trace of one replayed step: the top device
      operations, the flash kernels' share of the step, the device idle share;
   9. hold the three fused-update kernels (Adam, Momentum, SGD) against their
@@ -102,6 +119,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result. It imports nothing of JAX or of ``paddle_tpu``.
+
+    python3 chip_smoke.py --tf32-repeat N
+
+runs only the tf32x3 forward's repeat witness: N fresh processes, each
+comparing its first two launches bit for bit, then one process under each of
+compute-sanitizer's racecheck, synccheck and initcheck where the toolkit has
+it and the card is supported.
 """
 from __future__ import annotations
 
@@ -331,7 +355,7 @@ def check_forward_kernels(torch, fa, gen, dev):
             ((1, 64, 1, 16), True, dtype, "contiguous"),  # one tile, D = 16
         ]
     timed = {(FWD_MAIN_SHAPE, "float32"), (FWD_MAIN_SHAPE, "bfloat16"),
-             (BWD_MAIN_SHAPE, "bfloat16")}
+             (BWD_MAIN_SHAPE, "bfloat16"), (BWD_MAIN_SHAPE, "float16")}
     out = {}
     for shape, causal, dtype, layout in cases:
         b, s, h, d = shape
@@ -458,7 +482,7 @@ def check_backward_kernels(torch, fa, gen, dev):
         check(ok, f"backward kernels disagree with their plain version at {shape} {dname}")
         check(all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv)),
               f"non-finite gradients at {shape}")
-        if shape != BWD_MAIN_SHAPE or dname == "float16":
+        if shape != BWD_MAIN_SHAPE:
             continue
         kernel = {
             "dkv": lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal),
@@ -1308,14 +1332,15 @@ def serve_under_faults(torch, pt, fa, fu, card, served):
 
 
 def train_345m(torch, pt, fa, gen, dev):
-    """Phases 7 and 8: the 345M training step as one CUDA graph, against an
-    eager copy, then a profiler trace of one replay. Returns the launches of
-    each flash kernel over the training path."""
+    """Phase 7: the 345M training step as one CUDA graph, against an eager
+    copy. Returns the launches of each flash kernel over the training path,
+    its numbers, and what phase 8 traces (the step stays alive for it)."""
     from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
 
     print("[7] GPT-2 345M training step, 8 x 1024 tokens, AMP O2 bf16, AdamW, one CUDA graph")
     batch, warmup, replays = 8, pt.jit.WARMUP_STEPS, 10
     torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
     pt.seed(SEED)
     cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
     model = GPTForPretraining(cfg, device=dev)
@@ -1375,7 +1400,7 @@ def train_345m(torch, pt, fa, gen, dev):
     mem_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"  {replays} replays: step {step_ms:.2f} ms (CUDA events), {host_ms:.2f} ms "
           f"(host clock), {tokens / step_ms * 1e3:.0f} tokens/s; peak memory "
-          f"allocated {mem_gb:.1f} GB")
+          f"allocated {mem_gb:.1f} GB ({held_gb:.1f} GB held before the phase)")
     values = [float(v) for v in losses]
     print("  losses: " + " ".join(f"{v:.4f}" for v in values))
     check(all(math.isfinite(v) for v in values), "non-finite training loss")
@@ -1405,9 +1430,409 @@ def train_345m(torch, pt, fa, gen, dev):
           f"{values == eager_values}, tol={TOL_EAGER_VS_GRAPH:g}")
     check(diff <= TOL_EAGER_VS_GRAPH, "the eager copy and the graph replays disagree")
     del eager, opt_e, loss
+    return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gb": mem_gb - held_gb, "profile": (step, x, y, cfg.num_layers)}
 
-    profile_replay(torch, step, x, y, cfg.num_layers)
-    return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3}
+
+# Phase 7b. 7b-i: bench.py main()'s step with BENCH_RECOMPUTE=1 and GPTConfig's
+# hidden-state dropout; 7b-ii: the classic fp16 loop under O1 with a
+# GradScaler; 7b-iii: a compiled step that returns its input's gradient.
+RECOMPUTE_DROPOUT = 0.1
+O1_STEPS = 6  # steps of the O1 loop: 2 good, 2 poisoned, 1 good, 1 rescued
+O1_POISONED = (2, 3)  # an inf in one gradient: the scaler skips the step
+O1_RESCUED = 5  # an inf under FLAGS_numeric_rescue="skip": the sentinel skips it
+O1_TIMED = 3  # good steps timed after the checked ones
+# The input gradient of a compiled step against eager autograd's, relative to
+# the gradient's largest entry: the same kernels in the same order, expected
+# equal to the bit; 1e-6 admits a library matmul choosing another algorithm in
+# the graph, and a wrong gradient (a mask, a missing term) moves whole rows
+TOL_INPUT_GRAD = 1e-6
+
+
+def draw_from_pairs(pt, layers, gen, pairs):
+    """Make each of ``layers`` draw its random bits from its segment pair's
+    forward generator, as a captured recompute step's forwards do."""
+    for layer, (fwd, _) in zip(layers, pairs):
+        def forward(*args, _forward=layer.forward, _fwd=fwd, **kwargs):
+            with pt.core.random.drawing_from(gen, _fwd):
+                return _forward(*args, **kwargs)
+
+        layer.forward = forward
+
+
+def captured_mask_replay(torch, pt, gen, dev):
+    """7b-i: a replay of a captured recompute step recomputes each layer with
+    the masks its forward drew. GPT-2 345M's width cut to 2 layers, f32, SGD:
+    the replay's loss and updated parameters against an eager step without
+    recompute whose layers draw from the same generator states (each
+    segment pair's forward half, the port generator for the embedding)."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    pt.seed(SEED)
+    cfg = dataclasses.replace(gpt2_345m(dropout=RECOMPUTE_DROPOUT, attn_dropout=0.0,
+                                        use_recompute=True), num_layers=2)
+    model = GPTForPretraining(cfg, device=dev)
+    eager = copy.deepcopy(model)
+    eager.cfg.use_recompute = False  # the copy's layers share its config
+    crit = GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.SGD(learning_rate=1e-2, parameters=model.parameters())
+    opt_e = pt.optimizer.SGD(learning_rate=1e-2, parameters=eager.parameters())
+    step = pt.jit.compile_train_step(model, lambda lo, lb: crit(lo, lb), opt)
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1), generator=gen, device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    for _ in range(pt.jit.WARMUP_STEPS + 1):
+        step(x, y)
+    (entry,) = step._captured.values()
+    with torch.no_grad():
+        for p, q in zip(eager.parameters(), model.parameters()):
+            p.copy_(q)
+    state = pt.get_rng_state()
+    before = [p.detach().clone() for p in model.parameters()]
+    loss = step(x, y).item()
+    # the same random state, and the pairs seeded from it as the replay seeded them
+    pt.set_rng_state(state)
+    entry.pairs.reseed()
+    draw_from_pairs(pt, eager.gpt.layers, pt.core.random.generator(dev), entry.pairs)
+    ref = crit(eager(x), y)
+    ref.backward()
+    opt_e.step()
+    err = max((p - q).abs().max().item() for p, q in zip(model.parameters(),
+                                                          eager.parameters()))
+    moved = max((p - q).abs().max().item() for p, q in zip(model.parameters(), before))
+    print(f"  captured recompute (2 layers at full width, f32, SGD): replay loss {loss:.6f}, "
+          f"eager without recompute drawing from the segment pairs {ref.item():.6f}; "
+          f"updated parameters max|d|={err:.3e}, the update moved them up to {moved:.3e} "
+          f"({entry.segments} segments, "
+          f"{len(entry.pairs)} pairs registered)")
+    check(entry.segments == cfg.num_layers and len(entry.pairs) == cfg.num_layers,
+          "the capture did not register one generator pair per recompute segment")
+    # the same kernels on the same data: equal but for a library matmul
+    # choosing another algorithm in the graph; a wrong mask moves whole
+    # gradient rows, a good part of what the update moves
+    check(abs(loss - ref.item()) <= 1e-5 and err <= 1e-2 * moved,
+          "a captured recompute did not replay its forward's masks")
+    # paddle.set_rng_state covers the segments' masks: at lr 0 a replay, the
+    # state restored, and a replay again give one loss; the next, another
+    opt.set_lr(0.0)
+    state = pt.get_rng_state()
+    first = step(x, y).item()
+    pt.set_rng_state(state)
+    again, other = step(x, y).item(), step(x, y).item()
+    print(f"  lr 0: a replay {first:.6f}, after set_rng_state {again:.6f}, the next {other:.6f}")
+    check(first == again and again != other,
+          "set_rng_state did not bring back a captured recompute step's masks")
+
+
+def recompute_step_345m(torch, pt, fa, gen, dev, phase7):
+    """Phase 7b-i: the compiled O2 bf16 AdamW step with recompute and
+    dropout 0.1, beside phase 7's step. Returns its flash launches and
+    numbers."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    print(f"[7b-i] GPT-2 345M training step with recompute, 8 x 1024 tokens, AMP O2 bf16, "
+          f"AdamW, dropout {RECOMPUTE_DROPOUT}, attn_dropout 0, one CUDA graph")
+    batch, warmup, replays = 8, pt.jit.WARMUP_STEPS, 10
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # phase 7's step, kept for phase 8
+    pt.seed(SEED)
+    cfg = gpt2_345m(dropout=RECOMPUTE_DROPOUT, attn_dropout=0.0, use_recompute=True)
+    n = cfg.num_layers
+    model = GPTForPretraining(cfg, device=dev)
+    # the initial weights, on the host, for the mask-replay check's two copies
+    initial = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    criterion = GPTPretrainingCriterion(cfg)
+
+    def loss_fn(logits, labels):
+        return criterion(logits.float(), labels)
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                             weight_decay=0.01)
+    step = pt.jit.compile_train_step(model, loss_fn, opt)
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
+                        device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    # per step: the forward twice per layer (the recomputation), the pair once
+    want = dict.fromkeys(flash_counts(fa), 0)
+    want.update(fwd_sm90=2 * n, dkv_sm90=n, dq_sm90=n)
+    reset_flash_counts(fa)  # the recompute path's count starts here
+    losses = []
+    for i in range(warmup + 1):
+        before = flash_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(x, y))
+        torch.cuda.synchronize()
+        got = {k: c - before[k] for k, c in flash_counts(fa).items()}
+        what = "capture + first replay" if i == warmup else f"eager warm-up step {i}"
+        print(f"  {what}: {time.perf_counter() - t0:.2f} s, flash launches {got}")
+        check(got == want, f"{what}: flash launches {got}, expected {want}")
+    (entry,) = step._captured.values()
+    check(entry.graph is not None and entry.segments == n,
+          f"the capture counted {entry.segments} recompute segments, not {n}")
+    launches = flash_counts(fa)  # ... and ends here: replays launch through no wrapper
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(replays):
+        losses.append(step(x, y))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / replays
+    step_ms = start.elapsed_time(end) / replays
+    check(flash_counts(fa) == launches, "the replays did not run the captured graph")
+    tokens = batch * cfg.max_seq_len
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 - held_gb
+    values = [float(v) for v in losses]
+    print(f"  {replays} replays: step {step_ms:.2f} ms (CUDA events), {host_ms:.2f} ms (host "
+          f"clock), {tokens / step_ms * 1e3:.0f} tokens/s; peak memory allocated "
+          f"{peak_gb:.1f} GB above the {held_gb:.1f} GB held before the phase")
+    print(f"  beside phase 7 (no recompute, dropout 0): step {phase7['step_ms']:.2f} ms, "
+          f"{phase7['tokens_per_s']:.0f} tokens/s, peak {phase7['peak_gb']:.1f} GB above what "
+          f"it held; recompute {step_ms / phase7['step_ms']:.3f}x the step, "
+          f"{peak_gb / phase7['peak_gb']:.3f}x the memory")
+    print("  losses: " + " ".join(f"{v:.4f}" for v in values))
+    check(all(math.isfinite(v) for v in values), "non-finite training loss")
+    check(values[-1] < values[0], "the loss does not fall on a fixed batch")
+    # lr 0: the parameters stay, so only the masks move the loss
+    opt.set_lr(0.0)
+    a, b = float(step(x, y)), float(step(x, y))
+    print(f"  two replays at lr 0, dropout {RECOMPUTE_DROPOUT}: {a:.6f} {b:.6f}")
+    check(a != b, "two replays drew the same dropout masks")
+    del step, model, opt, entry
+    torch.cuda.empty_cache()
+
+    # the same at dropout 0 and 4 layers: the replays are equal
+    pt.seed(SEED)
+    cfg0 = dataclasses.replace(gpt2_345m(dropout=0.0, attn_dropout=0.0, use_recompute=True),
+                               num_layers=4)
+    small = pt.amp.decorate(GPTForPretraining(cfg0, device=dev), level="O2", dtype="bfloat16")
+    opt0 = pt.optimizer.AdamW(learning_rate=0.0, parameters=small.parameters())
+    step0 = pt.jit.compile_train_step(small, loss_fn, opt0)
+    zero = [float(step0(x, y)) for _ in range(warmup + 3)][warmup:]
+    print(f"  replays at lr 0, dropout 0, {cfg0.num_layers} layers: "
+          + " ".join(f"{v:.6f}" for v in zero))
+    check(len(set(zero)) == 1, "replays at dropout 0 differ")
+    del step0, small, opt0
+    torch.cuda.empty_cache()
+
+    captured_mask_replay(torch, pt, gen, dev)
+
+    # the mask replay, eager: with recompute and without, one seed per step
+    rec, plain = (GPTForPretraining(gpt2_345m(dropout=RECOMPUTE_DROPOUT, attn_dropout=0.0,
+                                              use_recompute=flag), device=dev)
+                  for flag in (True, False))
+    for m in (rec, plain):
+        m.load_state_dict(initial)
+    rec, plain = (pt.amp.decorate(m, level="O2", dtype="bfloat16") for m in (rec, plain))
+    opts = [pt.optimizer.AdamW(learning_rate=1e-4, parameters=m.parameters(),
+                               weight_decay=0.01) for m in (rec, plain)]
+    for i in range(3):
+        got = []
+        for m, o in zip((rec, plain), opts):
+            pt.seed(SEED + 10 + i)
+            loss = loss_fn(m(x), y)
+            loss.backward()
+            got.append((loss.detach(), [p.grad.clone() for p in m.parameters()]))
+            o.step()
+            o.clear_grad()
+        same = torch.equal(got[0][0], got[1][0]) and all(
+            torch.equal(g, h) for g, h in zip(got[0][1], got[1][1]))
+        print(f"  eager step {i}, recompute against none: loss {float(got[0][0]):.6f} "
+              f"{float(got[1][0]):.6f}, loss and {len(got[0][1])} gradients bitwise equal: "
+              f"{same}")
+        check(same, "recompute did not replay the forward's masks")
+    del rec, plain, opts, got
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gb": peak_gb}
+
+
+def o1_fp16_scaler_345m(torch, pt, fa, fu, gen, dev):
+    """Phase 7b-ii: the eager O1 fp16 loop with a GradScaler and Adam, the
+    fused update on against a deep copy with it off. Returns its flash and
+    Adam launches and its step times."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    print(f"[7b-ii] GPT-2 345M eager AMP O1 fp16, GradScaler, Adam, dropout "
+          f"{RECOMPUTE_DROPOUT}, attn_dropout 0, 8 x 1024 tokens, the fused update on and off")
+    pt.seed(SEED)
+    cfg = gpt2_345m(dropout=RECOMPUTE_DROPOUT, attn_dropout=0.0)
+    n = cfg.num_layers
+    model = GPTForPretraining(cfg, device=dev)
+    ref = copy.deepcopy(model)
+    criterion = GPTPretrainingCriterion(cfg)
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1), generator=gen, device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    n_params = len(list(model.parameters()))
+    per_step = dict.fromkeys(flash_counts(fa), 0)
+    per_step.update(fwd_sm90=n, dkv_sm90=n, dq_sm90=n)
+    reset_flash_counts(fa)  # the O1 path's count starts here
+    adam_before = fu.fused_adam.launches
+    runs = {}
+    for name, m, flag in (("on", model, True), ("off", ref, False)):
+        opt = pt.optimizer.Adam(learning_rate=1e-4, parameters=m.parameters())
+        scaler = pt.amp.GradScaler()
+        params = list(m.parameters())
+        pt.set_flags({"FLAGS_pallas_fused_update": flag})
+        pt.resilience.rescue.reset_counters()
+        record = {"losses": [], "states": [], "ms": [], "opt_ms": [], "unscale_ms": []}
+        try:
+            for i in range(O1_STEPS + O1_TIMED):
+                bad = i in O1_POISONED or i == O1_RESCUED
+                if i == O1_RESCUED:
+                    pt.set_flags({"FLAGS_numeric_rescue": "skip"})
+                before = flash_counts(fa)
+                adam = fu.fused_adam.launches
+                kept = bad and ([p.detach().clone() for p in params],
+                                [v.clone() for p in params
+                                 for v in opt._accumulators.get(id(p), {}).values()])
+                pt.seed(SEED + 100 + i)  # both runs draw the same masks
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with pt.amp.auto_cast(level="O1", dtype="float16"):
+                    loss = criterion(m(x), y)
+                if not bad and i < O1_STEPS:
+                    scaler.minimize(opt, scaler.scale(loss))
+                else:
+                    scaler.scale(loss).backward()
+                    if bad:
+                        params[0].grad.view(-1)[0] = float("inf")
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    scaler.unscale_(opt)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    scaler.step(opt)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    scaler.update()
+                    if i >= O1_STEPS:
+                        record["unscale_ms"].append((t2 - t1) * 1e3)
+                        record["opt_ms"].append((t3 - t2) * 1e3)
+                opt.clear_grad()
+                torch.cuda.synchronize()
+                if i >= O1_STEPS:
+                    record["ms"].append((time.perf_counter() - t0) * 1e3)
+                if i == O1_RESCUED:
+                    pt.set_flags({"FLAGS_numeric_rescue": ""})
+                got = {k: c - before[k] for k, c in flash_counts(fa).items()}
+                adam = fu.fused_adam.launches - adam
+                check(got == per_step, f"O1 step {i} ({name}): flash launches {got}, "
+                                       f"expected {per_step}")
+                stepped = i not in O1_POISONED  # the rescued step launches, gated
+                check(adam == (n_params if flag and stepped else 0),
+                      f"O1 step {i} ({name}): {adam} Adam kernel launches")
+                if bad:
+                    same = all(torch.equal(a, b) for a, b in zip(kept[0], params)) and all(
+                        torch.equal(a, b) for a, b in zip(kept[1], [
+                            v for p in params for v in opt._accumulators[id(p)].values()]))
+                    check(same, f"O1 step {i} ({name}) was not skipped")
+                record["losses"].append(loss.detach())
+                record["states"].append(scaler.state_dict())
+            check(pt.resilience.rescue.counters["numeric_rescues"] == 1,
+                  "the rescued step was not counted")
+        finally:
+            pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_numeric_rescue": ""})
+        record["opt"] = opt
+        runs[name] = record
+    on, off = runs["on"], runs["off"]
+    scale0 = on["states"][0]["scale"]
+    print("  scaler state after each step: " + "; ".join(
+        f"{i}: scale {s['scale']:g} good {s['good_steps']} bad {s['bad_steps']}"
+        for i, s in enumerate(on["states"][:O1_STEPS])))
+    # 2 good, the first poisoned step counts bad and resets good, the second
+    # reaches decr_every_n_nan_or_inf (2) and halves the scale; the rescued
+    # step is marked by the sentinel as the scaler's own check would
+    want = [(scale0, 1, 0), (scale0, 2, 0), (scale0, 0, 1), (scale0 / 2, 0, 0),
+            (scale0 / 2, 1, 0), (scale0 / 2, 0, 1)]
+    got = [(s["scale"], s["good_steps"], s["bad_steps"]) for s in on["states"][:O1_STEPS]]
+    check(got == want, f"scaler states {got}, expected {want}")
+    same = (all(torch.equal(a, b) for a, b in zip(on["losses"], off["losses"]))
+            and on["states"] == off["states"]
+            and bitwise_same(torch, model, ref, on["opt"], off["opt"]))
+    values = [float(v) for v in on["losses"]]
+    print("  losses: " + " ".join(f"{v:.4f}" for v in values))
+    print(f"  flag on vs off: losses, parameters, moments and scaler state bitwise equal: "
+          f"{same}")
+    check(same, "the fused update on and off disagree under O1")
+    check(all(math.isfinite(v) for v in values), "non-finite O1 loss")
+    adam_launches = fu.fused_adam.launches - adam_before
+    launches = flash_counts(fa)  # the O1 path's count ends here
+    times = {k: statistics.median(runs[f][k]) for f in ("on",) for k in
+             ("ms", "unscale_ms", "opt_ms")}
+    off_times = {k: statistics.median(off[k]) for k in ("ms", "unscale_ms", "opt_ms")}
+    print(f"  a good step (median of {O1_TIMED}, host clock): flag on {times['ms']:.2f} ms, "
+          f"of which unscale_ {times['unscale_ms']:.2f} ms and opt.step() "
+          f"{times['opt_ms']:.2f} ms; flag off {off_times['ms']:.2f} ms, unscale_ "
+          f"{off_times['unscale_ms']:.2f} ms, opt.step() {off_times['opt_ms']:.2f} ms; "
+          f"{8 * cfg.max_seq_len / times['ms'] * 1e3:.0f} tokens/s")
+    print(f"  per step: {n} fp16 sm90 launches each of forward, dK/dV and dQ; "
+          f"{n_params} Adam kernel launches (the flag on, f32 parameters)")
+    del model, ref, runs, on, off
+    torch.cuda.empty_cache()
+    return {"launches": launches, "adam": adam_launches, "times": times, "off_times": off_times}
+
+
+def grad_input_step(torch, pt, fa, gen, dev):
+    """Phase 7b-iii: ``compile_train_step(grad_input_idx=(0,))`` over float
+    rows, as the parameter-server path feeds pulled embedding rows: GPT-2
+    345M's width, 2 decoder layers and a head, f32, AdamW; the input
+    gradient of 3 replays against eager autograd's on a copy stepped beside
+    it."""
+    from paddle_tpu_torch.models.gpt import GPTDecoderLayer, GPTPretrainingCriterion, gpt2_345m
+
+    print("[7b-iii] compile_train_step(grad_input_idx=(0,)): 8 x 1024 float rows in, their "
+          "gradient out, 2 layers at GPT-2 345M's width, f32, AdamW")
+    cfg = dataclasses.replace(gpt2_345m(dropout=0.0, attn_dropout=0.0), num_layers=2)
+
+    class Rows(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = pt.nn.LayerList([GPTDecoderLayer(cfg, device=dev)
+                                           for _ in range(cfg.num_layers)])
+            self.final_ln = pt.nn.LayerNorm(cfg.hidden_size, device=dev)
+            self.head = pt.nn.Linear(cfg.hidden_size, cfg.vocab_size, device=dev)
+
+        def forward(self, rows):
+            for layer in self.layers:
+                rows = layer(rows)
+            return self.head(self.final_ln(rows))
+
+    pt.seed(SEED)
+    model = Rows()
+    eager = copy.deepcopy(model)
+    crit = GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    opt_e = pt.optimizer.AdamW(learning_rate=1e-4, parameters=eager.parameters())
+    step = pt.jit.compile_train_step(model, lambda lo, lb: crit(lo, lb), opt,
+                                     grad_input_idx=(0,))
+    rows = torch.randn(8, cfg.max_seq_len, cfg.hidden_size, generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len), generator=gen, device=dev)
+    errs = []
+    for i in range(pt.jit.WARMUP_STEPS + 1 + 3):
+        loss, (g,) = step(rows, labels)
+        x = rows.clone().requires_grad_()
+        ref = crit(eager(x), labels)
+        ref.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        if i > pt.jit.WARMUP_STEPS:  # the replays after the capture
+            size = x.grad.abs().max().item()
+            errs.append(((g - x.grad).abs().max().item(), size,
+                         abs(loss.item() - ref.item())))
+            check(g.dtype == rows.dtype and g.shape == rows.shape, "input gradient's dtype "
+                                                                   "or shape")
+    (entry,) = step._captured.values()
+    check(entry.graph is not None, "the grad_input_idx step was not captured")
+    print("  replays: " + "; ".join(f"max|d grad|={e:.3e} (largest {s:.3e}), |d loss|={d:.3e}"
+                                    for e, s, d in errs))
+    check(all(e <= TOL_INPUT_GRAD * s and d <= 1e-5 for e, s, d in errs),
+          "the compiled step's input gradient disagrees with eager autograd's")
+    del step, model, eager, opt, opt_e
+    torch.cuda.empty_cache()
 
 
 # Kinds of device operation in the training step's trace, first match wins.
@@ -1895,9 +2320,102 @@ def train_momentum_sgd(torch, pt, fu, gen, dev):
     return launches
 
 
+# The tf32x3 forward's repeat witness (``--tf32-repeat N``): N fresh processes
+# each build (or load) the library and compare the first two launches of the
+# process at phase 3's first case bit for bit; then, where the toolkit has
+# compute-sanitizer, one process under each of its hazard tools
+SANITIZER_TOOLS = ("racecheck", "synccheck", "initcheck")
+SANITIZER_TIMEOUT_S = 300
+
+
+def tf32_repeat_once(torch, fa, dev) -> bool:
+    """The first two tf32x3 forwards of this process at (4, 1024, 16, 64)
+    causal f32 on fused-qkv views, made as phase 3 makes them; prints where
+    they differ. True when they are bitwise equal."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    q, k, v = qkv_on_card(FWD_MAIN_SHAPE, torch.float32, "fused", gen, dev)
+    check(route_of(fa, (q, k, v)) == "tf32x3", "the witness's inputs are not on tf32x3")
+    scale = FWD_MAIN_SHAPE[3] ** -0.5
+    o_1, lse_1 = fa.flash_attention_fwd(q, k, v, scale, True)
+    o_2, lse_2 = fa.flash_attention_fwd(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    check(fa.flash_attention_fwd.launches_by_route["tf32x3"] == 2, "not two tf32x3 launches")
+    same = torch.equal(o_1, o_2) and torch.equal(lse_1, lse_2)
+    o_p, lse_p = fa.fwd_plain(q, k, v, scale, True)
+    err = max((o_1 - o_p).abs().max().item(), (lse_1 - lse_p).abs().max().item(),
+              (o_2 - o_p).abs().max().item(), (lse_2 - lse_p).abs().max().item())
+    print(f"  pid {os.getpid()}: first two launches bitwise equal: {same}; max|d| against "
+          f"fwd_plain {err:.3e}")
+    if not same:
+        rows = (o_1 != o_2).any(dim=-1).nonzero().tolist()
+        print(f"    differ in {len(rows)} O rows [batch, row, head] (first {rows[:8]}), by at "
+              f"most {(o_1 - o_2).abs().max().item():.3e}; lse in "
+              f"{int((lse_1 != lse_2).sum())} entries")
+    return same
+
+
+def tf32_repeat_witness(n: int) -> int:
+    """``--tf32-repeat N``: see SANITIZER_TOOLS. Exits 0 when every process
+    found its two launches equal and no sanitizer tool reported an error."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip()
+    print(f"[0] the tf32x3 forward's first two launches, {n} fresh processes; {card}")
+    _build.build([fa.TF32_FWD_KERNEL_NAME])
+    me = [sys.executable, os.path.abspath(__file__), "--tf32-repeat-once"]
+    equal = 0
+    for _ in range(n):
+        run = subprocess.run(me, capture_output=True, text=True, timeout=300)
+        sys.stdout.write(run.stdout + run.stderr)
+        equal += run.returncode == 0
+    print(f"  {equal} of {n} fresh processes gave two bitwise-equal launches")
+    failed = equal != n
+    sanitizer = os.path.join(os.path.dirname(_build.nvcc()), "compute-sanitizer")
+    if not os.path.isfile(sanitizer):
+        print(f"  no compute-sanitizer at {sanitizer}: the hazard tools did not run")
+    for tool in SANITIZER_TOOLS if os.path.isfile(sanitizer) else ():
+        cmd = [sanitizer, "--tool", tool, "--kernel-name", "kns=fwd_tf32_kernel",
+               "--print-limit", "20", "--error-exitcode", "9", *me]
+        try:
+            run = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=SANITIZER_TIMEOUT_S)
+            out, rc = run.stdout + run.stderr, run.returncode
+        except subprocess.TimeoutExpired as e:
+            # the captured output of a timed-out run is bytes, whatever text= says
+            out = b"".join(x or b"" for x in (e.stdout, e.stderr)).decode(errors="replace")
+            rc = "timeout"
+        if "Device not supported" in out:
+            # the sanitizer does not support this card: no verdict
+            print(f"  compute-sanitizer --tool {tool}: did not run, the sanitizer does not "
+                  f"support this device (rc {rc})")
+            continue
+        tail = "\n".join(out.strip().splitlines()[-25:])
+        print(f"  compute-sanitizer --tool {tool}: rc {rc}\n{tail}")
+        failed |= rc != 0
+    return 1 if failed else 0
+
+
 def main() -> int:
     import torch
 
+    if "--tf32-repeat" in sys.argv:
+        return tf32_repeat_witness(int(sys.argv[sys.argv.index("--tf32-repeat") + 1]))
+    if "--tf32-repeat-once" in sys.argv:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+        return 0 if tf32_repeat_once(torch, fa, torch.device("cuda", 0)) else 1
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
               file=sys.stderr)
@@ -2058,6 +2576,13 @@ def main() -> int:
     bwd = check_backward_kernels(torch, fa, gen, dev)
     simt_path = simt_backward_path(torch, pt, fa, gen, dev)
     train = train_345m(torch, pt, fa, gen, dev)
+    # 7b. recompute with dropout, the O1 fp16 loop, an input's gradient;
+    # before phase 8's trace: a torch.profiler run leaves every later launch
+    # dearer on the host
+    recompute = recompute_step_345m(torch, pt, fa, gen, dev, train)
+    o1 = o1_fp16_scaler_345m(torch, pt, fa, fu, gen, dev)
+    grad_input_step(torch, pt, fa, gen, dev)
+    profile_replay(torch, *train.pop("profile"))
     torch.cuda.empty_cache()
     update = check_update_kernels(torch, fu, gen, dev)
     reset_flash_counts(fa)  # the f32 training path's flash count starts here
@@ -2098,6 +2623,16 @@ def main() -> int:
           f"{f32_step['fwd_bwd_ms']:.2f} ms; in turns {turns['route']:.2f} ms on tf32x3, "
           f"{turns['fwd_simt']:.2f} ms with the forward forced to SIMT, "
           f"{turns['bwd_simt']:.2f} ms with the backward forced to SIMT")
+    fwd_h, bwd_h = fwd[(BWD_MAIN_SHAPE, "float16")], bwd["float16"]
+    print(f"    fp16 at {BWD_MAIN_SHAPE} (the O1 path's shape): forward sm90 {fwd_h['ms']:.4f} "
+          f"SIMT {fwd_h['simt_ms']:.4f} SDPA {fwd_h['library_ms']:.4f} (bound "
+          f"{fwd_h['bound_ms']:.4f}); dK/dV sm90 {bwd_h['dkv']['ms']:.4f}, dQ sm90 "
+          f"{bwd_h['dq']['ms']:.4f}, the pair {bwd_h['pair_ms']:.4f} against SDPA's backward "
+          f"{bwd_h['library_again_ms']:.4f} (and {bwd_h['dkv']['library_ms']:.4f}); bounds "
+          f"dK/dV {bwd_h['dkv']['bound_ms']:.4f}, dQ {bwd_h['dq']['bound_ms']:.4f}")
+    print(f"    launches per path: the recompute step (7b-i, 2 eager steps and the capture) "
+          f"{recompute['launches']}; the O1 loop (7b-ii, both runs) {o1['launches']}, Adam "
+          f"{o1['adam']}")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -2121,20 +2656,23 @@ def main() -> int:
 
     rows = [
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
-            inference["fwd_sm90"] + train["launches"]["fwd_sm90"], fwd16),
+            inference["fwd_sm90"] + train["launches"]["fwd_sm90"]
+            + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
             inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"], fwd32),
         # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
-            train["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
+            train["launches"]["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
+            + o1["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
             f32_train["dkv_tf32x3"], bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
-            train["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
+            train["launches"]["dq_sm90"] + recompute["launches"]["dq_sm90"]
+            + o1["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
             f32_train["dq_tf32x3"], bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
@@ -2149,7 +2687,7 @@ def main() -> int:
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_update.cu",
             "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
-            "launches": launches_f32[kind],
+            "launches": launches_f32[kind] + (o1["adam"] if kind == "adam" else 0),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

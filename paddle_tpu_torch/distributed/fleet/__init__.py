@@ -1,1 +1,1 @@
-from . import meta_parallel  # noqa: F401
+from . import meta_parallel, utils  # noqa: F401

@@ -3,8 +3,11 @@
 ``compile_train_step``).
 
 ``step(*batch)`` runs forward, loss, backward and the optimizer's update as
-one training step and returns the loss. The last batch argument is the loss
-function's label; the others go to the model. It keeps the JAX contract of
+one training step and returns the loss; with ``grad_input_idx`` it returns
+``(loss, [gradients of those batch arguments])``, as the JAX step does for
+the parameter-server path, where embedding rows pulled from the host table
+are batch inputs. The last batch argument is the loss function's label; the
+others go to the model. It keeps the JAX contract of
 ``__call__``: the learning rate is read from ``optimizer.get_lr()`` on every
 call, gradients are cast to their parameter's dtype, ``opt._step_count`` and
 ``opt._accumulators`` stay the source of truth, the optimizer's
@@ -25,12 +28,20 @@ reads, so a new ``set_lr()`` or a loaded state dict takes effect at the next
 replay. Rebinding a parameter or a state tensor to new storage after capture
 is not seen by the graph.
 
+Dropout draws from the port's generator of the device (``core.random``),
+the warm-up steps as any eager code does; the graph registers that generator
+before its capture, so every replay draws new masks, as every JAX call draws
+a new key. A recompute segment (``GPTConfig.use_recompute``) inside the
+capture draws its forward and its recomputation from a pair of generator
+states registered with the graph, one pair per segment the warm-up steps
+counted, seeded before every replay from a key drawn from the device's
+generator: ``paddle.set_rng_state`` brings back every mask of a replay.
+
 On the CPU the same step function runs eagerly on every call. That is the
 path the tests take, not a fallback: there is no graph on the CPU.
 
-Not ported yet (ROADMAP, open items, queue 1 items 8 and 13): meshes and
-input shardings, ``grad_input_idx``, the memory plan, and a random generator
-registered with the graph (dropout inside the captured step).
+Not ported yet (ROADMAP, open items, queue 1 items 12 and 13): meshes and
+input shardings, and the memory plan.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ from typing import Callable, Dict
 
 import torch
 
+from ..core import random as _random
 from ..optimizer.optimizer import apply_update
 
 __all__ = ["CompiledTrainStep", "compile_train_step"]
@@ -50,19 +62,23 @@ class _Captured:
 
     def __init__(self):
         self.eager_steps = 0
+        self.segments = 0  # recompute segments per step, counted while warming up
+        self.pairs = None  # their generator pairs, registered with the graph
         self.graph = None
         self.inputs = None
-        self.loss = None
+        self.out = None
 
 
 class CompiledTrainStep:
     """Forward, backward and update as one step: one CUDA graph per batch
     signature on a card, eager on the CPU."""
 
-    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer):
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
+                 grad_input_idx=()):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self._grad_input_idx = tuple(int(i) for i in grad_input_idx)
         self._params = [p for p in model.parameters() if p.requires_grad]
         self._captured: Dict[tuple, _Captured] = {}
         self._lr = None  # the device scalar a captured graph reads
@@ -71,17 +87,24 @@ class CompiledTrainStep:
         return [self.optimizer._state_of(p) for p in self._params]
 
     def _step_fn(self, batch, lr, states):
-        """The whole step: loss, gradients, then the in-place update."""
+        """The whole step: loss, gradients, then the in-place update. Returns
+        the loss and the gradients of the ``grad_input_idx`` batch inputs."""
         model = self.model
+        batch = list(batch)
+        for i in self._grad_input_idx:
+            batch[i] = batch[i].detach().requires_grad_()
+        diff = [batch[i] for i in self._grad_input_idx]
         with torch.enable_grad():
             out = model(*batch[:-1]) if len(batch) > 1 else model(batch[0])
             loss = self.loss_fn(out, batch[-1]) if self.loss_fn is not None else out
-            grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+            grads = torch.autograd.grad(loss, self._params + diff, allow_unused=True)
+        grads, in_grads = list(grads[:len(self._params)]), grads[len(self._params):]
         clip = self.optimizer._grad_clip
         if clip is not None:
             grads = [g for _, g in clip(list(zip(self._params, grads)))]
         apply_update(self.optimizer, self._params, grads, lr, states)
-        return loss.detach()
+        in_grads = [torch.zeros_like(x) if g is None else g for x, g in zip(diff, in_grads)]
+        return loss.detach(), in_grads
 
     def _device(self):
         return self._params[0].device if self._params else torch.device("cpu")
@@ -91,11 +114,13 @@ class CompiledTrainStep:
         batch = [torch.as_tensor(b).to(device) for b in batch]
         states = self._states()
         if device.type == "cuda":
-            loss = self._cuda_step(device, batch, states)
+            loss, in_grads = self._cuda_step(device, batch, states)
         else:
             lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32, device=device)
-            loss = self._step_fn(batch, lr, states)
+            loss, in_grads = self._step_fn(batch, lr, states)
         self.optimizer._step_count += 1
+        if self._grad_input_idx:
+            return loss, list(in_grads)
         return loss
 
     def _cuda_step(self, device, batch, states):
@@ -108,35 +133,38 @@ class CompiledTrainStep:
             # eager warm-up on a side stream, as torch.cuda.graphs asks
             side = torch.cuda.Stream(device=device)
             side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                loss = self._step_fn(batch, self._lr, states)
+            with torch.cuda.stream(side), _random.counting_segments() as seen:
+                out = self._step_fn(batch, self._lr, states)
             torch.cuda.current_stream(device).wait_stream(side)
+            entry.segments = seen.count
             entry.eager_steps += 1
-            return loss
+            return out
         if entry.graph is None:
             entry.inputs = [b.clone() for b in batch]
             graph = torch.cuda.CUDAGraph()
             torch.cuda.synchronize(device)
-            with torch.cuda.graph(graph):
-                entry.loss = self._step_fn(entry.inputs, self._lr, states)
+            with _random.register_generator_state(graph, device, entry.segments) \
+                    as entry.pairs, torch.cuda.graph(graph):
+                entry.out = self._step_fn(entry.inputs, self._lr, states)
             entry.graph = graph
         for buf, b in zip(entry.inputs, batch):
             buf.copy_(b)
+        entry.pairs.reseed()
         entry.graph.replay()
-        # the static loss is overwritten by the next replay: hand out a copy
-        return entry.loss.clone()
+        # the static outputs are overwritten by the next replay: hand out copies
+        loss, in_grads = entry.out
+        return loss.clone(), [g.clone() for g in in_grads]
 
 
 def compile_train_step(model, loss_fn, optimizer, mesh=None, in_shardings=None,
                        grad_input_idx=(), memory_plan=None):
-    """``CompiledTrainStep`` over ``model``; the JAX function's mesh,
-    sharding, input-gradient and memory-plan arguments are not ported yet."""
+    """``CompiledTrainStep`` over ``model``; the JAX function's mesh, sharding
+    and memory-plan arguments are not ported yet."""
     for given, what in ((mesh is not None, "mesh"), (in_shardings is not None, "in_shardings"),
-                        (bool(grad_input_idx), "grad_input_idx"),
                         (memory_plan is not None, "memory_plan")):
         if given:
             raise NotImplementedError(
                 f"compile_train_step({what}=...) is not ported yet (ROADMAP, open "
-                "items, queue 1 items 8 and 13)"
+                "items, queue 1 items 12 and 13)"
             )
-    return CompiledTrainStep(model, loss_fn, optimizer)
+    return CompiledTrainStep(model, loss_fn, optimizer, grad_input_idx)

@@ -18,9 +18,11 @@ Same configuration, parameter names and layouts as the JAX model, so a
 ``GPTPretrainingCriterion`` is the training loss: token cross-entropy,
 masked mean.
 
-Not ported yet: ring and ulysses sequence parallelism (multi-GPU), and
-recompute (ROADMAP queue 1 item 5). Each raises NotImplementedError when
-asked for.
+With ``use_recompute`` each decoder layer without a cache is one recompute
+segment (``incubate.recompute``), as in the JAX model.
+
+Not ported yet: ring and ulysses sequence parallelism (multi-GPU); it raises
+NotImplementedError when asked for.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import amp as _amp
 from .. import nn
 from ..core import random as _random
 from ..core.place import torch_device
@@ -39,6 +42,7 @@ from ..distributed.fleet.meta_parallel import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from ..incubate.recompute import recompute
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..ops import nn_ops as _ops
@@ -162,14 +166,14 @@ class GPTDecoderLayer(torch.nn.Module):
         self.mlp = GPTMLP(cfg, device=device)
         self.dropout = nn.Dropout(cfg.dropout)
 
-    def forward(self, x, cache=None):
-        if self.cfg.use_recompute and cache is None:
-            raise NotImplementedError(
-                "recompute is not ported yet (ROADMAP, open items, queue 1 "
-                "item 5: recompute)"
-            )
+    def _block(self, x, cache=None):
         x = x + self.dropout(self.attn(self.ln1(x), cache=cache))
         return x + self.dropout(self.mlp(self.ln2(x)))
+
+    def forward(self, x, cache=None):
+        if self.cfg.use_recompute and cache is None:
+            return recompute(self._block, x)
+        return self._block(x, cache=cache)
 
 
 class GPTEmbeddings(torch.nn.Module):
@@ -236,7 +240,9 @@ class GPTForPretraining(torch.nn.Module):
         return self._tied_head(self.gpt.final_ln(h))
 
     def _tied_head(self, h):
-        return torch.matmul(h, self.gpt.embeddings.word_embeddings.weight.t())
+        # paddle.matmul in the JAX head: the O1 "matmul" cast
+        h, w = _amp.maybe_cast_inputs("matmul", (h, self.gpt.embeddings.word_embeddings.weight))
+        return torch.matmul(h, w.t())
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 1.0,
@@ -312,7 +318,10 @@ class GPTPretrainingCriterion(torch.nn.Module):
         loss = F.cross_entropy(logits, labels, reduction="none")
         if loss_mask is not None:
             loss = loss * loss_mask
+            # the JAX Tensor.sum and Tensor.mean: the O1 "sum" and "mean" casts
+            loss, loss_mask = _amp.maybe_cast_inputs("sum", (loss, loss_mask))
             return loss.sum() / loss_mask.sum().clamp(min=1.0)
+        (loss,) = _amp.maybe_cast_inputs("mean", (loss,))
         return loss.mean()
 
 

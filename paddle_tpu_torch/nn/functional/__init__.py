@@ -6,15 +6,20 @@ in inference and in training (``cross_entropy``).
 ``FLAGS_use_flash_attention`` is on, there is no mask, no dropout and the
 shape is eligible; the dense path otherwise. (The JAX selector also keeps
 sharded meshes on the dense path; the port runs on one card.)
+
+Under ``amp.auto_cast`` O1, each function casts its inputs by the O1 lists
+under the op name the JAX function gives ``apply`` (``amp.maybe_cast_inputs``).
 """
 from __future__ import annotations
 
+from ... import amp as _amp
 from ...core import flags as _flags
 from ...core import random as _random
 from ...ops import nn_ops as _nn
 
 
 def linear(x, weight, bias=None, name=None):
+    x, weight, bias = _amp.maybe_cast_inputs("linear", (x, weight, bias))
     return _nn.linear(x, weight, bias)
 
 
@@ -22,6 +27,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
     begin = x.dim() - len(normalized_shape)
+    x, weight, bias = _amp.maybe_cast_inputs("layer_norm", (x, weight, bias))
     return _nn.layer_norm(x, weight, bias, epsilon=epsilon, begin_norm_axis=begin)
 
 
@@ -30,6 +36,7 @@ def gelu(x, approximate=False, name=None):
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = _amp.maybe_cast_inputs("softmax", (x,))
     out = _nn.softmax(x, axis=axis)
     return out if dtype is None else out.to(dtype)
 
@@ -59,9 +66,11 @@ def scaled_dot_product_attention(
         and dropout_gen is None
         and _nn.flash_attention_eligible(query.shape, key.shape, value.shape)
     ):
+        query, key, value = _amp.maybe_cast_inputs("flash_sdpa", (query, key, value))
         return _nn.flash_scaled_dot_product_attention(
             query, key, value, is_causal=is_causal
         )
+    query, key, value, attn_mask = _amp.maybe_cast_inputs("sdpa", (query, key, value, attn_mask))
     return _nn.scaled_dot_product_attention(
         query, key, value, attn_mask, dropout_gen, is_causal=is_causal,
         dropout_p=dropout_p,
@@ -88,6 +97,7 @@ def cross_entropy(
                 f"cross_entropy with {what} is not ported yet (ROADMAP, open "
                 "items, queue 1 item 4: the loss layers)"
             )
+    input, label = _amp.maybe_cast_inputs("softmax_with_cross_entropy", (input, label))
     # mean with a real ignore_index divides by the VALID count
     mean_needs_valid_count = reduction == "mean" and ignore_index != -100
     if reduction in ("mean", "sum") and not mean_needs_valid_count:

@@ -17,10 +17,10 @@ Each rescue and each lr back-off is counted in ``counters``, under the JAX
 package's counter names, and each rescue emits a ``rescue`` event into the
 flight recorder and dumps a ``numeric_rescue`` postmortem (a no-op unless
 FLAGS_postmortem_dir is set). The step number is the resilience runtime's
-(``faults.current_step()``), as in the JAX package.
-
-Not ported (ROADMAP, open items, queue 1 item 7): the GradScaler hook
-(``_rescue_scaler``: a rescued step marking the scaler's found_inf).
+(``faults.current_step()``), as in the JAX package. A rescued step inside
+``amp.GradScaler.step`` marks the scaler's found_inf (the optimizer's
+``_rescue_scaler``), so dynamic loss scaling backs off as if its own check
+had caught the step.
 """
 from __future__ import annotations
 
@@ -139,6 +139,9 @@ def handle_sentinel(optimizer, bad) -> bool:
     step = _current_step()
     trace.emit("rescue", site="optimizer", policy=mode(), step=step)
     trace.dump_postmortem("numeric_rescue", policy=mode(), step=step)
+    scaler = getattr(optimizer, "_rescue_scaler", None)
+    if scaler is not None:
+        scaler._found_inf = True
     pol = policy()
     if pol is not None:
         pol.apply(optimizer)

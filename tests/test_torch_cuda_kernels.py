@@ -16,7 +16,11 @@ forward, dK/dV and dQ cases check the route each launch took: the sm90
 (wgmma) kernels for bf16 and fp16 inputs TMA can read, the tf32x3 (3xTF32
 mma.sync) kernels for f32 inputs TMA can read, the SIMT kernels otherwise.
 The flash forward sums without atomics too: a second forward is bitwise
-equal.
+equal. The training-path cases capture steps with dropout and recompute
+(each replay draws new masks; a replay's recomputations draw its
+forwards' masks, held against an eager step drawing from the same
+generator states) and run an O1 fp16 step with a GradScaler on the sm90
+kernels.
 """
 import copy
 
@@ -563,3 +567,130 @@ def test_serving_engine_batches_continuously_on_card():
     assert all(r.ok for r in first_out + captured + eager)
     assert ([r.tokens for r in first_out] == [r.tokens for r in captured]
             == [r.tokens for r in eager])
+
+
+TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4, max_seq_len=64)
+
+
+class _Rows(torch.nn.Module):
+    """GPT decoder layers and a head over float rows: the batch input whose
+    gradient ``grad_input_idx`` returns."""
+
+    def __init__(self, card, **cfg):
+        super().__init__()
+        cfg = tgpt.GPTConfig(**dict(TINY, **cfg))
+        self.layers = pt.nn.LayerList([tgpt.GPTDecoderLayer(cfg, device=card)
+                                       for _ in range(cfg.num_layers)])
+        self.head = pt.nn.Linear(cfg.hidden_size, cfg.vocab_size, device=card)
+
+    def forward(self, rows):
+        for layer in self.layers:
+            rows = layer(rows)
+        return self.head(rows)
+
+
+def _rows_batch(card, seed=0):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    rows = torch.randn(2, 64, TINY["hidden_size"], generator=gen, device=card)
+    labels = torch.randint(0, TINY["vocab_size"], (2, 64), generator=gen, device=card)
+    return rows, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [False, True])
+def test_captured_step_draws_new_dropout_masks_per_replay(recompute):
+    card = _card()
+    crit = tgpt.GPTPretrainingCriterion()
+    losses = {}
+    for p in (0.1, 0.0):
+        pt.seed(0)
+        model = _Rows(card, dropout=p, attn_dropout=0.0, use_recompute=recompute)
+        opt = pt.optimizer.SGD(learning_rate=0.0, parameters=model.parameters())
+        step = pt.jit.compile_train_step(model, lambda lo, lb: crit(lo, lb), opt)
+        rows, labels = _rows_batch(card)
+        losses[p] = [step(rows, labels).item() for _ in range(pt.jit.WARMUP_STEPS + 3)]
+        (entry,) = step._captured.values()
+        assert entry.graph is not None
+        assert entry.segments == (2 if recompute else 0)
+    # lr 0 and one batch: only the masks change the loss, replay by replay
+    replays = {p: v[pt.jit.WARMUP_STEPS:] for p, v in losses.items()}
+    assert len(set(losses[0.1])) == len(losses[0.1]), losses
+    assert len(set(replays[0.0])) == 1, losses
+
+
+@pytest.mark.cuda
+def test_captured_recompute_replays_the_segment_masks():
+    """A replay's recomputations draw the masks its forwards drew: the loss
+    and the input rows' gradient of one replay equal those of an eager step
+    without recompute whose layers draw from the same generator states (the
+    segment pairs' forward halves, the port generator for the rest)."""
+    card = _card()
+    crit = tgpt.GPTPretrainingCriterion()
+    pt.seed(0)
+    model = _Rows(card, dropout=0.1, attn_dropout=0.0, use_recompute=True)
+    eager = copy.deepcopy(model)
+    for layer in eager.layers:
+        layer.cfg = tgpt.GPTConfig(**dict(TINY, dropout=0.1, attn_dropout=0.0))
+    opt = pt.optimizer.SGD(learning_rate=0.0, parameters=model.parameters())
+    step = pt.jit.compile_train_step(model, lambda lo, lb: crit(lo, lb), opt,
+                                     grad_input_idx=(0,))
+    rows, labels = _rows_batch(card, seed=1)
+    for _ in range(pt.jit.WARMUP_STEPS + 1):
+        step(rows, labels)
+    (entry,) = step._captured.values()
+    state = pt.get_rng_state()
+    loss, (grad,) = step(rows, labels)
+    # the same random state, and the pairs seeded from it as the replay seeded them
+    pt.set_rng_state(state)
+    entry.pairs.reseed()
+    gen = pt.core.random.generator(card)
+    for layer, (fwd, _) in zip(eager.layers, entry.pairs):
+        def forward(*args, _forward=layer.forward, _fwd=fwd, **kwargs):
+            with pt.core.random.drawing_from(gen, _fwd):
+                return _forward(*args, **kwargs)
+
+        layer.forward = forward
+    x = rows.clone().requires_grad_()
+    ref = crit(eager(x), labels)
+    (ref_grad,) = torch.autograd.grad(ref, [x])
+    for layer in eager.layers:
+        del layer.forward
+    # the same kernels on the same data: equal but for a library matmul that
+    # may pick another algorithm inside the graph; a wrong mask moves the
+    # gradient of whole rows (~1e-2 here)
+    assert abs(loss.item() - ref.item()) <= 1e-5, (loss.item(), ref.item())
+    assert (grad - ref_grad).abs().max().item() <= 1e-6 * max(1.0, grad.abs().max().item())
+    # a control: the eager step drawing from the port generator alone differs
+    pt.set_rng_state(state)
+    entry.pairs.reseed()
+    other = crit(eager(rows), labels)
+    assert abs(other.item() - ref.item()) > 1e-4
+    # set_rng_state covers the segments' masks: the replay again gives its loss
+    pt.set_rng_state(state)
+    again, _ = step(rows, labels)
+    assert torch.equal(again, loss)
+
+
+@pytest.mark.cuda
+def test_o1_fp16_step_with_a_scaler_launches_the_fp16_kernels():
+    card = _card()
+    pt.seed(0)
+    model = tgpt.GPTForPretraining(tgpt.GPTConfig(**TINY, dropout=0.1, attn_dropout=0.0),
+                                   device=card)
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    scaler = pt.amp.GradScaler()
+    ids = torch.randint(0, 128, (2, 65), device=card)
+    routes = [dict(fn.launches_by_route) for fn in (
+        tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq)]
+    with pt.amp.auto_cast(level="O1", dtype="float16"):
+        loss = tgpt.GPTPretrainingCriterion()(model(ids[:, :-1]), ids[:, 1:])
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    scaler.update()
+    torch.cuda.synchronize()
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    for fn, before in zip((tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv,
+                           tfa.flash_attention_bwd_dq), routes):
+        assert fn.launches_by_route == _plus(before, "sm90", 2)
+    assert opt._step_count == 1 and scaler.state_dict()["good_steps"] == 1

@@ -143,9 +143,14 @@ def test_unported_branches_raise():
     with torch.no_grad():
         out = m.gpt.layers[0].attn(torch.zeros(1, 8, 64), cache=View())
     assert out.shape == (1, 8, 64) and seen == [((1, 8, 4, 16), 0.25)]
-    m.cfg.sequence_parallel, m.cfg.use_recompute = False, True
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="recompute.*ROADMAP"):
-        m(ids)
+    # recompute is ported (tests/test_torch_recompute.py): with it the
+    # logits are those of the same model without it
+    m.cfg.sequence_parallel = False
+    with torch.no_grad():
+        plain = m(ids)
+    m.cfg.use_recompute = True
+    logits = m(ids)
+    assert logits.requires_grad and torch.equal(logits.detach(), plain)
 
 
 def test_convert_checks_every_key(models):

@@ -11,6 +11,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from paddle_tpu.models import gpt as jgpt
+from paddle_tpu.parallel.topology import use_mesh
 from paddle_tpu_torch.convert import state_dict_from_numpy
 from paddle_tpu_torch.models import gpt as tgpt
 
@@ -44,6 +45,14 @@ SCHEDULERS = {
 
 # a loss that falls, stalls and rises again, for ReduceOnPlateau
 METRICS = [1.0 / (1 + i) if i < 10 else 0.1 + 0.01 * (i % 3) for i in range(30)]
+
+
+@pytest.fixture(autouse=True)
+def one_device():
+    """The JAX reference on one device, whatever mesh an earlier test left
+    installed: its tensor-parallel layers constrain to an installed mesh."""
+    with use_mesh(None):
+        yield
 
 
 def _advance(sched, i):

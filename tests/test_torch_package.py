@@ -269,3 +269,44 @@ def test_api_spec_surface_of_resilience_serving_inference():
     print(f"API.spec coverage of the port: {covered} of {len(names)} names "
           f"({covered / len(names):.1%}); resilience, inference and serving: "
           f"{sum(_resolve(n) is not None for n in scoped)} of {len(scoped)}")
+
+
+def test_api_spec_surface_of_amp_recompute_and_rng_state():
+    names = _api_names()
+    scoped = [n for n in names if n.startswith(("paddle.amp.", "paddle.incubate.recompute"))
+              or n in ("paddle.get_rng_state", "paddle.set_rng_state")]
+    assert len(scoped) == 10
+    assert [n for n in scoped if _resolve(n) is None] == []
+    # the fleet re-export of recompute (reference distributed/fleet/utils.py:11)
+    assert _resolve("paddle.distributed.fleet.utils.recompute") is pt.incubate.recompute
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 125
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names")
+
+
+def test_amp_and_recompute_paths_load_neither_jax_nor_paddle_tpu():
+    # slice 10: an O1 fp16 step with a GradScaler over a recompute GPT with
+    # dropout, and a compiled step returning an input's gradient
+    out = _run(
+        "import sys, torch\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import GPTConfig, GPTForPretraining\n"
+        "from paddle_tpu_torch.models import GPTPretrainingCriterion\n"
+        "pt.set_device('cpu')\n"
+        f"m = GPTForPretraining(GPTConfig(**{TINY!r}, use_recompute=True))\n"
+        "opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=m.parameters())\n"
+        "scaler = pt.amp.GradScaler()\n"
+        "ids = torch.zeros(1, 9, dtype=torch.int64)\n"
+        "with pt.amp.auto_cast(level='O1', dtype='float16'):\n"
+        "    loss = GPTPretrainingCriterion()(m(ids[:, :-1]), ids[:, 1:])\n"
+        "scaler.minimize(opt, scaler.scale(loss))\n"
+        "assert opt._step_count == 1 and loss.dtype == torch.float32\n"
+        "lin = pt.nn.Linear(4, 3)\n"
+        "opt = pt.optimizer.SGD(learning_rate=0.1, parameters=lin.parameters())\n"
+        "step = pt.jit.compile_train_step(lin, lambda o, y: (o - y).square().mean(), opt,\n"
+        "                                 grad_input_idx=(0,))\n"
+        "loss, (g,) = step(torch.ones(2, 4), torch.zeros(2, 3))\n"
+        "assert g.shape == (2, 4)\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"

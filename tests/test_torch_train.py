@@ -18,6 +18,7 @@ import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn.functional as TF
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.ops import nn_ops as jnn
+from paddle_tpu.parallel.topology import use_mesh
 from paddle_tpu_torch.convert import state_dict_from_numpy
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.ops import nn_ops as tnn
@@ -31,6 +32,14 @@ LR = 1e-3
 # sums differently, about 1e-7 relative per op; losses of order 5 and
 # logits of order 1 then agree to ~1e-6, and a summed loss to ~1e-6 of itself.
 TOL_LOSS = dict(atol=1e-5, rtol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def one_device():
+    """The JAX reference on one device, whatever mesh an earlier test left
+    installed: its tensor-parallel layers constrain to an installed mesh."""
+    with use_mesh(None):
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -342,3 +351,66 @@ def test_optimizer_state_dict_key_names():
     topt.set_state_dict(tsd)
     assert topt._accumulators[id(next(tm.parameters()))]["moment1"] is m1
     assert torch.equal(m1, saved) and topt._step_count == 1
+
+
+class _JaxRows(paddle.nn.Layer):
+    """Two GPT decoder layers and a head over float rows, as the
+    parameter-server path feeds pulled embedding rows to a step."""
+
+    def __init__(self):
+        super().__init__()
+        cfg = jgpt.GPTConfig(**CFG)
+        self.layers = paddle.nn.LayerList([jgpt.GPTDecoderLayer(cfg) for _ in range(2)])
+        self.head = paddle.nn.Linear(CFG["hidden_size"], CFG["vocab_size"])
+
+    def forward(self, rows):
+        for layer in self.layers:
+            rows = layer(rows)
+        return self.head(rows)
+
+
+class _PortRows(torch.nn.Module):
+    def __init__(self, **cfg):
+        super().__init__()
+        cfg = tgpt.GPTConfig(**dict(CFG, **cfg))
+        self.layers = pt.nn.LayerList([tgpt.GPTDecoderLayer(cfg, device="cpu")
+                                       for _ in range(2)])
+        self.head = pt.nn.Linear(CFG["hidden_size"], CFG["vocab_size"], device="cpu")
+
+    def forward(self, rows):
+        for layer in self.layers:
+            rows = layer(rows)
+        return self.head(rows)
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+def test_grad_input_idx_matches_the_jax_step(recompute):
+    paddle.seed(SEED)
+    jm = _JaxRows()
+    tm = _PortRows(use_recompute=recompute)
+    state_dict_from_numpy(tm, {k: v.numpy() for k, v in jm.state_dict().items()})
+    rng = np.random.default_rng(5)
+    rows = rng.standard_normal((BATCH, 16, CFG["hidden_size"])).astype(np.float32)
+    labels = rng.integers(0, CFG["vocab_size"], (BATCH, 16))
+    jcrit, tcrit = jgpt.GPTPretrainingCriterion(), tgpt.GPTPretrainingCriterion()
+    jopt = paddle.optimizer.AdamW(learning_rate=LR, parameters=jm.parameters())
+    topt = pt.optimizer.AdamW(learning_rate=LR, parameters=tm.parameters())
+    jstep = paddle.jit.compile_train_step(jm, lambda lo, lb: jcrit(lo, lb), jopt,
+                                          grad_input_idx=(0,))
+    tstep = pt.jit.compile_train_step(tm, lambda lo, lb: tcrit(lo, lb), topt,
+                                      grad_input_idx=(0,))
+    for _ in range(3):
+        jloss, (jgrad,) = jstep(paddle.to_tensor(rows), paddle.to_tensor(labels))
+        tloss, (tgrad,) = tstep(torch.from_numpy(rows), torch.from_numpy(labels))
+        np.testing.assert_allclose(float(tloss), float(jloss), **TOL_LOSS)
+        # the input rows' gradients, unscaled and in their dtype: at most
+        # ~1.1e-2 here and 2.8e-9 apart at this seed (f32 sums ordered
+        # differently); the parameter gradients' 1e-6 above
+        assert tgrad.dtype == torch.float32 and tgrad.shape == rows.shape
+        assert np.abs(tgrad.numpy()).max() > 1e-4
+        np.testing.assert_allclose(tgrad.numpy(), jgrad.numpy(), atol=1e-6, rtol=0)
+    # the AdamW steps' tolerance of test_three_adamw_steps_through_compile_train_step
+    jparams = dict(jm.named_parameters())
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), jparams[n].numpy(), atol=2e-5, rtol=0,
+                                   err_msg=n)
