@@ -94,6 +94,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      replays against eager autograd's;
   8. a ``torch.profiler`` trace of one replayed step: the top device
      operations, the flash kernels' share of the step, the device idle share;
+ 7c. (after phase 8, which frees phase 7's step) checkpoint and resume of
+     phase 7's step over 12 steps of batches from a seed, each run in a
+     process of its own that imports only torch and the port: the
+     uninterrupted run A and A' (a fresh compiled step where each relaunch
+     below starts, so its steps are eager where A replays: the two printed
+     side by side); ``train_step_range`` with an ``AsyncCheckpointer``
+     (save_freq 2, max_to_keep 2) SIGKILLed after a commit, relaunched
+     under a ``PreemptionGuard`` and sent SIGTERM (the step finishes, an
+     emergency save, exit 143), relaunched with a ``kill:checkpoint`` fault
+     that kills the commit of a snapshot (137, LATEST intact), relaunched
+     to the end: every resumed loss bitwise the uninterrupted run's; a
+     snapshot loaded into the captured step keeps every ``data_ptr()`` and
+     the next replay gives the uninterrupted loss; the snapshot's bytes and
+     its step-path and device ms against a replay, the transfer, commit and
+     stall ms, a blocking save's ms;
   9. hold the three fused-update kernels (Adam, Momentum, SGD) against their
      plain versions bit for bit, at sizes from 1 element to GPT-2 345M's tied
      word embedding, with the sentinel gate off, clear and set, with and
@@ -1835,6 +1850,387 @@ def grad_input_step(torch, pt, fa, gen, dev):
     torch.cuda.empty_cache()
 
 
+# Phase 7c: checkpoint and resume of phase 7's step (the 345M, 8 x 1024, O2
+# bf16, AdamW, compile_train_step, dropout 0), each run in a process of its
+# own that imports only torch and the port. Run B is one training run of
+# RESUME_STEPS steps saved every RESUME_SAVE_FREQ steps to one directory
+# (max_to_keep=2) through train_step_range, cut four times:
+#   sigkill  from step 0, SIGKILLs itself after step RESUME_KILLED_AFTER once
+#            step 3's snapshot is committed: step 4 is lost;
+#   sigterm  resumes at 4 under a PreemptionGuard, sends itself SIGTERM during
+#            step RESUME_SIGTERM_AT: the step finishes, is emergency-saved, and
+#            the process exits with Preempted (143): no step is lost;
+#   fault    resumes at 7, arms FLAGS_fault_inject="kill:checkpoint" in step
+#            RESUME_FAULT_AT: the persist of its snapshot dies (137) between
+#            the payload write and the rename, LATEST still names 7;
+#   resume   resumes at 8 and runs to the end, then loads snapshot
+#            RESUME_LOADED into its captured step in place and replays step
+#            RESUME_LOADED + 1, then times a blocking save.
+# The yardsticks, in one process: A runs every step with one compiled step
+# (two eager steps, then the graph); A' builds a fresh compiled step where
+# each process of run B starts (RESUME_STARTS), so its steps are eager or
+# replayed as B's are. A fresh process's first two steps are eager where A
+# replays: if eager and replayed steps differ in the last bit, A' is the
+# yardstick (a finding, printed either way).
+RESUME_STEPS = 12
+RESUME_SAVE_FREQ = 2
+RESUME_KILLED_AFTER = 4
+RESUME_SIGTERM_AT = 6
+RESUME_FAULT_AT = 9
+RESUME_STARTS = (0, 4, 7, 8)
+RESUME_LOADED = 9
+RESUME_CHILD_TIMEOUT_S = 240
+RESUME_DISK_GB = 8  # two snapshots of ~2.1 GB, a temporary one and the blocking save's
+
+
+def resume_setup(torch, pt, dev):
+    """Phase 7's model, optimizer and loss, from the seed."""
+    from paddle_tpu_torch.models.gpt import (
+        GPTForPretraining, GPTPretrainingCriterion, gpt2_345m)
+
+    pt.seed(SEED)
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    model = pt.amp.decorate(GPTForPretraining(cfg, device=dev), level="O2", dtype="bfloat16")
+    criterion = GPTPretrainingCriterion(cfg)
+
+    def loss_fn(logits, labels):
+        return criterion(logits.float(), labels)
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                             weight_decay=0.01)
+    return cfg, model, opt, loss_fn
+
+
+def resume_batch(torch, cfg, i, dev):
+    """Step i's batch, the same in every process: 8 x 1024 ids from its seed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1000 + i)
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1), generator=gen, device=dev)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def resume_child(mode: str, directory: str) -> int:
+    """One process of phase 7c (``chip_smoke.py --resume-child MODE DIR``).
+    Prints one ``TAG {json}`` line per record, flushed, so a killed process
+    leaves what it did."""
+    import signal
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import checkpoint as dc
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    def out(tag, **kw):
+        print(tag, json.dumps(kw), flush=True)
+
+    def run_step(step, run, i):
+        x, y = resume_batch(torch, cfg, i, dev)
+        before = flash_counts(fa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y).item()
+        ms = (time.perf_counter() - t0) * 1e3
+        flash = {n: c - before[n] for n, c in flash_counts(fa).items() if c != before[n]}
+        out("STEP", run=run, i=i, loss=loss, ms=ms, flash=flash)
+
+    cfg, model, opt, loss_fn = resume_setup(torch, pt, dev)
+    if mode == "yardstick":
+        for run, starts in (("A", (0,)), ("A'", RESUME_STARTS)):
+            if run == "A'":
+                del step, model, opt
+                torch.cuda.empty_cache()
+                cfg, model, opt, loss_fn = resume_setup(torch, pt, dev)
+            for i in range(RESUME_STEPS):
+                if i in starts:
+                    step = pt.jit.compile_train_step(model, loss_fn, opt)
+                run_step(step, run, i)
+        return 0
+
+    ck = dc.AsyncCheckpointer(directory, max_to_keep=2)
+    state = dc.training_state(model, opt)
+    guard = pt.resilience.PreemptionGuard() if mode == "sigterm" else None
+    step = pt.jit.compile_train_step(model, loss_fn, opt)
+    pt.profiler.reset_dispatch_counters()
+    first = True
+
+    def events():
+        for ev in pt.profiler.trace.events(kind="ckpt"):
+            out("CKPT", **ev.as_dict())
+
+    try:
+        for i in dc.train_step_range(RESUME_STEPS, ck, state, save_freq=RESUME_SAVE_FREQ,
+                                     guard=guard):
+            if first:
+                out("START", i=i, latest=ck._read_latest())
+                first = False
+            if mode == "sigterm" and i == RESUME_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)  # the guard's handler sets its flag
+            run_step(step, mode, i)
+            if mode == "fault" and i == RESUME_FAULT_AT:
+                pt.set_flags({"FLAGS_fault_inject": "kill:checkpoint"})
+            if mode == "sigkill" and i == RESUME_KILLED_AFTER:
+                t0 = time.perf_counter()
+                while (ck._read_latest() != RESUME_KILLED_AFTER - 1
+                       and time.perf_counter() - t0 < 60):
+                    time.sleep(0.01)
+                events()
+                out("KILL", latest=ck._read_latest())
+                os.kill(os.getpid(), signal.SIGKILL)
+    finally:
+        if mode != "sigkill":
+            events()
+    if mode != "resume":
+        out("UNREACHABLE")
+        return 1
+    counters = pt.profiler.dispatch_counters()
+    out("COUNTERS", **{k: v for k, v in counters.items() if k.startswith("ckpt_")})
+    # the captured step reads the storage it was captured over: a load must
+    # copy into it. Load snapshot RESUME_LOADED, then replay the next step
+    live = dc.training_state(model, opt)
+    ptrs = {k: v.data_ptr() for k, v in live.items() if isinstance(v, torch.Tensor)}
+    loaded = dc.load_state_dict(dc.training_state(model, opt),
+                                os.path.join(directory, str(RESUME_LOADED)))
+    dc.restore_training_state(loaded, optimizer=opt)
+    live.refresh()
+    moved = [k for k, v in live.items()
+             if isinstance(v, torch.Tensor) and v.data_ptr() != ptrs.get(k)]
+    out("INPLACE", tensors=len(ptrs), moved=moved[:8], n_moved=len(moved),
+        same_keys=sorted(ptrs) == sorted(k for k, v in live.items()
+                                         if isinstance(v, torch.Tensor)))
+    run_step(step, "loaded", RESUME_LOADED + 1)
+    # the snapshot's copy alone: queued behind a sleep kernel, its events
+    # measure the device, not the host's enqueue (which they take in when
+    # the stream is idle, as it is at a step boundary that read the loss)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    snap = dc._device_snapshot(state)
+    out("SNAPSHOT_DEVICE", ms=snap.device_ms(), bytes=snap.nbytes)
+    del snap
+    # a blocking save beside the async ones, to a directory of its own
+    pt.profiler.trace.clear()
+    blocking = dc.AsyncCheckpointer(directory + "-blocking", max_to_keep=1)
+    for n in range(2):  # the first allocates and pins the host buffers
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blocking.save(n, state, blocking=True)
+        out("BLOCKING", n=n, ms=(time.perf_counter() - t0) * 1e3)
+    for ev in pt.profiler.trace.events(kind="ckpt"):
+        out("CKPT", **ev.as_dict())
+    return 0
+
+
+def resume_child_command(mode, directory):
+    return [sys.executable, os.path.abspath(__file__), "--resume-child", mode, directory]
+
+
+def run_resume_child(mode, directory):
+    """Run one process of phase 7c; returns its exit code and records."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(resume_child_command(mode, directory), capture_output=True,
+                          text=True, timeout=RESUME_CHILD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    recs = []
+    for line in proc.stdout.splitlines():
+        tag, _, rest = line.partition(" ")
+        if tag.isupper() and (rest.startswith("{") or not rest):
+            recs.append((tag, json.loads(rest) if rest else {}))
+    print(f"  {mode}: exit {proc.returncode} in {secs:.1f} s, {len(recs)} records")
+    if proc.returncode not in (0, -9, 137, 143) or not recs:
+        print(proc.stdout[-4000:])
+        print(proc.stderr[-4000:])
+    return proc.returncode, recs
+
+
+def steps_of(recs, run=None):
+    return {r["i"]: r for tag, r in recs if tag == "STEP" and (run is None or r["run"] == run)}
+
+
+def ckpt_events(recs):
+    return [r for tag, r in recs if tag == "CKPT"]
+
+
+def print_ckpt_events(mode, recs):
+    for ev in ckpt_events(recs):
+        a = ev.get("attrs") or {}
+        extra = "".join(f" {k}={v}" for k, v in a.items() if k not in ("phase", "ms"))
+        print(f"    {mode} ckpt step {ev['step']}: {a.get('phase')} {a.get('ms')} ms{extra}")
+
+
+def checkpoint_resume_345m(torch, card):
+    """Phase 7c. Returns the flash launches of its processes (all sm90)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models.gpt import gpt2_345m
+
+    layers = gpt2_345m().num_layers
+
+    print("[7c] checkpoint and resume of the 345M O2 step (8 x 1024, AdamW, one CUDA "
+          f"graph): {RESUME_STEPS} steps, save_freq={RESUME_SAVE_FREQ}, max_to_keep=2, "
+          "each run in a process of its own")
+    print(f"  {card}")
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free_gb = shutil.disk_usage(directory).free / 1e9
+    print(f"  checkpoint directory {directory}: {free_gb:.1f} GB free")
+    check(free_gb >= RESUME_DISK_GB, f"{free_gb:.1f} GB free, phase 7c needs {RESUME_DISK_GB}")
+    t_phase = time.perf_counter()
+    try:
+        runs = {}
+        for mode in ("yardstick", "sigkill", "sigterm", "fault", "resume"):
+            runs[mode] = run_resume_child(mode, os.path.join(directory, "run"))
+            print_ckpt_events(mode, runs[mode][1])
+            if mode in ("sigkill", "sigterm", "fault"):
+                with open(os.path.join(directory, "run", "LATEST")) as f:
+                    latest = int(f.read())
+                files = sorted(d for d in os.listdir(os.path.join(directory, "run")))
+                print(f"    after {mode}: LATEST={latest}, files {files}")
+                runs[mode] = runs[mode] + (latest, files)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+
+    rc, recs = runs["yardstick"]
+    check(rc == 0, f"the yardstick process exited {rc}")
+    a, a2 = steps_of(recs, "A"), steps_of(recs, "A'")
+    check(sorted(a) == sorted(a2) == list(range(RESUME_STEPS)), "the yardsticks' steps")
+    la = [a[i]["loss"] for i in range(RESUME_STEPS)]
+    check(all(math.isfinite(v) for v in la), "non-finite loss in run A")
+    print("  A:  " + " ".join(f"{v:.6f}" for v in la))
+    print("  A': " + " ".join(f"{a2[i]['loss']:.6f}" for i in range(RESUME_STEPS)))
+    same = [i for i in range(RESUME_STEPS) if a[i]["loss"] == a2[i]["loss"]]
+    print(f"  A vs A' (a fresh compiled step at {list(RESUME_STARTS)}: eager where A "
+          f"replays): bitwise equal at steps {same} of {RESUME_STEPS}; max|d loss|="
+          f"{max(abs(a[i]['loss'] - a2[i]['loss']) for i in range(RESUME_STEPS)):.3e}; "
+          f"eager and replayed steps bitwise equal: {len(same) == RESUME_STEPS}")
+    replay_ms = sorted(a[i]["ms"] for i in range(3, RESUME_STEPS))
+    step_ms = statistics.median(replay_ms)
+    print(f"  A's replayed steps: {step_ms:.2f} ms median (host clock, a loss read per "
+          f"step), {replay_ms[0]:.2f}-{replay_ms[-1]:.2f}")
+
+    def yard(i, replayed):
+        """The yardstick of step i as a process of run B ran it."""
+        return a[i]["loss"] if replayed else a2[i]["loss"]
+
+    def gate(mode, got, kinds):
+        rows = []
+        for i, replayed in kinds.items():
+            check(i in got, f"{mode}: step {i} missing")
+            rows.append((i, got[i]["loss"], yard(i, replayed), a[i]["loss"]))
+        print(f"  {mode}: " + "; ".join(
+            f"step {i} {v:.6f} ({'=' if v == y else '!='} yardstick, "
+            f"{'=' if v == va else '!='} A)" for i, v, y, va in rows))
+        check(all(v == y for _, v, y, _ in rows),
+              f"{mode}: resumed losses differ from the uninterrupted run's")
+
+    per_step = dict.fromkeys(("fwd_sm90", "dkv_sm90", "dq_sm90"), layers)
+
+    def flash_of(recs):
+        """The flash launches of a process: each eager or capturing step
+        launches every kernel once a layer on the sm90 route, a replay none."""
+        total = {}
+        for r in steps_of(recs).values():
+            check(r["flash"] in ({}, per_step), f"step {r['i']} of {r['run']}: flash "
+                                                f"launches {r['flash']}, expected {per_step}")
+            for n, c in r["flash"].items():
+                total[n] = total.get(n, 0) + c
+        return total
+
+    # sigkill: steps 0..4, killed once LATEST names 3
+    rc, recs, latest, files = runs["sigkill"]
+    got = steps_of(recs, "sigkill")
+    kill = [r for tag, r in recs if tag == "KILL"]
+    check(rc == -9 and kill and kill[0]["latest"] == RESUME_KILLED_AFTER - 1,
+          f"sigkill: exit {rc}, {kill}")
+    check(sorted(got) == list(range(RESUME_KILLED_AFTER + 1)), f"sigkill ran {sorted(got)}")
+    gate("sigkill", got, {0: False, 1: False, 2: True, 3: True, 4: True})
+    lost = [i for i in got if i > latest]
+    print(f"  sigkill: SIGKILL after step {RESUME_KILLED_AFTER}, LATEST {latest}: "
+          f"steps {lost} lost")
+    # sigterm: resumes at LATEST + 1, preempted after step 6 with its emergency save
+    rc, recs, latest_t, files = runs["sigterm"]
+    got = steps_of(recs, "sigterm")
+    start = [r for tag, r in recs if tag == "START"]
+    check(start and start[0]["i"] == latest + 1, f"sigterm started at {start}")
+    check(rc == 143, f"sigterm: exit {rc}, expected 143 (Preempted)")
+    check(sorted(got) == list(range(latest + 1, RESUME_SIGTERM_AT + 1)),
+          f"sigterm ran {sorted(got)}")
+    check(latest_t == RESUME_SIGTERM_AT, f"sigterm: LATEST {latest_t} after the emergency save")
+    gate("sigterm", got, {4: False, 5: False, 6: False})
+    print(f"  sigterm: SIGTERM in step {RESUME_SIGTERM_AT}, the step finished, emergency "
+          f"save, exit 143; LATEST {latest_t}: 0 steps lost")
+    # fault: kill:checkpoint in step 9's commit; LATEST stays 7
+    rc, recs, latest_f, files = runs["fault"]
+    got = steps_of(recs, "fault")
+    start = [r for tag, r in recs if tag == "START"]
+    check(start and start[0]["i"] == latest_t + 1, f"fault started at {start}")
+    check(rc == 137, f"fault: exit {rc}, expected 137 (kill:checkpoint)")
+    check(not any(tag == "UNREACHABLE" for tag, _ in recs), "fault: the process outlived its kill")
+    check(latest_f == RESUME_FAULT_AT - 2 and str(RESUME_FAULT_AT) not in files,
+          f"fault: LATEST {latest_f}, files {files}")
+    gate("fault", got, {7: False, 8: False})
+    print(f"  fault: killed in the commit of step {RESUME_FAULT_AT}'s snapshot; LATEST "
+          f"{latest_f}, no file {RESUME_FAULT_AT}; ran steps {sorted(got)}")
+    # resume: from LATEST + 1 to the end, then the in-place load
+    rc, recs = runs["resume"]
+    got = steps_of(recs, "resume")
+    start = [r for tag, r in recs if tag == "START"]
+    check(rc == 0, f"resume: exit {rc}")
+    check(start and start[0]["i"] == latest_f + 1, f"resume started at {start}")
+    gate("resume", got, {8: False, 9: False, 10: False, 11: False})
+    (inplace,) = [r for tag, r in recs if tag == "INPLACE"]
+    (loaded,) = steps_of(recs, "loaded").values()
+    print(f"  in-place load of snapshot {RESUME_LOADED} into the captured step: "
+          f"{inplace['tensors']} parameters and optimizer tensors, {inplace['n_moved']} "
+          f"moved; the next replay's loss {loaded['loss']:.6f}, A' step "
+          f"{RESUME_LOADED + 1} {a2[RESUME_LOADED + 1]['loss']:.6f}, A "
+          f"{a[RESUME_LOADED + 1]['loss']:.6f}")
+    check(inplace["n_moved"] == 0 and inplace["same_keys"], f"the load moved {inplace}")
+    check(loaded["loss"] == a2[RESUME_LOADED + 1]["loss"],
+          "the replay after an in-place load differs from the uninterrupted run")
+
+    # costs, from the resume process: its last async save (host buffers
+    # reused) and the blocking saves
+    evs = ckpt_events(recs)
+    snaps = [e["attrs"] for e in evs if e["attrs"]["phase"] == "snapshot"]
+    by_phase = {}
+    for e in evs:
+        by_phase.setdefault((e["step"], e["attrs"]["phase"]), e["attrs"])
+    last = RESUME_STEPS - 1
+    snap = by_phase[(last, "snapshot")]
+    transfer, commit = by_phase[(last, "transfer")], by_phase[(last, "commit")]
+    (counters,) = [r for tag, r in recs if tag == "COUNTERS"]
+    blocking = [r["ms"] for tag, r in recs if tag == "BLOCKING"]
+    (alone,) = [r for tag, r in recs if tag == "SNAPSHOT_DEVICE"]
+    copy_bound_ms = 2 * alone["bytes"] / PEAK_BYTES_PER_S * 1e3  # read once, written once
+    print(f"  costs ({card}): snapshot of {snap['bytes'] / 1e9:.3f} GB "
+          f"({snap['bytes']} bytes): {snap['ms']:.2f} ms on the step path, "
+          f"{snap['device_ms']:.2f} ms between the copy's events (the host's enqueue "
+          f"included: the stream is idle), {snap['ms'] / step_ms:.2%} of a "
+          f"{step_ms:.2f} ms step; the copy alone (queued behind a sleep) "
+          f"{alone['ms']:.3f} ms against a bound of {copy_bound_ms:.3f} ms (bytes); persist "
+          f"in the background: transfer {transfer['ms']:.1f} ms, commit {commit['ms']:.1f} ms; pipeline stall "
+          f"{counters['ckpt_pipeline_stall_ms']:.1f} ms over the process's "
+          f"{counters['ckpt_async_saves']} async saves; a blocking save "
+          + ", ".join(f"{v:.1f}" for v in blocking) + " ms (the first pins its buffers)")
+    check(snap["bytes"] > 0 and all(s["bytes"] == snap["bytes"] for s in snaps),
+          "the snapshots differ in size")
+    launches = {}
+    for mode, run in runs.items():
+        for n, c in flash_of(run[1]).items():
+            launches[n] = launches.get(n, 0) + c
+    off_route = {n: c for n, c in launches.items() if not n.endswith("_sm90") and c}
+    print(f"  flash launches over the phase's processes: {launches}")
+    check(not off_route, f"flash launches off the sm90 route: {off_route}")
+    print(f"  phase 7c: {phase_s:.1f} s")
+    return launches
+
+
 # Kinds of device operation in the training step's trace, first match wins.
 OP_KINDS = [
     ("flash kernels", r"::(fwd|dkv|dq)(_sm90|_tf32)?_kernel<"),
@@ -2411,6 +2807,9 @@ def main() -> int:
 
     if "--tf32-repeat" in sys.argv:
         return tf32_repeat_witness(int(sys.argv[sys.argv.index("--tf32-repeat") + 1]))
+    if "--resume-child" in sys.argv:
+        at = sys.argv.index("--resume-child")
+        return resume_child(sys.argv[at + 1], sys.argv[at + 2])
     if "--tf32-repeat-once" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -2584,6 +2983,9 @@ def main() -> int:
     grad_input_step(torch, pt, fa, gen, dev)
     profile_replay(torch, *train.pop("profile"))
     torch.cuda.empty_cache()
+    # 7c. checkpoint and resume, in processes of its own (after phase 8: the
+    # phase 7 step is freed)
+    resume = checkpoint_resume_345m(torch, card)
     update = check_update_kernels(torch, fu, gen, dev)
     reset_flash_counts(fa)  # the f32 training path's flash count starts here
     launches_f32, f32_step = train_f32_adam(torch, pt, fa, fu, gen, dev)
@@ -2656,7 +3058,7 @@ def main() -> int:
 
     rows = [
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
-            inference["fwd_sm90"] + train["launches"]["fwd_sm90"]
+            inference["fwd_sm90"] + train["launches"]["fwd_sm90"] + resume["fwd_sm90"]
             + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
             inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"], fwd32),
@@ -2664,14 +3066,14 @@ def main() -> int:
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
-            train["launches"]["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
+            train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
             + o1["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
             f32_train["dkv_tf32x3"], bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
-            train["launches"]["dq_sm90"] + recompute["launches"]["dq_sm90"]
+            train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
             + o1["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
             f32_train["dq_tf32x3"], bwd32["dq"]),

@@ -1,8 +1,10 @@
-"""Carry weights into a port model from numpy arrays.
+"""Carry weights into a port model from numpy arrays or tensors.
 
 The JAX package's ``state_dict()`` and the port's use the same names and
 layouts, so ``{k: v.numpy() for k, v in jax_model.state_dict().items()}``
-loads as it is.
+loads as it is. ``state_dict_from_numpy`` is the strict loader the parity
+tests use; ``nn.Layer.set_state_dict`` is Paddle's lenient one. Both check
+each value with ``source_for``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,23 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def source_for(name: str, value, target: torch.Tensor, cast: bool, who: str) -> torch.Tensor:
+    """``value`` (a tensor or anything numpy takes) as a tensor to copy into
+    ``target``. A shape other than the target's raises ValueError; so does
+    another dtype unless ``cast``, where the copy converts it."""
+    src = value if isinstance(value, torch.Tensor) else _to_torch(np.asarray(value))
+    if tuple(src.shape) != tuple(target.shape):
+        raise ValueError(
+            f"{who}: {name} has shape {tuple(src.shape)}, the model expects "
+            f"{tuple(target.shape)}"
+        )
+    if not cast and src.dtype != target.dtype:
+        raise ValueError(
+            f"{who}: {name} has dtype {src.dtype}, the model expects {target.dtype}"
+        )
+    return src
+
+
 def state_dict_from_numpy(model: torch.nn.Module, arrays: Dict[str, np.ndarray]) -> None:
     """Load ``arrays`` into ``model``'s state, in place, on the model's devices.
 
@@ -32,20 +51,8 @@ def state_dict_from_numpy(model: torch.nn.Module, arrays: Dict[str, np.ndarray])
         raise ValueError(
             f"state_dict_from_numpy: missing keys {missing}, unexpected keys {extra}"
         )
-    tensors = {}
-    for name, t in target.items():
-        src = _to_torch(np.asarray(arrays[name]))
-        if tuple(src.shape) != tuple(t.shape):
-            raise ValueError(
-                f"state_dict_from_numpy: {name} has shape {tuple(src.shape)}, "
-                f"the model expects {tuple(t.shape)}"
-            )
-        if src.dtype != t.dtype:
-            raise ValueError(
-                f"state_dict_from_numpy: {name} has dtype {src.dtype}, "
-                f"the model expects {t.dtype}"
-            )
-        tensors[name] = src
+    tensors = {name: source_for(name, np.asarray(arrays[name]), t, False, "state_dict_from_numpy")
+               for name, t in target.items()}
     with torch.no_grad():
         for name, t in target.items():
             t.copy_(tensors[name])

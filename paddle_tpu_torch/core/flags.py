@@ -120,6 +120,40 @@ define_flag(
     "lr multiplier applied by the 'lr_backoff' numeric-rescue policy on "
     "each rescued step",
 )
+# ---------------------------------------------------------------------------
+# Checkpointing (paddle.distributed.checkpoint — CheckFreq cadence tuning
+# and snapshot pipelining)
+# ---------------------------------------------------------------------------
+define_flag(
+    "ckpt_overhead_pct", 3.5,
+    "checkpoint-overhead budget (percent of steady-state compute) the "
+    "auto-tuned cadence targets: with save_freq='auto' the CadenceTuner "
+    "measures step time and the on-step-path snapshot cost, then picks the "
+    "largest save frequency whose overhead stays under this budget "
+    "(CheckFreq's ~3.5% discipline), re-tuning when step time drifts",
+)
+define_flag(
+    "ckpt_async", True,
+    "pipeline checkpoint persistence with compute: AsyncCheckpointer.save "
+    "takes only a fast on-device snapshot of params + optimizer "
+    "accumulators at the step boundary (bitwise the boundary state, "
+    "enqueued before the next captured step can overwrite those buffers in "
+    "place) and runs the device->host transfer + serialization + two-phase "
+    "commit on a background thread overlapping the following steps; 0 "
+    "restores the fully synchronous on-step-path save",
+)
+define_flag(
+    "ckpt_cadence_max", 1000,
+    "cap on the save frequency (steps between checkpoints) the auto "
+    "cadence tuner may pick — bounds worst-case lost work when the "
+    "snapshot is very cheap relative to the step",
+)
+define_flag(
+    "ckpt_retune_pct", 25.0,
+    "percent drift of the step-time EMA from its value at the last tune "
+    "that triggers the cadence tuner to re-pick save_freq (e.g. after a "
+    "degradation-ladder demotion changes steady-state step time)",
+)
 define_flag(
     "memory_budget_mb", 0.0,
     "estimated peak device-memory budget (MB). The serving engine reads it: "

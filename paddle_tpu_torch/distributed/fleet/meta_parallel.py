@@ -12,6 +12,7 @@ import torch
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...nn.layer.common import _init_of, create_parameter
+from ...nn.layer_base import Layer
 
 __all__ = [
     "VocabParallelEmbedding",
@@ -26,7 +27,7 @@ def with_sharding_constraint(x, *spec):
     return x
 
 
-class VocabParallelEmbedding(torch.nn.Module):
+class VocabParallelEmbedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
                  mp_group=None, name=None, device=None):
         super().__init__()
@@ -38,7 +39,7 @@ class VocabParallelEmbedding(torch.nn.Module):
         return F.embedding(x, self.weight)
 
 
-class ColumnParallelLinear(torch.nn.Module):
+class ColumnParallelLinear(Layer):
     """Weight ``[in, out]`` (out dim sharded over mp at world > 1)."""
 
     def __init__(self, in_features, out_features, weight_attr=None, has_bias=True,
@@ -56,7 +57,7 @@ class ColumnParallelLinear(torch.nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class RowParallelLinear(torch.nn.Module):
+class RowParallelLinear(Layer):
     """Weight ``[in, out]`` (in dim sharded over mp at world > 1). The bias is
     added AFTER the matmul, where the JAX layer adds it after the mp
     all-reduce."""

@@ -81,7 +81,7 @@ class CacheOverflow(ValueError):
         )
 
 
-class GPTAttention(torch.nn.Module):
+class GPTAttention(nn.Layer):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -138,7 +138,7 @@ class GPTAttention(torch.nn.Module):
         return self.out_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
-class GPTMLP(torch.nn.Module):
+class GPTMLP(nn.Layer):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         init = I.Normal(0.0, cfg.initializer_range)
@@ -156,7 +156,7 @@ class GPTMLP(torch.nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
 
 
-class GPTDecoderLayer(torch.nn.Module):
+class GPTDecoderLayer(nn.Layer):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -176,7 +176,7 @@ class GPTDecoderLayer(torch.nn.Module):
         return self._block(x, cache=cache)
 
 
-class GPTEmbeddings(torch.nn.Module):
+class GPTEmbeddings(nn.Layer):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
@@ -201,7 +201,7 @@ class GPTEmbeddings(torch.nn.Module):
         return self.dropout(h)
 
 
-class GPTModel(torch.nn.Module):
+class GPTModel(nn.Layer):
     """Decoder-only transformer trunk."""
 
     def __init__(self, cfg: GPTConfig, device=None):
@@ -219,7 +219,7 @@ class GPTModel(torch.nn.Module):
         return self.final_ln(h)
 
 
-class GPTForPretraining(torch.nn.Module):
+class GPTForPretraining(nn.Layer):
     """Trunk + weight-tied LM head.
 
     ``device``: where the parameters live; the current device when None
@@ -307,7 +307,7 @@ class GPTForPretraining(torch.nn.Module):
                 self.train()
 
 
-class GPTPretrainingCriterion(torch.nn.Module):
+class GPTPretrainingCriterion(nn.Layer):
     """Cross-entropy of the LM logits against the shifted labels; with a
     ``loss_mask``, the mean over the positions it keeps."""
 

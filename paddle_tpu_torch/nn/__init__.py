@@ -1,5 +1,6 @@
-"""``paddle.nn`` for the port: layers are ``torch.nn.Module``s."""
-from . import clip, functional, initializer  # noqa: F401
+"""``paddle.nn`` for the port: layers are ``nn.Layer``s, ``torch.nn.Module``s
+with Paddle's state methods."""
+from . import clip, functional, initializer, layer_base  # noqa: F401
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm,
     ClipGradByNorm,
@@ -9,3 +10,4 @@ from .clip import (  # noqa: F401
     GradientClipByValue,
 )
 from .layer import Dropout, Embedding, LayerList, LayerNorm, Linear  # noqa: F401
+from .layer_base import Layer  # noqa: F401

@@ -49,6 +49,10 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=No
     if axis is not None:
         raise NotImplementedError("dropout with an axis is not ported yet")
     if not training or p == 0.0:
+        # downscale_in_infer scales at inference (out = x * (1 - p)) and
+        # masks without rescaling in training
+        if mode == "downscale_in_infer" and p > 0.0:
+            return x * (1.0 - p)
         return x
     return _nn.dropout(x, _random.generator(x.device), p=p, mode=mode)
 

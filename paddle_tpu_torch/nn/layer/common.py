@@ -1,6 +1,7 @@
 """Common layers: Linear, Embedding, Dropout, LayerList (``paddle_tpu/nn/layer/common.py``).
 
-Layers are ``torch.nn.Module``s. Each takes an explicit ``device`` (the
+Layers are ``nn.Layer``s (``torch.nn.Module``s with Paddle's state
+methods, ``nn/layer_base.py``). Each takes an explicit ``device`` (the
 current device when None, see ``core/place.py``) and draws its parameters
 there from the port's generator. ``Linear`` keeps Paddle's ``[in, out]``
 weight, unlike ``torch.nn.Linear``'s ``[out, in]``.
@@ -12,6 +13,7 @@ import torch
 from ...core.place import torch_device
 from .. import functional as F
 from .. import initializer as I
+from ..layer_base import Layer
 
 
 _param_count = [0]
@@ -35,7 +37,7 @@ def _init_of(attr, default):
     return attr if isinstance(attr, I.Initializer) else default
 
 
-class Linear(torch.nn.Module):
+class Linear(Layer):
     """y = xW + b with the Paddle weight layout ``[in_features, out_features]``."""
 
     def __init__(self, in_features, out_features, weight_attr=None, bias_attr=None,
@@ -58,7 +60,7 @@ class Linear(torch.nn.Module):
         return f"in_features={self.in_features}, out_features={self.out_features}"
 
 
-class Embedding(torch.nn.Module):
+class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None, sparse=False,
                  weight_attr=None, name=None, device=None):
         super().__init__()
@@ -83,7 +85,7 @@ class Embedding(torch.nn.Module):
         return f"{self._num_embeddings}, {self._embedding_dim}"
 
 
-class Dropout(torch.nn.Module):
+class Dropout(Layer):
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p = p

@@ -1,14 +1,13 @@
 """LayerNorm (``paddle_tpu/nn/layer/norm.py:93``): weight ones, bias zeros."""
 from __future__ import annotations
 
-import torch
-
 from .. import functional as F
 from .. import initializer as I
+from ..layer_base import Layer
 from .common import _init_of, create_parameter
 
 
-class LayerNorm(torch.nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-05, weight_attr=None,
                  bias_attr=None, name=None, device=None):
         super().__init__()

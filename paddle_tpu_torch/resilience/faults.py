@@ -5,8 +5,9 @@ The chaos half of the resilience runtime: a spec string describes *synthetic*
 faults — device/runtime errors, compile errors, simulated hangs, NaN
 poisoning, mid-write kills — and the harness fires them at the execution
 choke points routed through ``resilience.runtime.execute``: in the port the
-serving engine's prefill/decode rungs and its eager floor (``op``), and the
-fused optimizer update (``optimizer``). The grammar keeps the JAX package's
+serving engine's prefill/decode rungs and its eager floor (``op``), the
+fused optimizer update (``optimizer``) and checkpoint IO (``checkpoint``,
+where ``kill:checkpoint`` also fires mid-commit). The grammar keeps the JAX package's
 whole site set, so a spec written for one package parses in the other.
 
 Spec grammar (comma-separated clauses, tokens separated by ':'):
@@ -304,8 +305,9 @@ def reset():
 def maybe_kill(site: str):
     """Hard-exit the process when a `kill:<site>` clause fires — the
     crash-consistency probe for checkpoint IO (a mid-save kill must never
-    corrupt the latest restorable snapshot). The port has no checkpoint
-    writer yet (ROADMAP queue 1 item 11); the call is here for it."""
+    corrupt the latest restorable snapshot). ``distributed.checkpoint``'s
+    commit calls it between writing a snapshot and renaming it into
+    place."""
     plan = active_plan()
     if plan is not None and plan.kill_fires(site, current_step()):
         os._exit(137)

@@ -9,10 +9,14 @@ fires an emergency save through the duck-typed checkpointer (``save`` /
 ``emergency_save`` / ``wait``), and raises `Preempted` (a SystemExit, so
 generic `except Exception` recovery code can't swallow it).
 
+``distributed.checkpoint.train_step_range`` / ``train_epoch_range`` take
+the guard as ``guard=``: they bind it to their checkpointer and state,
+install it for the loop, call ``step_boundary`` after every step and
+uninstall it at the end; a relaunch restores the emergency snapshot and
+resumes at the next step.
+
 Not ported: the JAX guard first flushes pending lazy segments
-(``lazy.flush_if_pending``), which the port does not have; and the wiring
-into ``distributed.checkpoint.train_step_range`` (restore on relaunch)
-waits for that module (ROADMAP queue 1 item 11).
+(``lazy.flush_if_pending``), which the port does not have.
 """
 from __future__ import annotations
 

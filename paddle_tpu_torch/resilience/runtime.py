@@ -4,7 +4,8 @@ accounting around every program launch. The port of
 
 `execute(site, thunk)` is the one wrapper the port routes launches through:
 the serving engine's prefill/decode rungs (``prefill`` / ``decode``) and its
-eager floor (``op``), and the fused optimizer update (``optimizer``). It
+eager floor (``op``), the fused optimizer update (``optimizer``) and
+checkpoint IO (``checkpoint``, ``distributed/checkpoint.py``). It
 consults the fault-injection plan (synthetic faults are raised BEFORE the
 thunk runs, so a retry re-executes from scratch), retries transient
 failures with capped exponential backoff + jitter, and reports every

@@ -20,7 +20,8 @@ equal. The training-path cases capture steps with dropout and recompute
 (each replay draws new masks; a replay's recomputations draw its
 forwards' masks, held against an eager step drawing from the same
 generator states) and run an O1 fp16 step with a GradScaler on the sm90
-kernels.
+kernels. A checkpoint restored into a captured step lands in the tensors
+the graph reads.
 """
 import copy
 
@@ -694,3 +695,53 @@ def test_o1_fp16_step_with_a_scaler_launches_the_fp16_kernels():
                            tfa.flash_attention_bwd_dq), routes):
         assert fn.launches_by_route == _plus(before, "sm90", 2)
     assert opt._step_count == 1 and scaler.state_dict()["good_steps"] == 1
+
+
+@pytest.mark.cuda
+def test_checkpoint_restore_into_a_captured_step_is_in_place(tmp_path):
+    """A snapshot loaded into a model whose step is captured lands in the
+    tensors the graph reads: every parameter's and optimizer tensor's
+    data_ptr() is unchanged, and the next replay gives the loss of the step
+    after the saved one (bf16 O2 AdamW, the sm90 kernels)."""
+    from paddle_tpu_torch.distributed import checkpoint as dc
+
+    card = _card()
+    crit = tgpt.GPTPretrainingCriterion()
+
+    def trainer():
+        pt.seed(0)
+        model = pt.amp.decorate(tgpt.GPTForPretraining(
+            tgpt.GPTConfig(**TINY, dropout=0.0, attn_dropout=0.0), device=card),
+            level="O2", dtype="bfloat16")
+        opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters())
+        return model, opt, pt.jit.compile_train_step(
+            model, lambda lo, lb: crit(lo.float(), lb), opt)
+
+    def batch(i):
+        gen = torch.Generator(device=card)
+        gen.manual_seed(100 + i)
+        ids = torch.randint(0, TINY["vocab_size"], (2, 65), generator=gen, device=card)
+        return ids[:, :-1], ids[:, 1:]
+
+    steps = pt.jit.WARMUP_STEPS + 3
+    model, opt, step = trainer()
+    ck = dc.AsyncCheckpointer(str(tmp_path / "ck"))
+    losses = []
+    for i in range(steps):
+        losses.append(step(*batch(i)).item())
+        if i == steps - 2:
+            ck.save(i, dc.training_state(model, opt))  # overlaps the last replay
+    ck.wait()
+    (entry,) = step._captured.values()
+    assert entry.graph is not None
+    state = dc.training_state(model, opt)
+    ptrs = {k: v.data_ptr() for k, v in state.items() if isinstance(v, torch.Tensor)}
+    assert ck.restore_latest(state) == steps - 2
+    dc.restore_training_state(state, optimizer=opt)
+    state.refresh()
+    assert {k: v.data_ptr() for k, v in state.items() if isinstance(v, torch.Tensor)} == ptrs
+    assert sum(v.dtype == torch.bfloat16 for v in state.values()
+               if isinstance(v, torch.Tensor)) > len(ptrs) // 2
+    # the replay reads the restored state: the last step again, to the bit
+    assert step(*batch(steps - 1)).item() == losses[-1]
+    assert step._captured[next(iter(step._captured))] is entry

@@ -310,3 +310,57 @@ def test_amp_and_recompute_paths_load_neither_jax_nor_paddle_tpu():
         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
     )
     assert out.strip() == "[]"
+
+
+CHECKPOINT_NAMES = {"AsyncCheckpointer", "CadenceTuner", "CheckpointCadence", "TrainingState",
+                    "load_state_dict", "persists_in_flight", "restore_training_state",
+                    "save_state_dict", "train_epoch_range", "train_step_range",
+                    "training_state"}
+
+
+def test_api_spec_surface_of_checkpoint_save_load_and_layer():
+    names = _api_names()
+    scoped = [n for n in names if n.startswith("paddle.distributed.checkpoint.")]
+    assert {n.rsplit(".", 1)[1] for n in scoped} == CHECKPOINT_NAMES
+    scoped += ["paddle.save", "paddle.load", "paddle.nn.Layer", "paddle.profiler.StepTimer"]
+    assert all(n in names for n in scoped)
+    assert [n for n in scoped if _resolve(n) is None] == []
+    from paddle_tpu_torch.distributed import checkpoint
+
+    assert sorted(checkpoint.__all__) == sorted(CHECKPOINT_NAMES)
+    assert _resolve("paddle.save") is pt.framework.io_utils.save
+    assert _resolve("paddle.nn.Layer") is pt.nn.layer_base.Layer
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 125 + len(scoped)
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names")
+
+
+def test_checkpoint_path_loads_neither_jax_nor_paddle_tpu(tmp_path):
+    # slice 11: paddle.save / load, set_state_dict, and a preempted
+    # train_step_range resumed from its emergency snapshot
+    out = _run(
+        "import os, signal, sys, torch\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.distributed import checkpoint as dc\n"
+        "from paddle_tpu_torch.framework import io_utils\n"
+        "pt.set_device('cpu')\n"
+        "net = pt.nn.Linear(4, 3)\n"
+        f"pt.save(net.state_dict(), {str(tmp_path / 'w.pdparams')!r})\n"
+        f"assert pt.nn.Linear(4, 3).set_state_dict(pt.load({str(tmp_path / 'w.pdparams')!r}))"
+        " == ([], [])\n"
+        "opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=net.parameters())\n"
+        "step = pt.jit.compile_train_step(net, lambda o, y: (o - y).square().mean(), opt)\n"
+        f"ck = dc.AsyncCheckpointer({str(tmp_path / 'ck')!r})\n"
+        "try:\n"
+        "    for i in dc.train_step_range(4, ck, dc.training_state(net, opt), save_freq=1,\n"
+        "                                 guard=pt.resilience.PreemptionGuard()):\n"
+        "        step(torch.ones(2, 4), torch.zeros(2, 3))\n"
+        "        if i == 1:\n"
+        "            os.kill(os.getpid(), signal.SIGTERM)\n"
+        "except pt.resilience.Preempted:\n"
+        "    pass\n"
+        f"assert dc.AsyncCheckpointer({str(tmp_path / 'ck')!r}).restore_latest(\n"
+        "    dc.training_state(net, opt)) == 1\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
