@@ -109,6 +109,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the next replay gives the uninterrupted loss; the snapshot's bytes and
      its step-path and device ms against a replay, the transfer, commit and
      stall ms, a blocking save's ms;
+ 7d. (after 7c) BERT-base pretraining, bench.py ``bench_bert``'s step
+     (``BertConfig(max_seq_len=512, dropout=0, attn_dropout=0)``, 8 x 512
+     tokens, MLM + NSP, O2 bf16, AdamW through ``compile_train_step``, ids
+     and packed labels from numpy's generator seeded 0): two eager steps, the
+     capture, 10 timed replays (ms, tokens/s under bench.py's metric name,
+     peak memory), against an eager copy, every flash launch the non-causal
+     sm90 kernel, 12 of each per step; the same with Lamb, whose first
+     update turns the O2 parameters f32 as the JAX package's does (its later
+     steps on the tf32x3 route); BertConfig's defaults (dropout and attention
+     dropout 0.1) with a padded attention_mask and MLM labels at 15%: the
+     dense route, no flash launch, new masks per replay, f32 output; the f32
+     eval forward (12 tf32x3 launches) against the dense path; Adamax,
+     Adagrad, Adadelta, RMSProp, Lamb and Lars in captured steps of a
+     2-layer f32 BERT against eager copies; the three kernels at (8, 512,
+     12, 64) non-causal on BERT's qkv views, bf16 and f32, against their
+     plain versions and timed beside SDPA and their bounds;
   9. hold the three fused-update kernels (Adam, Momentum, SGD) against their
      plain versions bit for bit, at sizes from 1 element to GPT-2 345M's tied
      word embedding, with the sentinel gate off, clear and set, with and
@@ -130,6 +146,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the backward forced to SIMT, in turns;
  11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
      full width and 4 layers, 3 steps each;
+ 8b. (after 11) a ``torch.profiler`` trace of one replayed BERT step;
  12. one JSON line of per-kernel numbers, then the result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -144,6 +161,7 @@ it and the card is supported.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -2243,6 +2261,442 @@ OP_KINDS = [
 ]
 
 
+# Phase 7d: BERT-base pretraining, BASELINE.json config 3, as bench.py
+# bench_bert times it: BertConfig(max_seq_len=512, dropout=0, attn_dropout=0),
+# 8 x 512 tokens, MLM + NSP, AMP O2 bf16, AdamW(lr 1e-4) through
+# compile_train_step. Its attention takes the flash route, non-causal: the
+# first model path through the non-causal kernels.
+BERT_BATCH = 8
+BERT_CFG = dict(max_seq_len=512)  # BertConfig's defaults are BERT-base's widths
+BERT_SHAPE = (8, 512, 12, 64)  # the step's attention: batch, seq, heads, head dim
+BERT_REPLAYS = 10
+# the padded batch of the masked step: row lengths drawn in [128, 512], MLM
+# labels at 15% of the real tokens
+BERT_MIN_LEN = 128
+BERT_MLM_SHARE = 0.15
+# The six optimizers without a fused kernel, on a 2-layer f32 BERT at 4 x 128
+# tokens: eager copy against captured steps. Both run the same kernels on the
+# same data in the same order; the tolerance admits a library matmul picking
+# another algorithm inside the graph (f32, ~1e-7 relative on losses ~10 and
+# parameters ~1), and a wrong or host-read rule moves parameters by ~lr.
+BERT_OPT_CFG = dict(max_seq_len=128, num_layers=2, dropout=0.0, attn_dropout=0.0)
+BERT_OPT_BATCH = 4
+BERT_OPTIMIZERS = [  # (name, keyword arguments besides the parameters): each at an lr
+    # that moves the weights by ~1e-3 a step
+    ("Adamax", {"learning_rate": 1e-3}), ("Adagrad", {"learning_rate": 1e-2}),
+    ("Adadelta", {"learning_rate": 1.0}),
+    ("RMSProp", {"learning_rate": 1e-3, "momentum": 0.9, "centered": True}),
+    ("Lamb", {"learning_rate": 1e-3}),
+    ("Lars", {"learning_rate": 1.0, "lars_coeff": 0.01}),
+]
+TOL_OPT_REPLAY = 1e-5
+
+
+@contextlib.contextmanager
+def flash_launch_log(fa):
+    """Every flash kernel launch while active, as (kernel, route, causal):
+    the private launchers the wrappers call are wrapped for the duration."""
+    log, saved = [], {}
+    for attr, kernel in (("_fwd_cuda", "fwd"), ("_bwd_dkv_cuda", "dkv"),
+                         ("_bwd_dq_cuda", "dq")):
+        saved[attr] = fn = getattr(fa, attr)
+
+        def spy(*args, _fn=fn, _kernel=kernel):
+            log.append((_kernel, args[-1], bool(args[-2])))  # (..., causal, route)
+            return _fn(*args)
+
+        setattr(fa, attr, spy)
+    try:
+        yield log
+    finally:
+        for attr, fn in saved.items():
+            setattr(fa, attr, fn)
+
+
+def bert_batch(torch, cfg, batch, dev):
+    """bench.py bench_bert's batch: ids, and ``packed`` = MLM labels then the
+    NSP label per row, from numpy's generator seeded 0 (bench.py:173-179)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq_len))
+    packed = np.concatenate([rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq_len)),
+                             rng.integers(0, 2, (batch, 1))], axis=1)
+    return torch.as_tensor(ids).to(dev), torch.as_tensor(packed).to(dev)
+
+
+def bert_loss_fn(crit, masked=False):
+    """bench.py bench_bert's loss over f32 logits; ``masked``: the mean over
+    the positions whose label is not -100 (``mlm_mask``)."""
+
+    def loss_fn(out, packed):
+        mlm, nsp = out
+        labels = packed[:, :-1]
+        mask = (labels != -100).float() if masked else None
+        return crit(mlm.float(), nsp.float(), labels, packed[:, -1], mask)
+
+    return loss_fn
+
+
+def bert_step_launches(torch, fa, fn, n, route, what, kernels=tuple(FLASH_WRAPPERS)):
+    """Run ``fn``; check it launched each of ``kernels`` (the forward, dK/dV
+    and dQ) ``n`` times, all on ``route`` (none at all when ``route`` is
+    None) and none causal. Returns fn's result."""
+    before = flash_counts(fa)
+    with flash_launch_log(fa) as log:
+        out = fn()
+        torch.cuda.synchronize()
+    got = {k: c - before[k] for k, c in flash_counts(fa).items() if c != before[k]}
+    want = {} if route is None else {f"{k}_{route}": n for k in kernels}
+    causal = sum(c for _, _, c in log)
+    print(f"  {what}: flash launches {got}, {causal} causal")
+    check(got == want and causal == 0, f"{what}: flash launches {got} ({causal} causal), "
+                                       f"expected {want}, none causal")
+    return out
+
+
+def bert_train_step(torch, pt, fa, dev, opt_name, routes):
+    """Phase 7d, steps 1-2: bench_bert's step through compile_train_step with
+    ``opt_name``: two eager steps, the capture, BERT_REPLAYS timed replays,
+    against an eager copy stepped with ``loss.backward(); opt.step()``.
+    ``routes``: the flash route of the eager steps and the capture, in
+    order. Returns its numbers, and the step and batch for the trace."""
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              BertPretrainingCriterion)
+
+    cfg = BertConfig(**BERT_CFG, dropout=0.0, attn_dropout=0.0)
+    print(f"[7d] BERT-base pretraining step (bench.py bench_bert), {BERT_BATCH} x "
+          f"{cfg.max_seq_len} tokens, MLM + NSP, AMP O2 bf16, {opt_name}(lr 1e-4), one CUDA "
+          f"graph")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    pt.seed(SEED)
+    model = BertForPretraining(cfg, device=dev)
+    eager = copy.deepcopy(model)  # before decorate: the wrapped forward is per model
+    model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    eager = pt.amp.decorate(eager, level="O2", dtype="bfloat16")
+    loss_fn = bert_loss_fn(BertPretrainingCriterion())
+    make = getattr(pt.optimizer, opt_name)
+    opt = make(learning_rate=1e-4, parameters=model.parameters())
+    opt_e = make(learning_rate=1e-4, parameters=eager.parameters())
+    step = pt.jit.compile_train_step(model, loss_fn, opt)
+    ids, packed = bert_batch(torch, cfg, BERT_BATCH, dev)
+    n = cfg.num_layers
+    losses = []
+    for i, route in enumerate(routes):
+        what = ("capture + first replay" if i == pt.jit.WARMUP_STEPS
+                else f"eager warm-up step {i}") + f" ({next(model.parameters()).dtype})"
+        t0 = time.perf_counter()
+        losses.append(bert_step_launches(torch, fa, lambda: step(ids, packed), n, route, what))
+        print(f"    {time.perf_counter() - t0:.2f} s")
+    (entry,) = step._captured.values()
+    check(entry.graph is not None, "the BERT step was not captured")
+    before = flash_counts(fa)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(BERT_REPLAYS):
+        losses.append(step(ids, packed))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / BERT_REPLAYS
+    step_ms = start.elapsed_time(end) / BERT_REPLAYS
+    check(flash_counts(fa) == before, "the replays did not run the captured graph")
+    tokens = BERT_BATCH * cfg.max_seq_len
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 - held_gb
+    print(f"  {BERT_REPLAYS} replays: step {step_ms:.3f} ms (CUDA events), {host_ms:.3f} ms "
+          f"(host clock); bert_base_pretrain_tokens_per_sec_per_chip "
+          f"{tokens / step_ms * 1e3:.1f}; peak memory allocated {peak_gb:.2f} GB above the "
+          f"{held_gb:.2f} GB held before")
+    values = [float(v) for v in losses]
+    print("  losses: " + " ".join(f"{v:.4f}" for v in values))
+    check(all(math.isfinite(v) for v in values), "non-finite BERT loss")
+    check(values[-1] < values[0], "the BERT loss does not fall on a fixed batch")
+    def eager_step():
+        loss = loss_fn(eager(ids), packed)
+        loss.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        return loss.detach()
+
+    # the eager copy's first steps on the compiled step's routes, then the rest
+    eager_values = [bert_step_launches(torch, fa, eager_step, n, route, f"eager copy, step {i}")
+                    for i, route in enumerate(routes)]
+    eager_values += [eager_step() for _ in range(len(values) - len(routes))]
+    eager_values = [float(v) for v in eager_values]
+    diff = max(abs(a - c) for a, c in zip(values, eager_values))
+    print(f"  eager copy (loss.backward(); opt.step(); opt.clear_grad()) vs graph: "
+          f"max|d loss|={diff:.3e} over {len(values)} steps, bitwise equal: "
+          f"{values == eager_values}, tol={TOL_EAGER_VS_GRAPH:g}")
+    check(diff <= TOL_EAGER_VS_GRAPH, f"BERT {opt_name}: the eager copy and the replays "
+                                      f"disagree")
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    print(f"  parameter dtypes after the steps: {dtypes}")
+    del eager, opt_e
+    return {"step_ms": step_ms, "host_ms": host_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_gb": peak_gb, "losses": values, "dtypes": dtypes,
+            "trace": (step, (ids, packed), n)}
+
+
+def bert_masked_step(torch, pt, fa, dev, unmasked_ms):
+    """Phase 7d, step 3: the step as Paddle users configure BERT: BertConfig's
+    dropout 0.1 and attention dropout 0.1, a padded attention_mask, MLM labels
+    at 15% of the real tokens with ``mlm_mask``, token types. The dense
+    attention route (a mask and attention dropout): no flash launch. Returns
+    its numbers."""
+    import numpy as np
+
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              BertPretrainingCriterion)
+
+    cfg = BertConfig(**BERT_CFG)
+    print(f"[7d] BERT-base step as configured by default: dropout {cfg.dropout}, attention "
+          f"dropout {cfg.attn_dropout}, padded attention_mask (rows of {BERT_MIN_LEN}-"
+          f"{cfg.max_seq_len} tokens), MLM labels at {BERT_MLM_SHARE:.0%} with mlm_mask, O2 "
+          f"bf16, AdamW")
+    rng = np.random.default_rng(1)
+    b, s = BERT_BATCH, cfg.max_seq_len
+    lengths = rng.integers(BERT_MIN_LEN, s + 1, b)
+    pos = np.arange(s)[None, :]
+    mask = (pos < lengths[:, None]).astype(np.int64)
+    types = ((pos >= lengths[:, None] // 2) & (mask == 1)).astype(np.int64)  # sentence B
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    chosen = (rng.random((b, s)) < BERT_MLM_SHARE) & (mask == 1)
+    labels = np.full((b, s), -100)
+    labels[chosen] = rng.integers(0, cfg.vocab_size, int(chosen.sum()))
+    packed = np.concatenate([labels, rng.integers(0, 2, (b, 1))], axis=1)
+    batch = [torch.as_tensor(a).to(dev) for a in (ids, types, mask, packed)]
+    pt.seed(SEED)
+    model = pt.amp.decorate(BertForPretraining(cfg, device=dev), level="O2", dtype="bfloat16")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = pt.jit.compile_train_step(model, bert_loss_fn(BertPretrainingCriterion(), True), opt)
+    losses = []
+    for i in range(pt.jit.WARMUP_STEPS + 1):
+        what = "capture + first replay" if i == pt.jit.WARMUP_STEPS else f"eager step {i}"
+        losses.append(bert_step_launches(torch, fa, lambda: step(*batch), 0, None, what))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(BERT_REPLAYS):
+        losses.append(step(*batch))
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / BERT_REPLAYS
+    values = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in values), "non-finite masked BERT loss")
+    with torch.no_grad():
+        mlm, nsp = model(*batch[:3])
+    print(f"  {BERT_REPLAYS} replays: step {step_ms:.3f} ms (CUDA events), "
+          f"{b * s / step_ms * 1e3:.1f} tokens/s ({int(mask.sum())} of {b * s} positions real, "
+          f"{int(chosen.sum())} MLM labels); {step_ms / unmasked_ms:.2f}x the unmasked "
+          f"dropout-0 step's {unmasked_ms:.3f} ms; output dtypes {mlm.dtype}, {nsp.dtype}")
+    print("  losses: " + " ".join(f"{v:.4f}" for v in values))
+    check(mlm.dtype == nsp.dtype == torch.float32,
+          "the masked O2 forward's output is not f32, as the JAX model's is")
+    opt.set_lr(0.0)  # the parameters stay, so only the dropout masks move the loss
+    a, c = float(step(*batch)), float(step(*batch))
+    print(f"  two replays at lr 0: {a:.6f} {c:.6f}")
+    check(a != c, "two masked BERT replays drew the same dropout masks")
+    del step, model, opt, mlm, nsp
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "losses": values}
+
+
+def bert_eval_forward(torch, pt, fa, dev):
+    """Phase 7d, step 4: the f32 eval forward of BertForPretraining, unmasked:
+    the tf32x3 forward once per layer, against the dense path."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
+
+    cfg = BertConfig(**BERT_CFG)
+    print(f"[7d] BERT-base f32 eval forward, {BERT_BATCH} x {cfg.max_seq_len} tokens")
+    pt.seed(SEED)
+    model = BertForPretraining(cfg, device=dev).eval()
+    ids, _ = bert_batch(torch, cfg, BERT_BATCH, dev)
+    with torch.no_grad():
+        mlm, nsp = bert_step_launches(torch, fa, lambda: model(ids), cfg.num_layers, "tf32x3",
+                                      "one f32 forward", kernels=("fwd",))
+        fwd_ms = time_ms(lambda: model(ids), reps=5, warmup=1)
+        pt.set_flags({"FLAGS_use_flash_attention": False})
+        try:
+            d_mlm, d_nsp = bert_step_launches(torch, fa, lambda: model(ids), 0, None,
+                                              "the dense path")
+        finally:
+            pt.set_flags({"FLAGS_use_flash_attention": True})
+    err = max((mlm - d_mlm).abs().max().item(), (nsp - d_nsp).abs().max().item())
+    print(f"  {fwd_ms:.3f} ms, {BERT_BATCH * cfg.max_seq_len / fwd_ms * 1e3:.1f} tokens/s; "
+          f"flash vs dense logits: max|d|={err:.3e} tol={TOL_LOGITS:g} "
+          f"(max|logit|={mlm.abs().max().item():.3f})")
+    check(err <= TOL_LOGITS, "BERT's flash and dense logits disagree")
+    del model, mlm, nsp, d_mlm, d_nsp
+    return {"fwd_ms": fwd_ms, "err": err}
+
+
+def bert_new_optimizers(torch, pt, fa, dev):
+    """Phase 7d, step 5: each optimizer without a fused kernel through
+    compile_train_step (two eager steps, the capture, two replays) on a
+    2-layer f32 BERT, against an eager copy stepped beside it."""
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              BertPretrainingCriterion)
+
+    cfg = BertConfig(**BERT_OPT_CFG)
+    print(f"[7d] the six optimizers without a fused kernel in a captured step: "
+          f"{cfg.num_layers}-layer f32 BERT-base, {BERT_OPT_BATCH} x {cfg.max_seq_len} tokens")
+    ids, packed = bert_batch(torch, cfg, BERT_OPT_BATCH, dev)
+    # token types, so that every parameter has a gradient: the compiled step
+    # updates an unused one from a zero gradient (as jax.grad gives it), the
+    # eager step() skips it, and decay moves it
+    types = (torch.arange(cfg.max_seq_len, device=dev) >= cfg.max_seq_len // 2).long()
+    types = types.expand(BERT_OPT_BATCH, -1)
+    loss_fn = bert_loss_fn(BertPretrainingCriterion())
+    out = {}
+    for name, kw in BERT_OPTIMIZERS:
+        pt.seed(SEED)
+        model = BertForPretraining(cfg, device=dev)
+        eager = copy.deepcopy(model)
+        initial = [p.detach().clone() for p in model.parameters()]
+        make = getattr(pt.optimizer, name)
+        opt = make(parameters=model.parameters(), **kw)
+        opt_e = make(parameters=eager.parameters(), **kw)
+        step = pt.jit.compile_train_step(model, loss_fn, opt)
+        d_loss = 0.0
+        for _ in range(pt.jit.WARMUP_STEPS + 3):
+            loss = step(ids, types, packed)
+            ref = loss_fn(eager(ids, types), packed)
+            ref.backward()
+            opt_e.step()
+            opt_e.clear_grad()
+            d_loss = max(d_loss, abs(loss.item() - ref.item()))
+        (entry,) = step._captured.values()
+        check(entry.graph is not None, f"{name}: the step was not captured")
+        d_param = max((p - q).abs().max().item()
+                      for p, q in zip(model.parameters(), eager.parameters()))
+        moved = max((p - q).abs().max().item()
+                    for p, q in zip(model.parameters(), initial))
+        out[name] = (d_loss, d_param)
+        print(f"  {name}: eager vs captured over {pt.jit.WARMUP_STEPS + 3} steps: "
+              f"max|d loss|={d_loss:.3e}, max|d param|={d_param:.3e} tol={TOL_OPT_REPLAY:g} "
+              f"(the steps moved a parameter by up to {moved:.3e}); last loss "
+              f"{loss.item():.4f}")
+        check(d_loss <= TOL_OPT_REPLAY and d_param <= TOL_OPT_REPLAY,
+              f"{name}: the captured steps and the eager copy disagree")
+        check(moved > TOL_OPT_REPLAY, f"{name}: the steps left the parameters where they were")
+        del step, model, eager, opt, opt_e, entry
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_noncausal_kernels(torch, fa, gen, dev):
+    """Phase 7d, step 6: the three flash kernels at BERT_SHAPE, non-causal,
+    in bf16 on BERT's projection-major qkv views (sm90) and in f32 (tf32x3):
+    each against its plain version, a second launch bitwise equal, and the
+    kernel, plain and SDPA times beside the bound. Returns {dtype: {kernel:
+    numbers}}."""
+    b, s, h, d = BERT_SHAPE
+    print(f"[7d] the flash kernels at BERT's shape {BERT_SHAPE}, non-causal, on [b, s, 3, h, d] "
+          f"qkv views")
+    out = {}
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "tf32x3")):
+        dname = dtype_name(dtype)
+        qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.unbind(dim=2)
+        do = torch.randn(BERT_SHAPE, generator=gen, device=dev).to(dtype)
+        check(route_of(fa, (q, k, v)) == route_of(fa, (q, k, v, do)) == route,
+              f"BERT's {dname} views do not take the {route} route")
+        scale = d ** -0.5
+        with flash_launch_log(fa) as log:
+            o, lse = fa.flash_attention_fwd(q, k, v, scale, False)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, scale, False)
+            delta = fa.bwd_delta(o, do)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
+            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
+            dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
+        check(len(log) == 6 and all(r == route and not c for _, r, c in log),
+              f"BERT's kernels at {dname} launched {log}")
+        o_p, lse_p = fa.fwd_plain(q, k, v, scale, False)
+        ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, False)
+        torch.cuda.synchronize()
+        err_fwd = max((o.float() - o_p.float()).abs().max().item(),
+                      (lse - lse_p).abs().max().item())
+        err_dq = (dq.float() - ref[0].float()).abs().max().item()
+        err_dkv = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip((dk, dv), ref[1:]))
+        bitwise = (torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(dk, dk2)
+                   and torch.equal(dv, dv2) and torch.equal(dq, dq2))
+        print(f"  {dname} ({route}): max|d O, lse|={err_fwd:.3e} tol={TOL[dname]:g}; "
+              f"max|d dK, dV|={err_dkv:.3e} max|d dQ|={err_dq:.3e} tol={GRAD_TOL[dname]:g}; "
+              f"second launches bitwise equal: {bitwise}")
+        check(err_fwd <= TOL[dname] and max(err_dkv, err_dq) <= GRAD_TOL[dname],
+              f"BERT's {dname} kernels disagree with their plain versions")
+        check(bitwise, f"BERT's {dname} kernels are not bitwise equal on a second launch")
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+        o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        do_t = do.transpose(1, 2)
+        fwd = dict(max_abs_err=err_fwd, route=route,
+                   ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, False)),
+                   plain_ms=time_ms(lambda: fa.fwd_plain(q, k, v, scale, False), reps=10),
+                   library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, scale=scale)))
+        fwd.update(attention_bound_ms(b, s, h, d, dname, False))
+        plain_bwd = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, False), reps=10)
+        library_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                                          retain_graph=True))
+        dkv = dict(max_abs_err=err_dkv, route=route, plain_ms=plain_bwd, library_ms=library_bwd,
+                   ms=time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                                                 False)))
+        dkv.update(bwd_bound_ms("dkv", b, s, h, d, dname, False))
+        dq_t = dict(max_abs_err=err_dq, route=route, plain_ms=plain_bwd, library_ms=None,
+                    ms=time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                                                 False)))
+        dq_t.update(bwd_bound_ms("dq", b, s, h, d, dname, False))
+        pair_ms = time_ms(lambda: (fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                                              False),
+                                   fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                                             False)))
+        for name, t in (("fwd", fwd), ("dkv", dkv), ("dq", dq_t)):
+            print(f"  {dname} {name}: kernel_ms={t['ms']:.4f} ({route}) plain_ms="
+                  f"{t['plain_ms']:.4f} {bound_text(t)}; kernel at "
+                  f"{t['bound_ms'] / t['ms']:.1%} of bound")
+            check_share(f"BERT {name} {dname}", t["bound_ms"], t["ms"])
+        print(f"  {dname}: SDPA forward (is_causal=False) {fwd['library_ms']:.4f} ms, "
+              f"{route} / SDPA {fwd['ms'] / fwd['library_ms']:.2f}x; the {route} pair dK/dV + "
+              f"dQ {pair_ms:.4f} ms against SDPA's backward (all three gradients) "
+              f"{library_bwd:.4f} ms, {pair_ms / library_bwd:.2f}x")
+        out[dname] = {"fwd": fwd, "dkv": dkv, "dq": dq_t, "pair_ms": pair_ms}
+        del qt, kt, vt, o_lib
+    return out
+
+
+def bert_pretraining(torch, pt, fa, gen, dev):
+    """Phase 7d: BERT-base pretraining. Returns its numbers, the flash
+    launches of its path (the steps, the eval forward and the optimizers'
+    steps; the kernels' comparisons after it count none), and the AdamW step
+    for a trace."""
+    reset_flash_counts(fa)  # the BERT path's count starts here
+    warm = pt.jit.WARMUP_STEPS
+    adamw = bert_train_step(torch, pt, fa, dev, "AdamW", ["sm90"] * (warm + 1))
+    # JAX's Lamb under O2: the f32 bias corrections turn the parameters f32 at
+    # the first update, so the later steps run in f32, on the tf32x3 route
+    lamb = bert_train_step(torch, pt, fa, dev, "Lamb", ["sm90"] + ["tf32x3"] * warm)
+    lamb.pop("trace")
+    print(f"  Lamb's step {lamb['step_ms']:.3f} ms (f32 from the second step, as the JAX "
+          f"package's) beside AdamW's {adamw['step_ms']:.3f} ms (bf16)")
+    check(lamb["dtypes"] == ["torch.float32"], "Lamb's O2 parameters did not turn f32 as the "
+                                               "JAX package's do")
+    torch.cuda.empty_cache()
+    masked = bert_masked_step(torch, pt, fa, dev, adamw["step_ms"])
+    evalf = bert_eval_forward(torch, pt, fa, dev)
+    optimizers = bert_new_optimizers(torch, pt, fa, dev)
+    launches = flash_counts(fa)  # ... and ends here
+    print(f"  flash launches over the BERT path: {launches}")
+    kernels = bert_noncausal_kernels(torch, fa, gen, dev)
+    return {"adamw": adamw, "lamb": lamb, "masked": masked, "eval": evalf,
+            "optimizers": optimizers, "launches": launches, "kernels": kernels,
+            "trace": adamw.pop("trace")}
+
+
 def device_trace(torch, fn):
     """Run ``fn`` once under torch.profiler. Returns the device operations'
     count, their window and busy time in µs, the host-clock ms, and
@@ -2296,10 +2750,11 @@ def print_trace(label, n_ops, window, busy, wall_ms, by_name):
     return groups
 
 
-def profile_replay(torch, step, x, y, n_layers):
-    """Phase 8: a torch.profiler trace of one replayed step."""
-    print("[8] torch.profiler trace of one replayed step")
-    n_ops, window, busy, wall_ms, by_name = device_trace(torch, lambda: step(x, y))
+def profile_replay(torch, step, batch, n_layers, title="[8] torch.profiler trace of one "
+                                                      "replayed step"):
+    """Phase 8 (and 8b, BERT's): a torch.profiler trace of one replayed step."""
+    print(title)
+    n_ops, window, busy, wall_ms, by_name = device_trace(torch, lambda: step(*batch))
     print_trace("", n_ops, window, busy, wall_ms, by_name)
     # the bf16 step runs the sm90 forward, dK/dV and dQ kernels, each once per
     # layer, and no SIMT or tf32x3 flash kernel
@@ -2981,11 +3436,15 @@ def main() -> int:
     recompute = recompute_step_345m(torch, pt, fa, gen, dev, train)
     o1 = o1_fp16_scaler_345m(torch, pt, fa, fu, gen, dev)
     grad_input_step(torch, pt, fa, gen, dev)
-    profile_replay(torch, *train.pop("profile"))
+    step, x, y, n_layers = train.pop("profile")
+    profile_replay(torch, step, (x, y), n_layers)
+    del step, x, y
     torch.cuda.empty_cache()
     # 7c. checkpoint and resume, in processes of its own (after phase 8: the
     # phase 7 step is freed)
     resume = checkpoint_resume_345m(torch, card)
+    # 7d. BERT-base pretraining: the non-causal flash kernels on a model's path
+    bert = bert_pretraining(torch, pt, fa, gen, dev)
     update = check_update_kernels(torch, fu, gen, dev)
     reset_flash_counts(fa)  # the f32 training path's flash count starts here
     launches_f32, f32_step = train_f32_adam(torch, pt, fa, fu, gen, dev)
@@ -3000,6 +3459,11 @@ def main() -> int:
           f"{f32_train['dq_tf32x3'] / f32_step['steps']:g} dQ tf32x3 launches per step")
     check(f32_train == want, f"f32 training flash launches {f32_train}, expected {want}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
+    # 8b. a trace of one replayed BERT step, after every host-clock window
+    step, batch, n_layers = bert.pop("trace")
+    profile_replay(torch, step, batch, n_layers,
+                   "[8b] torch.profiler trace of one replayed BERT-base step (phase 7d, AdamW)")
+    del step, batch
 
     # 12. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
@@ -3035,6 +3499,22 @@ def main() -> int:
     print(f"    launches per path: the recompute step (7b-i, 2 eager steps and the capture) "
           f"{recompute['launches']}; the O1 loop (7b-ii, both runs) {o1['launches']}, Adam "
           f"{o1['adam']}")
+    bk16, bk32 = bert["kernels"]["bfloat16"], bert["kernels"]["float32"]
+    print(f"    BERT-base at {BERT_SHAPE} non-causal, projection-major qkv views: bf16 forward "
+          f"sm90 {bk16['fwd']['ms']:.4f} SDPA {bk16['fwd']['library_ms']:.4f} (bound "
+          f"{bk16['fwd']['bound_ms']:.4f}); dK/dV sm90 {bk16['dkv']['ms']:.4f} (bound "
+          f"{bk16['dkv']['bound_ms']:.4f}), dQ sm90 {bk16['dq']['ms']:.4f} (bound "
+          f"{bk16['dq']['bound_ms']:.4f}), the pair {bk16['pair_ms']:.4f} against SDPA's "
+          f"backward {bk16['dkv']['library_ms']:.4f}; f32 forward tf32x3 "
+          f"{bk32['fwd']['ms']:.4f} SDPA {bk32['fwd']['library_ms']:.4f} (bound "
+          f"{bk32['fwd']['bound_ms']:.4f}); dK/dV tf32x3 {bk32['dkv']['ms']:.4f}, dQ "
+          f"{bk32['dq']['ms']:.4f}, the pair {bk32['pair_ms']:.4f} against SDPA's "
+          f"{bk32['dkv']['library_ms']:.4f}")
+    print(f"    BERT-base steps, ms per replay: AdamW bf16 {bert['adamw']['step_ms']:.3f} "
+          f"({bert['adamw']['tokens_per_s']:.1f} tokens/s), Lamb (f32 after its first update) "
+          f"{bert['lamb']['step_ms']:.3f}, masked with dropout 0.1 (dense attention, f32 after "
+          f"the first layer) {bert['masked']['step_ms']:.3f}; f32 eval forward "
+          f"{bert['eval']['fwd_ms']:.3f}")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -3080,6 +3560,24 @@ def main() -> int:
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
             simt_path["dq_simt"], bwd32["dq_simt"]),
     ]
+    # the non-causal kernels at BERT's shape, launched on the BERT path: bf16
+    # (the bf16 steps) on sm90, f32 (Lamb's later steps, the eval forward, the
+    # six optimizers' steps) on tf32x3
+    bl = bert["launches"]
+    for dname, route, suffix in (("bfloat16", "sm90", ""), ("float32", "tf32x3", "_tf32")):
+        k = bert["kernels"][dname]
+        source = {"sm90": ("flash_attention_fwd_sm90.cu", "flash_attention_bwd_dkv_sm90.cu",
+                           "flash_attention_bwd_dq_sm90.cu"),
+                  "tf32x3": ("flash_attention_fwd_tf32.cu", "flash_attention_bwd_tf32.cu",
+                             "flash_attention_bwd_tf32.cu")}[route]
+        rows += [
+            row(f"flash_attention_fwd{suffix}_noncausal_bert", source[0], 69,
+                bl[f"fwd_{route}"], k["fwd"]),
+            row(f"flash_attention_bwd_dkv{suffix}_noncausal_bert", source[1], 151,
+                bl[f"dkv_{route}"], k["dkv"]),
+            row(f"flash_attention_bwd_dq{suffix}_noncausal_bert", source[2], 197,
+                bl[f"dq_{route}"], k["dq"]),
+        ]
     for r in rows:
         check(r["launches"] > 0, f"the {r['name']} kernel was launched no time on its path")
     for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):

@@ -1,3 +1,11 @@
+from .bert import (  # noqa: F401
+    BertConfig,
+    BertEmbeddings,
+    BertEncoderLayer,
+    BertForPretraining,
+    BertModel,
+    BertPretrainingCriterion,
+)
 from .gpt import (  # noqa: F401
     GPTConfig,
     GPTForPretraining,

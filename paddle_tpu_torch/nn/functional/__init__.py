@@ -1,5 +1,5 @@
-"""``paddle.nn.functional`` for the port: the functions the GPT path calls,
-in inference and in training (``cross_entropy``).
+"""``paddle.nn.functional`` for the port: the functions the GPT and BERT
+paths call, in inference and in training (``cross_entropy``).
 
 ``scaled_dot_product_attention`` picks the lowering as
 ``paddle_tpu/nn/functional/__init__.py:677`` does: the flash path when
@@ -11,6 +11,8 @@ Under ``amp.auto_cast`` O1, each function casts its inputs by the O1 lists
 under the op name the JAX function gives ``apply`` (``amp.maybe_cast_inputs``).
 """
 from __future__ import annotations
+
+import torch
 
 from ... import amp as _amp
 from ...core import flags as _flags
@@ -33,6 +35,10 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=
 
 def gelu(x, approximate=False, name=None):
     return _nn.gelu(x, approximate=approximate)
+
+
+def tanh(x, name=None):
+    return torch.tanh(x)
 
 
 def softmax(x, axis=-1, dtype=None, name=None):

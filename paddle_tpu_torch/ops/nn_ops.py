@@ -1,12 +1,16 @@
 """Neural-network ops on torch tensors: the subset of ``paddle_tpu/ops/nn_ops.py``
-that the GPT inference and training paths run.
+that the GPT and BERT inference and training paths run.
 
 Each function keeps the JAX function's layout (weights ``[in, out]``,
 attention over ``[batch, seq, heads, head_dim]``) and its operation order,
-so the two packages compute the same thing step by step.
+so the two packages compute the same thing step by step. Where a JAX op
+promotes operands of two float types (``linear``'s product, dense
+attention's P·V), the port casts them to the common type first
+(``promoted``): ``torch.matmul`` and ``torch.einsum`` refuse mixed types.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -14,8 +18,16 @@ import torch
 from .kernels import flash_attention as _flash
 
 
+def promoted(*tensors):
+    """``tensors`` cast to their common type, as jnp promotes the operands of
+    a product (bf16 with f32 gives f32); as they are when their types agree."""
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in tensors))
+    return [t if t.dtype == dtype else t.to(dtype) for t in tensors]
+
+
 def linear(x, weight, bias=None):
     """y = x @ W (+ b) with the Paddle weight layout ``[in, out]``."""
+    x, weight = promoted(x, weight)
     out = torch.matmul(x, weight)
     if bias is not None:
         out = out + bias
@@ -72,7 +84,8 @@ def scaled_dot_product_attention(
 ):
     """Dense attention over ``[batch, seq, heads, head_dim]``.
 
-    The causal mask fills with ``finfo(dtype).min`` over ``tril(k=kl-ql)``.
+    The causal mask fills with ``finfo(dtype).min`` over ``tril(k=kl-ql)``;
+    an additive ``mask`` broadcasts over the ``[b, h, q, k]`` logits.
     Dropout applies to the probabilities when a generator is given."""
     d = q.shape[-1]
     s = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -87,7 +100,9 @@ def scaled_dot_product_attention(
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0 and dropout_generator is not None:
         probs = dropout(probs, dropout_generator, p=dropout_p)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
+    # a mask of another type than the logits (BERT's f32 mask under O2)
+    # promotes them; jnp's einsum then promotes V
+    out = torch.einsum("bhqk,bhkd->bhqd", *promoted(probs, vf))
     return out.transpose(1, 2)
 
 

@@ -1,6 +1,20 @@
-"""``paddle.optimizer`` for the port: SGD, Momentum, Adam and AdamW over
-torch parameters, and the ``lr`` schedulers."""
+"""``paddle.optimizer`` for the port: SGD, Momentum, Adam, AdamW, Adamax,
+Adagrad, Adadelta, RMSProp, Lamb and Lars over torch parameters, and the
+``lr`` schedulers."""
 from . import lr  # noqa: F401
-from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD,
+    Adadelta,
+    Adagrad,
+    Adam,
+    Adamax,
+    AdamW,
+    Lamb,
+    Lars,
+    Momentum,
+    Optimizer,
+    RMSProp,
+)
 
-__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD", "lr"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "Adamax", "AdamW", "Lamb", "Lars", "Momentum",
+           "Optimizer", "RMSProp", "SGD", "lr"]

@@ -1,5 +1,5 @@
-"""Optimizer base, SGD, Momentum, Adam and AdamW: the port of
-``paddle_tpu/optimizer/optimizer.py``.
+"""Optimizer base, SGD, Momentum, Adam, AdamW, Adamax, Adagrad, Adadelta,
+RMSProp, Lamb and Lars: the port of ``paddle_tpu/optimizer/optimizer.py``.
 
 Every optimizer defines a per-parameter update rule
 ``_update(p, g, lr, state, **hyper) -> (new_p, new_state)`` over tensors,
@@ -25,9 +25,11 @@ launches under ``resilience.runtime.execute("optimizer", ...)``, a
 with ``on_step_end()`` whatever happened.
 State is one dict of tensors per parameter, on the parameter's device, in
 ``_accumulators`` keyed by ``id(param)``. ``lr`` reaches the rule as a 0-d
-float32 tensor on that device. Not ported yet (ROADMAP, open items, queue 1
-items 6, 9, 11 and 12): the other optimizers, the lazy whole-step capture
-and offload hooks of ``step()``, and the fused telemetry output.
+float32 tensor on that device. Only SGD, Momentum and Adam have fused
+kernels (``fused_update.rule_kind``); every other rule runs its torch ops on
+both appliers, as in the JAX package. Not ported yet (ROADMAP, open items,
+queue 1 items 9 and 12): the lazy whole-step capture and offload hooks of
+``step()``, and the fused telemetry output.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 
 from .. import profiler
 from ..ops.kernels import fused_update as _fu
+from ..ops.nn_ops import promoted
 from ..resilience import faults as _faults
 from ..resilience import rescue as _rescue
 from ..resilience import runtime as _rrt
@@ -52,14 +55,37 @@ def param_name(p):
 def _rule_update(opt, p, g, lr, st, hyper, bad=None):
     """``opt``'s rule over one parameter, written in place into p and its
     state; with a sentinel ``bad``, where-gated so that a set one keeps
-    every old value."""
+    every old value.
+
+    A result whose dtype is not its tensor's replaces the tensor's storage
+    instead (``p.data``, the state dict's entry), as the JAX step rebinds
+    every result: Lamb's update of a bf16 parameter is f32 there (bf16
+    moments over f32 beta pows promote), so under AMP O2 the parameters and
+    then the moments turn f32 after the first steps. Never inside a CUDA
+    graph capture, whose replays would go on reading the old storage."""
     new_p, new_st = type(opt)._update(opt, p, g, lr, st, **hyper)
     if bad is not None:
         new_p = torch.where(bad, p, new_p)
         new_st = {k: torch.where(bad, st[k], v) for k, v in new_st.items()}
-    p.copy_(new_p)
+    if new_p.dtype == p.dtype:
+        p.copy_(new_p)
+    else:
+        _check_not_capturing(p, new_p.dtype)
+        p.data = new_p
     for key, value in new_st.items():
-        st[key].copy_(value)
+        if value.dtype == st[key].dtype:
+            st[key].copy_(value)
+        else:
+            _check_not_capturing(p, value.dtype)
+            st[key] = value
+
+
+def _check_not_capturing(p, dtype):
+    if p.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"an optimizer update turns a {p.dtype} parameter's state into {dtype} inside a "
+            "CUDA graph capture; run the steps that change dtypes eagerly first"
+        )
 
 
 @torch.no_grad()
@@ -400,3 +426,212 @@ class AdamW(Adam):
         ):
             return {"wd": 0.0}
         return {}
+
+
+class Adamax(Optimizer):
+    """Adam over the infinity norm: ``u = max(b2·u, |g|)``, bias-corrected
+    first moment, L2 decay folded into g."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _hyper(self):
+        return {"b1": self._beta1, "b2": self._beta2, "eps": self._epsilon}
+
+    def _create_state(self, p):
+        return {
+            "moment": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "inf_norm": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "beta1_pow": torch.ones((), dtype=torch.float32, device=p.device),
+        }
+
+    def _update(self, p, g, lr, state, *, b1, b2, eps):
+        g = self._apply_weight_decay_l2(g, p)
+        m = b1 * state["moment"] + (1 - b1) * g
+        u = torch.maximum(b2 * state["inf_norm"], torch.abs(g))
+        b1p = state["beta1_pow"] * b1
+        new_p = p - (lr / (1 - b1p)).to(p.dtype) * m / (u + eps)
+        return new_p, {"moment": m, "inf_norm": u, "beta1_pow": b1p}
+
+
+class Adagrad(Optimizer):
+    """Per-element lr over the root of the summed squared gradients."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, initial_accumulator_value=0.0,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _hyper(self):
+        return {"eps": self._epsilon}
+
+    def _create_state(self, p):
+        return {"moment": torch.full_like(p, self._init_acc,
+                                          memory_format=torch.contiguous_format)}
+
+    def _update(self, p, g, lr, state, *, eps):
+        g = self._apply_weight_decay_l2(g, p)
+        acc = state["moment"] + torch.square(g)
+        return p - lr.to(p.dtype) * g / (torch.sqrt(acc) + eps), {"moment": acc}
+
+
+class Adadelta(Optimizer):
+    """Step scaled by the ratio of running RMS of updates and of gradients."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _hyper(self):
+        return {"eps": self._epsilon, "rho": self._rho}
+
+    def _create_state(self, p):
+        return {
+            "avg_squared_grad": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "avg_squared_update": torch.zeros_like(p, memory_format=torch.contiguous_format),
+        }
+
+    def _update(self, p, g, lr, state, *, eps, rho):
+        g = self._apply_weight_decay_l2(g, p)
+        asg = rho * state["avg_squared_grad"] + (1 - rho) * torch.square(g)
+        update = (
+            torch.sqrt(state["avg_squared_update"] + eps) / torch.sqrt(asg + eps) * g
+        )
+        asu = rho * state["avg_squared_update"] + (1 - rho) * torch.square(update)
+        return p - lr.to(p.dtype) * update, {
+            "avg_squared_grad": asg, "avg_squared_update": asu,
+        }
+
+
+class RMSProp(Optimizer):
+    """Step over the root of the running mean square (centered: minus the
+    running mean's square), with momentum."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _hyper(self):
+        return {"rho": self._rho, "eps": self._epsilon,
+                "mu": self._momentum, "centered": self._centered}
+
+    def _create_state(self, p):
+        return {
+            "mean_square": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "mean_grad": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "momentum": torch.zeros_like(p, memory_format=torch.contiguous_format),
+        }
+
+    def _update(self, p, g, lr, state, *, rho, eps, mu, centered):
+        g = self._apply_weight_decay_l2(g, p)
+        ms = rho * state["mean_square"] + (1 - rho) * torch.square(g)
+        if centered:
+            mg = rho * state["mean_grad"] + (1 - rho) * g
+            denom = torch.sqrt(ms - torch.square(mg) + eps)
+        else:
+            mg = state["mean_grad"]
+            denom = torch.sqrt(ms + eps)
+        mom = mu * state["momentum"] + lr.to(p.dtype) * g / denom
+        return p - mom, {"mean_square": ms, "mean_grad": mg, "momentum": mom}
+
+
+class Lamb(Optimizer):
+    """Adam's bias-corrected step plus decoupled decay, scaled per parameter
+    by the trust ratio ||w|| / ||r|| (1 where either norm is 0).
+
+    ``exclude_from_weight_decay_fn`` is accepted and, as in the JAX package,
+    never read: every parameter decays. The bias corrections promote as jnp
+    does: under AMP O2 a bf16 moment over an f32 beta pow gives f32, so the
+    first update turns the parameters f32 and the second the moments, as in
+    the JAX package (``_rule_update``)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
+                 beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._wd = lamb_weight_decay
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _hyper(self):
+        return {"b1": self._beta1, "b2": self._beta2, "eps": self._epsilon,
+                "wd": self._wd}
+
+    def _create_state(self, p):
+        return {
+            "moment1": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "moment2": torch.zeros_like(p, memory_format=torch.contiguous_format),
+            "beta1_pow": torch.ones((), dtype=torch.float32, device=p.device),
+            "beta2_pow": torch.ones((), dtype=torch.float32, device=p.device),
+        }
+
+    def _update(self, p, g, lr, state, *, b1, b2, eps, wd):
+        m = b1 * state["moment1"] + (1 - b1) * g
+        v = b2 * state["moment2"] + (1 - b2) * torch.square(g)
+        b1p = state["beta1_pow"] * b1
+        b2p = state["beta2_pow"] * b2
+        # jnp divides a bf16 moment by an f32 beta pow in f32; torch would
+        # keep a 0-d divisor's type out of the result
+        m_hat = torch.div(*promoted(m, 1 - b1p))
+        v_hat = torch.div(*promoted(v, 1 - b2p))
+        r = m_hat / (torch.sqrt(v_hat) + eps) + wd * p
+        w_norm = torch.sqrt(torch.sum(torch.square(p)))
+        r_norm = torch.sqrt(torch.sum(torch.square(r)))
+        # on the device: a captured step reads no value on the host
+        ratio = w_norm / r_norm
+        trust = torch.where((w_norm > 0) & (r_norm > 0), ratio,
+                            torch.ones_like(ratio)).to(p.dtype)
+        return p - lr.to(p.dtype) * trust * r, {
+            "moment1": m, "moment2": v, "beta1_pow": b1p, "beta2_pow": b2p,
+        }
+
+
+class Lars(Optimizer):
+    """LARS, layer-wise adaptive rate scaling for large-batch SGD:
+    ``local_lr = lr·coeff·||w|| / (||g|| + wd·||w|| + eps)`` (1 where either
+    norm is 0), momentum on the decayed gradient. A parameter whose
+    ``param_name`` contains a fragment of ``exclude_from_weight_decay`` does
+    not decay (the JAX optimizer matches ``p.name``)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 lars_coeff=0.001, lars_weight_decay=0.0005,
+                 parameters=None, grad_clip=None, exclude_from_weight_decay=None,
+                 epsilon=0.0, name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._momentum = momentum
+        self._coeff = lars_coeff
+        self._wd = lars_weight_decay
+        self._eps = epsilon
+        self._exclude = list(exclude_from_weight_decay or [])
+
+    def _hyper(self):
+        return {"mu": self._momentum, "coeff": self._coeff, "wd": self._wd,
+                "eps": self._eps}
+
+    def _per_param_hyper(self, p):
+        name = param_name(p) or ""
+        if any(frag in name for frag in self._exclude):
+            return {"wd": 0.0}
+        return {}
+
+    def _create_state(self, p):
+        return {"velocity": torch.zeros_like(p, memory_format=torch.contiguous_format)}
+
+    def _update(self, p, g, lr, state, *, mu, coeff, wd, eps):
+        w_norm = torch.sqrt(torch.sum(torch.square(p)))
+        g_norm = torch.sqrt(torch.sum(torch.square(g)))
+        ratio = coeff * w_norm / (g_norm + wd * w_norm + eps)
+        local_lr = torch.where((w_norm > 0) & (g_norm > 0), ratio,
+                               torch.ones_like(ratio)).to(p.dtype)
+        step = g + wd * p
+        v = mu * state["velocity"] + (lr.to(p.dtype) * local_lr) * step
+        return p - v, {"velocity": v}

@@ -21,7 +21,9 @@ equal. The training-path cases capture steps with dropout and recompute
 forwards' masks, held against an eager step drawing from the same
 generator states) and run an O1 fp16 step with a GradScaler on the sm90
 kernels. A checkpoint restored into a captured step lands in the tensors
-the graph reads.
+the graph reads. BERT's projection-major qkv views take the non-causal sm90
+kernels as they are; a captured BERT step launches them once per layer, and
+the optimizers without a fused kernel replay as their eager steps do.
 """
 import copy
 
@@ -30,6 +32,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.models import bert as tbert
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import fused_update as tfu
@@ -745,3 +748,120 @@ def test_checkpoint_restore_into_a_captured_step_is_in_place(tmp_path):
     # the replay reads the restored state: the last step again, to the bit
     assert step(*batch(steps - 1)).item() == losses[-1]
     assert step._captured[next(iter(step._captured))] is entry
+
+
+def _bert_qkv(shape, dtype, seed):
+    """q, k, v on the card as BERT makes them: views of one [b, s, 3, h, d]
+    projection, unbound on axis 2."""
+    b, s, h, d = shape
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
+    return qkv.to(_card(), dtype).unbind(dim=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(8, 512, 12, 64), (2, 200, 12, 64)])
+def test_sm90_noncausal_kernels_on_bert_views(shape, dtype):
+    """BERT-base's attention (12 heads of 64, S 512, and a ragged S) on the
+    projection-major views, non-causal: forward, dK/dV and dQ on sm90
+    against their plain versions, a second backward bitwise equal."""
+    q, k, v = _bert_qkv(shape, dtype, seed=6)
+    assert not q.is_contiguous() and k.data_ptr() - q.data_ptr() == shape[2] * shape[3] * 2
+    rng = np.random.default_rng(7)
+    do = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(_card(), dtype)
+    scale = shape[-1] ** -0.5
+    routes = [dict(fn.launches_by_route) for fn in (
+        tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq)]
+    o, lse = tfa.flash_attention_fwd(q, k, v, scale, False)
+    delta = tfa.bwd_delta(o, do)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
+    dk2, dv2 = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
+    dq2 = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
+    o_p, lse_p = tfa.fwd_plain(q, k, v, scale, False)
+    dq_p, dk_p, dv_p = tfa.bwd_plain(q, k, v, do, lse, delta, scale, False)
+    torch.cuda.synchronize()
+    for fn, before, n in zip((tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv,
+                              tfa.flash_attention_bwd_dq), routes, (1, 2, 2)):
+        assert fn.launches_by_route == _plus(before, "sm90", n)
+    assert (o.float() - o_p.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_p).abs().max().item() <= TOL[dtype]
+    for got, again, want in ((dk, dk2, dk_p), (dv, dv2, dv_p), (dq, dq2, dq_p)):
+        assert got.dtype == dtype and tuple(got.shape) == shape
+        assert torch.equal(got, again)
+        assert (got.float() - want.float()).abs().max().item() <= GRAD_TOL[dtype]
+
+
+BERT_TINY = dict(vocab_size=128, hidden_size=128, num_layers=2, num_heads=2, max_seq_len=64,
+                 dropout=0.0, attn_dropout=0.0)
+
+
+def _bert_loss(out, packed):
+    crit = tbert.BertPretrainingCriterion()
+    return crit(out[0].float(), out[1].float(), packed[:, :-1], packed[:, -1])
+
+
+def _bert_batch(card, seed=0):
+    """ids, token types (a second sentence from the middle), packed labels."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    ids = torch.randint(0, BERT_TINY["vocab_size"], (2, 64), generator=gen, device=card)
+    types = (torch.arange(64, device=card) >= 32).long().expand(2, -1)
+    packed = torch.cat([torch.randint(0, BERT_TINY["vocab_size"], (2, 64), generator=gen,
+                                      device=card),
+                        torch.randint(0, 2, (2, 1), generator=gen, device=card)], dim=1)
+    return ids, types, packed
+
+
+@pytest.mark.cuda
+def test_captured_bert_step_launches_the_noncausal_sm90_kernels():
+    """The O2 bf16 BERT step: each eager step launches one sm90 forward, dK/dV
+    and dQ per layer; the replays go through the graph and launch none
+    through the wrappers; the loss falls."""
+    card = _card()
+    pt.seed(0)
+    model = pt.amp.decorate(tbert.BertForPretraining(tbert.BertConfig(**BERT_TINY), device=card),
+                            level="O2", dtype="bfloat16")
+    opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = pt.jit.compile_train_step(model, _bert_loss, opt)
+    ids, _, packed = _bert_batch(card)
+    fns = (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dkv, tfa.flash_attention_bwd_dq)
+    routes = [dict(fn.launches_by_route) for fn in fns]
+    losses = [step(ids, packed).item() for _ in range(pt.jit.WARMUP_STEPS)]
+    for fn, before in zip(fns, routes):
+        assert fn.launches_by_route == _plus(before, "sm90", 2 * BERT_TINY["num_layers"])
+    losses += [step(ids, packed).item() for _ in range(3)]
+    (entry,) = step._captured.values()
+    assert entry.graph is not None and losses[-1] < losses[0], losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb", "Lars"])
+def test_optimizers_without_a_fused_kernel_replay_as_they_step(name):
+    """Captured f32 BERT steps against an eager copy stepped with
+    ``loss.backward(); opt.step()``: the same kernels on the same data, so
+    the losses and parameters agree but for a library matmul choosing
+    another algorithm inside the graph. Token types give every parameter a
+    gradient: the compiled step would update one without (a zero gradient,
+    as the JAX step's), where the eager step() skips it."""
+    card = _card()
+    kw = {"RMSProp": dict(momentum=0.9, centered=True), "Lars": dict(lars_coeff=0.01)}
+    pt.seed(0)
+    model = tbert.BertForPretraining(tbert.BertConfig(**BERT_TINY), device=card)
+    eager = copy.deepcopy(model)
+    make = getattr(pt.optimizer, name)
+    opt = make(learning_rate=1e-2, parameters=model.parameters(), **kw.get(name, {}))
+    opt_e = make(learning_rate=1e-2, parameters=eager.parameters(), **kw.get(name, {}))
+    step = pt.jit.compile_train_step(model, _bert_loss, opt)
+    ids, types, packed = _bert_batch(card, seed=1)
+    for _ in range(pt.jit.WARMUP_STEPS + 3):
+        loss = step(ids, types, packed)
+        ref = _bert_loss(eager(ids, types), packed)
+        ref.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        assert abs(loss.item() - ref.item()) <= 1e-5
+    assert step._captured and next(iter(step._captured.values())).graph is not None
+    for a, b in zip(model.parameters(), eager.parameters()):
+        assert (a - b).abs().max().item() <= 1e-5

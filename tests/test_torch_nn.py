@@ -1,5 +1,6 @@
 """``paddle.nn`` of the port against the JAX package's, on the CPU: dropout's
-two modes and ``nn.Layer``'s state methods.
+two modes, ``nn.Layer``'s state methods and its parameter, sublayer and hook
+surface, and ``F.tanh``.
 
 Dropout is elementwise, so eval outputs are compared bit for bit; in
 training the masks come from different generators, so each package's
@@ -127,3 +128,110 @@ def test_port_layers_are_paddle_layers():
         assert issubclass(cls, pt.nn.Layer)
     # torch's state_dict is the one: the names equal the JAX model's
     assert pt.nn.Layer.state_dict is torch.nn.Module.state_dict
+
+
+def _trees():
+    """One tree of layers in each package: a Linear and a block holding a
+    LayerNorm and an added Linear, then a parameter made by
+    ``create_parameter`` and one registered by ``add_parameter``."""
+    out = []
+    for pkg, kw in ((paddle, {}), (pt, {"device": "cpu"})):
+        paddle.seed(0)
+        root = pkg.nn.Layer(name_scope="encoder")
+        root.fc = pkg.nn.Linear(4, 3, **kw)
+        block = pkg.nn.Layer()
+        block.norm = pkg.nn.LayerNorm(3, **kw)
+        added = block.add_sublayer(7, pkg.nn.Linear(3, 2, **kw))
+        root.block = block
+        root.scale = root.create_parameter([3], default_initializer=pkg.nn.initializer.Constant(2.0))
+        extra = root.add_parameter("extra", root.create_parameter([2], is_bias=True))
+        out.append((root, block, added, extra))
+    return out
+
+
+def test_layer_sublayers_and_parameters_match_jax():
+    (jroot, jblock, jadded, jextra), (troot, tblock, tadded, textra) = _trees()
+    assert tadded is tblock._modules["7"] and textra is troot.extra
+    assert jadded is jblock._sub_layers["7"] and jextra is jroot.extra
+    for prefix, include_self in (("", False), ("m.", True), ("", True)):
+        jnames = [n for n, _ in jroot.named_sublayers(prefix=prefix, include_self=include_self)]
+        tnames = [n for n, _ in troot.named_sublayers(prefix=prefix, include_self=include_self)]
+        assert tnames == jnames
+    assert jnames == ["", "fc", "block", "block.norm", "block.7"]
+    assert [type(m).__name__ for m in troot.sublayers()] == \
+        [type(m).__name__ for m in jroot.sublayers()] == ["Linear", "Layer", "LayerNorm", "Linear"]
+    assert troot.sublayers(include_self=True)[0] is troot
+    assert list(troot.state_dict()) == list(jroot.state_dict())
+    assert troot.full_name() == jroot.full_name() == "encoder"
+    assert tblock.full_name() == jblock.full_name() == "layer"
+    assert pt.nn.Linear(2, 2, device="cpu").full_name() == paddle.nn.Linear(2, 2).full_name()
+
+
+def test_create_parameter_matches_jax():
+    """Zeros for a bias, an Initializer attr over the default initializer,
+    XavierNormal otherwise; float32 unless asked; a Paddle name from the
+    process's counter; on the layer's device; not registered by itself."""
+    (jroot, *_), (troot, *_) = _trees()
+    for j, t in ((jroot.scale, troot.scale), (jroot.extra, troot.extra)):
+        assert t.dtype == torch.float32 and tuple(t.shape) == tuple(j.shape)
+        np.testing.assert_array_equal(t.detach().numpy(), j.numpy())
+    np.testing.assert_array_equal(troot.scale.detach().numpy(), np.full(3, 2.0, np.float32))
+    np.testing.assert_array_equal(troot.extra.detach().numpy(), np.zeros(2, np.float32))
+    names = [p.param_name for p in troot.parameters()]
+    assert all(n.startswith("param_") for n in names) and len(set(names)) == len(names)
+    layer = pt.nn.Layer()
+    if not torch.cuda.is_available():  # no parameter yet: the current device, the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            layer.create_parameter([2])
+    was = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        made = layer.create_parameter([2, 5], attr=pt.nn.initializer.Constant(0.5),
+                                      dtype="bfloat16",
+                                      default_initializer=pt.nn.initializer.Constant(9.0))
+    finally:
+        pt.set_device(was)
+    jmade = paddle.nn.Layer().create_parameter(
+        [2, 5], attr=paddle.nn.initializer.Constant(0.5), dtype="bfloat16",
+        default_initializer=paddle.nn.initializer.Constant(9.0))
+    assert made.dtype == torch.bfloat16 and str(jmade.dtype).endswith("bfloat16")
+    np.testing.assert_array_equal(made.float().detach().numpy(),
+                                  np.asarray(jmade.numpy(), np.float32))
+    assert list(layer.parameters()) == [] and made.requires_grad and made.device.type == "cpu"
+    layer.made = made  # registered by assignment; later ones follow its device
+    xavier = layer.create_parameter([64, 64])
+    assert xavier.device.type == "cpu"
+    assert 0.1 < xavier.std().item() < 0.15  # XavierNormal: sqrt(2 / 128) = 0.125
+    with pytest.raises(NotImplementedError, match="ParamAttr"):
+        layer.create_parameter([2], attr=object())
+
+
+def test_clear_gradients_and_forward_post_hook_match_jax():
+    (jroot, *_), (troot, *_) = _trees()
+    x = np.random.default_rng(2).standard_normal((2, 4)).astype(np.float32)
+    for root, fc, tensor in ((jroot, jroot.fc, paddle.to_tensor), (troot, troot.fc, torch.from_numpy)):
+        seen = []
+
+        def hook(layer, inputs, outputs, seen=seen, fc=fc):
+            seen.append((layer is fc, len(inputs)))
+            return outputs * 2
+
+        handle = fc.register_forward_post_hook(hook)
+        doubled = fc(tensor(x))
+        handle.remove()
+        plain = fc(tensor(x))
+        assert seen == [(True, 1)]
+        as_np = (lambda t: t.detach().numpy()) if root is troot else (lambda t: t.numpy())
+        np.testing.assert_allclose(as_np(doubled), 2 * as_np(plain), rtol=1e-6)
+        plain.sum().backward()
+        assert root.fc.weight.grad is not None
+        root.clear_gradients()
+        assert all(p.grad is None for p in root.parameters())
+
+
+def test_tanh_matches_jax():
+    x = _x()
+    want = JF.tanh(paddle.to_tensor(x)).numpy()
+    got = TF.tanh(torch.from_numpy(x)).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)  # libm against XLA's tanh

@@ -1,7 +1,8 @@
 """The port's optimizer surface against the JAX package's, on the CPU: the LR
-schedulers, the grad clips, SGD and Momentum state, and the compiled step
-with a grad clip. Inputs come from numpy with a seed; each tolerance is
-stated where it is used, with its reason."""
+schedulers, the grad clips, SGD and Momentum state, the compiled step with a
+grad clip, and Adamax, Adagrad, Adadelta, RMSProp, Lamb and Lars. Inputs
+come from numpy with a seed; each tolerance is stated where it is used, with
+its reason."""
 import math
 
 import numpy as np
@@ -11,9 +12,12 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from paddle_tpu.models import gpt as jgpt
+from paddle_tpu.nn.layer_base import Parameter as JParameter
+from paddle_tpu.ops.pallas import fused_update as jfu
 from paddle_tpu.parallel.topology import use_mesh
 from paddle_tpu_torch.convert import state_dict_from_numpy
 from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.ops.kernels import fused_update as tfu
 
 SCHEDULERS = {
     "noam": lambda lr: lr.NoamDecay(d_model=64, warmup_steps=5, learning_rate=1.0),
@@ -246,3 +250,178 @@ def test_compile_train_step_with_a_grad_clip_matches_the_jax_step():
         np.testing.assert_allclose(topt._accumulators[id(p)]["moment1"].numpy(),
                                    np.asarray(jopt._accumulators[id(jparams[n])]["moment1"]),
                                    atol=1e-6, rtol=0, err_msg=n)
+
+
+# The six rules without a fused kernel, each with weight decay (L2 folded
+# into g, or the rule's own decay) and a global-norm clip where the JAX
+# optimizer takes them. Lars excludes the bias by name; Lamb is given an
+# exclusion function, which both packages ignore.
+NEW_OPTIMIZERS = {
+    "adamax": lambda pkg, ps: pkg.optimizer.Adamax(
+        learning_rate=1e-2, parameters=ps, weight_decay=0.01,
+        grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0)),
+    "adagrad": lambda pkg, ps: pkg.optimizer.Adagrad(
+        0.1, parameters=ps, weight_decay=pkg.regularizer.L2Decay(0.01),
+        initial_accumulator_value=0.1, grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0)),
+    "adadelta": lambda pkg, ps: pkg.optimizer.Adadelta(
+        learning_rate=1.0, rho=0.9, parameters=ps, weight_decay=0.01,
+        grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0)),
+    "rmsprop": lambda pkg, ps: pkg.optimizer.RMSProp(
+        1e-2, parameters=ps, weight_decay=0.01, grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0)),
+    "rmsprop_centered_momentum": lambda pkg, ps: pkg.optimizer.RMSProp(
+        1e-2, rho=0.9, momentum=0.9, centered=True, parameters=ps, weight_decay=0.01,
+        grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0)),
+    "lamb": lambda pkg, ps: pkg.optimizer.Lamb(
+        learning_rate=1e-2, lamb_weight_decay=0.01, parameters=ps,
+        grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0),
+        exclude_from_weight_decay_fn=lambda name: "bias" in name),
+    "lars": lambda pkg, ps: pkg.optimizer.Lars(
+        learning_rate=0.1, momentum=0.9, lars_coeff=0.01, lars_weight_decay=0.01,
+        parameters=ps, grad_clip=pkg.nn.ClipGradByGlobalNorm(5.0),
+        exclude_from_weight_decay=["bias"]),
+}
+PARAM_NAMES = ["fc.weight", "fc.bias", "emb.weight"]
+# The rules are elementwise f32 arithmetic in the JAX rule's order; XLA:CPU
+# contracts some of it into FMAs, which moves a result by an ulp here and
+# there (tests/test_torch_fused_update.py's TOL_UPDATE, for the same reason)
+TOL_UPDATE = dict(atol=5e-7, rtol=1e-6)
+
+
+def _named_params(seed=10):
+    """The same three f32 parameters in both packages, with the same names
+    (``p.name`` in the JAX package, ``param_name`` in the port)."""
+    values = _grads(seed)
+    jps = [JParameter(paddle.to_tensor(v)._value, name=n) for v, n in zip(values, PARAM_NAMES)]
+    tps = []
+    for v, n in zip(values, PARAM_NAMES):
+        p = torch.nn.Parameter(torch.from_numpy(v.copy()))
+        p.param_name = n
+        tps.append(p)
+    return jps, tps
+
+
+def _steps(jopt, topt, jps, tps, n=3):
+    for i in range(n):
+        for jp, tp, g in zip(jps, tps, _grads(20 + i)):
+            jp.grad = paddle.to_tensor(g)
+            tp.grad = torch.from_numpy(g)
+        jopt.step()
+        topt.step()
+
+
+def _assert_state_close(jopt, topt, jps, tps):
+    for jp, tp in zip(jps, tps):
+        np.testing.assert_allclose(tp.detach().numpy(), jp.numpy(), err_msg=tp.param_name,
+                                   **TOL_UPDATE)
+        jst, tst = jopt._accumulators[id(jp)], topt._accumulators[id(tp)]
+        assert sorted(tst) == sorted(jst)
+        for k, v in tst.items():
+            assert v.dtype == torch.float32 and tuple(v.shape) == tuple(np.shape(jst[k])), k
+            np.testing.assert_allclose(v.numpy(), np.asarray(jst[k]), **TOL_UPDATE,
+                                       err_msg=f"{tp.param_name}.{k}")
+
+
+@pytest.mark.parametrize("name", sorted(NEW_OPTIMIZERS))
+def test_new_optimizers_match_the_jax_rules(name):
+    """Three f32 steps on the same gradients, through the eager step() (the
+    clip, then the update) on both sides: parameters and every state tensor."""
+    jps, tps = _named_params()
+    jopt = NEW_OPTIMIZERS[name](paddle, jps)
+    topt = NEW_OPTIMIZERS[name](pt, tps)
+    _steps(jopt, topt, jps, tps)
+    assert jopt._step_count == topt._step_count == 3
+    _assert_state_close(jopt, topt, jps, tps)
+    moved = [np.abs(tp.detach().numpy() - v).max() for tp, v in zip(tps, _grads(10))]
+    assert min(moved) > 1e-5, moved
+
+
+def test_lars_excludes_by_param_name():
+    """The bias decays in neither package, by its name; with the exclusion
+    dropped, it does, and lands elsewhere."""
+    out = {}
+    for exclude in (["bias"], None):
+        jps, tps = _named_params()
+        kw = dict(learning_rate=0.1, momentum=0.9, lars_coeff=0.01, lars_weight_decay=0.5,
+                  exclude_from_weight_decay=exclude)
+        jopt = paddle.optimizer.Lars(parameters=jps, **kw)
+        topt = pt.optimizer.Lars(parameters=tps, **kw)
+        assert topt._per_param_hyper(tps[1]) == ({"wd": 0.0} if exclude else {})
+        assert topt._per_param_hyper(tps[0]) == {}
+        _steps(jopt, topt, jps, tps, n=2)
+        _assert_state_close(jopt, topt, jps, tps)
+        out[bool(exclude)] = tps[1].detach().numpy()
+    assert np.abs(out[True] - out[False]).max() > 1e-4
+
+
+@pytest.mark.parametrize("name", sorted(NEW_OPTIMIZERS))
+def test_new_optimizer_state_dict_round_trips(name):
+    """The JAX key names; a fresh optimizer loaded from the dict steps on as
+    the original does, bit for bit."""
+    jps, tps = _named_params()
+    jopt, topt = NEW_OPTIMIZERS[name](paddle, jps), NEW_OPTIMIZERS[name](pt, tps)
+    _steps(jopt, topt, jps, tps, n=2)
+    jsd, tsd = jopt.state_dict(), topt.state_dict()
+    assert sorted(tsd) == sorted(jsd) and tsd["_step_count"] == 2
+    clones = []
+    for tp in tps:
+        c = torch.nn.Parameter(tp.detach().clone())
+        c.param_name = tp.param_name
+        clones.append(c)
+    fresh = NEW_OPTIMIZERS[name](pt, clones)
+    fresh.set_state_dict(tsd)
+    for opt, ps in ((topt, tps), (fresh, clones)):
+        for p, g in zip(ps, _grads(30)):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+    for a, b in zip(tps, clones):
+        assert torch.equal(a, b)
+        for k, v in topt._accumulators[id(a)].items():
+            assert torch.equal(v, fresh._accumulators[id(b)][k]), k
+
+
+@pytest.mark.parametrize("name", sorted(NEW_OPTIMIZERS))
+def test_new_optimizers_take_the_plain_rule_with_the_fused_flag_on(name, monkeypatch):
+    """No fused kernel: rule_kind is None in both packages, and with
+    FLAGS_pallas_fused_update on the eager step runs the rule's torch ops."""
+    jps, tps = _named_params()
+    topt = NEW_OPTIMIZERS[name](pt, tps)
+    assert tfu.rule_kind(type(topt)) is None
+    assert jfu.rule_kind(type(NEW_OPTIMIZERS[name](paddle, jps))) is None
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("a fused kernel ran")
+
+    monkeypatch.setattr(tfu, "param_update", no_kernel)
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    try:
+        for p, g in zip(tps, _grads(40)):
+            p.grad = torch.from_numpy(g)
+        topt.step()
+    finally:
+        pt.set_flags({"FLAGS_pallas_fused_update": False})
+    assert topt._step_count == 1
+
+
+@pytest.mark.parametrize("name", ["lars", "rmsprop_centered_momentum"])
+def test_new_optimizers_through_compile_train_step_match_jax(name):
+    """The compiled step's update (the rule alone, after the clip) on the
+    small GPT of the clip test above: losses and parameters over 3 steps
+    (Lamb's compiled steps: tests/test_torch_bert.py)."""
+    jm, tm, ids = _small_gpt()
+    jcrit, tcrit = jgpt.GPTPretrainingCriterion(), tgpt.GPTPretrainingCriterion()
+    jopt = NEW_OPTIMIZERS[name](paddle, jm.parameters())
+    topt = NEW_OPTIMIZERS[name](pt, tm.parameters())
+    jstep = paddle.jit.compile_train_step(jm, lambda lo, lb: jcrit(lo, lb), jopt)
+    tstep = pt.jit.compile_train_step(tm, lambda lo, lb: tcrit(lo, lb), topt)
+    x, y = ids[:, :-1], ids[:, 1:]
+    jl = [float(jstep(paddle.to_tensor(x), paddle.to_tensor(y))) for _ in range(3)]
+    tl = [float(tstep(torch.as_tensor(x), torch.as_tensor(y))) for _ in range(3)]
+    # tests/test_torch_train.py's TOL_LOSS; gradients agree to ~1e-7 between
+    # the frameworks (f32 sums in other orders), and these rules scale them
+    # by at most ~1 (RMSProp's g/sqrt(ms) is ~3 in its first step)
+    np.testing.assert_allclose(tl, jl, atol=1e-5, rtol=1e-6)
+    assert tl[2] < tl[0]
+    jparams = dict(jm.named_parameters())
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), jparams[n].numpy(), atol=1e-5, rtol=0,
+                                   err_msg=n)

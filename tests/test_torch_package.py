@@ -364,3 +364,53 @@ def test_checkpoint_path_loads_neither_jax_nor_paddle_tpu(tmp_path):
         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
     )
     assert out.strip() == "[]"
+
+
+OPTIMIZER_NAMES = ["Adadelta", "Adagrad", "Adamax", "Lamb", "Lars", "RMSProp"]
+
+
+def test_api_spec_surface_of_bert_slice():
+    """The six optimizers and ``nn.functional.tanh`` resolve; with them every
+    ``paddle.optimizer`` class of API.spec is ported."""
+    names = _api_names()
+    scoped = [f"paddle.optimizer.{n}" for n in OPTIMIZER_NAMES] + ["paddle.nn.functional.tanh"]
+    assert all(n in names for n in scoped)
+    assert [n for n in scoped if _resolve(n) is None] == []
+    assert _resolve("paddle.optimizer.Lamb") is pt.optimizer.optimizer.Lamb
+    classes = [n for n in names if n.startswith("paddle.optimizer.") and n.count(".") == 2
+               and n.rsplit(".", 1)[1][0].isupper()]
+    assert [n for n in classes if _resolve(n) is None] == []
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 140 + len(scoped)
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names")
+
+
+def test_bert_path_loads_neither_jax_nor_paddle_tpu():
+    # slice 12: an O2 BERT step through compile_train_step with Lamb, the
+    # masked forward, and the other five new optimizers' eager steps
+    out = _run(
+        "import sys, torch\n"
+        "import paddle_tpu_torch as pt\n"
+        "from paddle_tpu_torch.models import BertConfig, BertForPretraining\n"
+        "from paddle_tpu_torch.models import BertPretrainingCriterion\n"
+        "pt.set_device('cpu')\n"
+        "cfg = BertConfig(vocab_size=32, hidden_size=16, num_layers=1, num_heads=2,\n"
+        "                 max_seq_len=8, dropout=0.0, attn_dropout=0.0)\n"
+        "m = pt.amp.decorate(BertForPretraining(cfg), level='O2', dtype='bfloat16')\n"
+        "crit = BertPretrainingCriterion()\n"
+        "opt = pt.optimizer.Lamb(learning_rate=1e-3, parameters=m.parameters())\n"
+        "step = pt.jit.compile_train_step(\n"
+        "    m, lambda o, y: crit(o[0].float(), o[1].float(), y[:, :-1], y[:, -1]), opt)\n"
+        "ids = torch.zeros(2, 8, dtype=torch.int64)\n"
+        "assert torch.isfinite(step(ids, torch.zeros(2, 9, dtype=torch.int64)))\n"
+        "mlm, nsp = m(ids, None, torch.ones(2, 8, dtype=torch.int64))\n"
+        "assert mlm.shape == (2, 8, 32) and mlm.dtype == torch.float32\n"
+        "for name in ('Adamax', 'Adagrad', 'Adadelta', 'RMSProp', 'Lars'):\n"
+        "    w = torch.nn.Parameter(torch.ones(3))\n"
+        "    o = getattr(pt.optimizer, name)(learning_rate=0.1, parameters=[w])\n"
+        "    w.grad = torch.ones(3)\n"
+        "    o.step()\n"
+        "    assert bool((w < 1).all()), name\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
