@@ -24,6 +24,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      (24 tf32x3 launches), then in bf16 (24 sm90 launches);
   5. serve a few requests: greedy ``generate()`` on 4 prompts, cross-checked
      token by token against the kernel-path forward;
+ 5a. the tensor surface's host cost per op (phase 11b-iii's loops) before
+     any profiler session;
  5b. serve GPT-2 345M f32 (``max_seq_len=2048``) through ``serving.Engine``
      on bench.py ``bench_serving``'s mix (12 prompts of 32-128 tokens, 24
      new tokens each): a warm serve that captures each prefill and decode
@@ -147,6 +149,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
  11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
      full width and 4 layers, 3 steps each;
  8b. (after 11) a ``torch.profiler`` trace of one replayed BERT step;
+ 11b. the tensor surface (``paddle.Tensor``, ``to_tensor``, the ``paddle.*``
+     functions, Paddle autograd): GPT-2 345M f32 eager Adam steps at 8 x 1024
+     tokens written as a Paddle user writes them (ids and labels from
+     ``paddle.to_tensor``, ``loss = criterion(model(ids), labels)``,
+     ``loss.backward(); opt.step(); opt.clear_grad(); float(loss)``), with
+     the fused update on, against the same steps with torch inputs on a second
+     model from the same seed: losses, parameters and moments bitwise equal
+     over 3 steps, 24 tf32x3 launches of each flash kernel and 292 Adam
+     launches per step, then 4 more in turns, timed; the eval forward under
+     ``paddle.no_grad()`` (the accuracy expression equal to torch's, nothing
+     recorded); ``paddle.grad(loss, logits)`` bitwise ``torch.autograd.grad``.
+     Then every function of the CPU op sweep (tests/test_torch_op_sweep.py)
+     on the card at the 345M's widths against the port on the CPU, outputs
+     and gradients, sort orders on ties; then the host cost per op of four
+     surface calls against the bare torch calls;
  12. one JSON line of per-kernel numbers, then the result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -3171,6 +3188,334 @@ def train_momentum_sgd(torch, pt, fu, gen, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11b: the tensor surface (paddle.Tensor, to_tensor, the paddle.*
+# functions, Paddle autograd) on the card
+# ---------------------------------------------------------------------------
+SURFACE_STEPS = 3  # Paddle-style steps held bitwise against the torch-input steps
+SURFACE_TIMED = 8  # steps timed after them, in turns (surface, torch, torch, surface)
+HOST_COST_CALLS = 10_000
+
+# The card sweep runs the case table of tests/torch_surface_cases.py (the CPU
+# parity test's own) at GPT-2 345M's widths (its CARD_345M): activations of a
+# layer (8 x 1024 tokens x 1024 hidden) for the elementwise, reduction, logic
+# and manipulation functions; 1024 x 1024 weights and the (16 heads, 1024
+# tokens, 64) attention operands for the products; rows of the 50304-word
+# vocabulary for the search functions.
+#
+# card against the port's own CPU result on the same inputs. Integer, bool
+# and index outputs exact. Floats, |card - cpu| <= atol + rtol * |cpu|:
+#   elem   elementwise math: libdevice and ATen's CPU functions differ by
+#          a few ulps (1e-5 is ~80 ulps of f32);
+#   reduce sums, means, norms, std over up to 8M elements and cumulative
+#          sums over 1024: the card reduces in a tree, the CPU in another
+#          order (f32 error ~ eps * sqrt(n) * scale, ~2e-4 of a sum of
+#          8M unit values);
+#   prod   the product of all 8M factors in (0.999, 1.001), and its gradient
+#          (w * product / x): each level of the card's tree rounds products
+#          of factors near 1 onto f32's grid (6e-8 below 1, 1.2e-7 above),
+#          and the roundings do not cancel as a random walk's would (sqrt(n)
+#          eps ~ 3.5e-4): 1.5e-2 absolute seen against the CPU's sequential
+#          product, on a product of order 1 (the logs of its factors sum to
+#          ~N(0, 1.7));
+#   scan   cumulative products and logcumsumexp over 1024 steps, and their
+#          gradients (reverse sums over 1024): the rounding of each step
+#          compounds (~1024 eps of values up to ~30);
+#   flatscan prefix sums over all 8M elements of the flattened input, and
+#          their reverse for the gradient: the partial sums reach ~4e3,
+#          where f32's grid is 2.4e-4 to 4.9e-4, and the card adds each
+#          block's prefix in f32 where the CPU accumulates in double;
+#   matmul products over K = 1024 with TF32 off: FMA order of cuBLAS and
+#          the CPU BLAS, ~sqrt(K) eps of terms ~30 (4e-4 seen at 5 sigma);
+#   atomic index_add, scatter_nd_add, put_along_axis(reduce="add"),
+#          scatter(overwrite=False), bincount and histogram sum through
+#          atomics on the card, in no fixed order: up to ~8K terms a bin
+#          (bincount's weights), 9e-4 seen on sums of ~90;
+#   special lgamma, digamma and the Bessel functions: libdevice's and ATen's
+#          series differ most near the functions' zeros, where a relative
+#          bound means nothing (~2e-6 absolute seen);
+# A case names one kind, or "out/grad": its outputs under the first, its
+# gradients under the second (the gradient of a broadcast is a reduction).
+SURFACE_TOL = {"elem": (1e-5, 1e-6), "reduce": (1e-4, 1e-4), "prod": (2e-2, 1e-4),
+               "scan": (1e-3, 1e-3), "flatscan": (1e-4, 2e-2), "matmul": (1e-4, 1e-3),
+               "atomic": (1e-4, 1e-3), "special": (1e-5, 1e-5)}
+
+
+def surface_flat(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in surface_flat(o)]
+    return [out]
+
+
+def surface_differ(a, b, kind):
+    """``(why, share)``: why numpy arrays ``a`` (card) and ``b`` (CPU) disagree
+    under ``kind``'s tolerance (None when they agree), and the largest
+    ``|a - b|`` as a share of its bound (0 for exact outputs)."""
+    import numpy as np
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return f"shape/dtype {a.shape} {a.dtype} vs {b.shape} {b.dtype}", 0.0
+    if a.dtype.kind not in "fc":
+        bad = int((a != b).sum())
+        return (f"{bad} of {a.size} differ (exact)" if bad else None), 0.0
+    rtol, atol = SURFACE_TOL[kind]
+    a64, b64 = a.astype(np.complex128 if a.dtype.kind == "c" else np.float64), b.astype(
+        np.complex128 if b.dtype.kind == "c" else np.float64)
+    nan = np.isnan(a64) | np.isnan(b64)
+    if (np.isnan(a64) != np.isnan(b64)).any():
+        return "NaN at different places", 0.0
+    diff = np.where(nan, 0, np.abs(a64 - b64))
+    limit = atol + rtol * np.abs(np.where(nan, 0, b64))
+    share = float((diff / limit).max()) if diff.size else 0.0
+    bad = int((diff > limit).sum())
+    return (f"{bad} of {a.size} beyond rtol {rtol:g} atol {atol:g}, max|d| {diff.max():.3e}"
+            if bad else None), share
+
+
+def surface_sweep(torch, pt, dev):
+    """Phase 11b-ii: every case of tests/torch_surface_cases.py on the card and
+    on the CPU through the port on the same inputs, at the 345M's widths;
+    outputs, dtypes, shapes, stop_gradient and the gradients of the
+    differentiable ones compared. Returns the failures (printed)."""
+    import numpy as np
+    from tests import torch_surface_cases as surface_cases
+
+    cases = surface_cases.CASES
+    arrays = surface_cases.inputs(surface_cases.CARD_345M, SEED)
+    places = {"cpu": (pt.CPUPlace(), "cpu"), "card": (pt.CUDAPlace(dev.index or 0),
+                                                    f"gpu:{dev.index or 0}")}
+    failures, checked, worst = [], 0, {}
+    previous = pt.get_device()
+    t0 = time.perf_counter()
+    for name, fn, specs, diff, kind in cases:
+        res = {}
+        for where, (place, device) in places.items():
+            pt.set_device(device)
+            xs = [pt.to_tensor(arrays[s], place=place,
+                               stop_gradient=not (diff and arrays[s].dtype.kind == "f"))
+                  for s in specs]
+            try:
+                outs = surface_flat(fn(pt, *xs))
+                grads = []
+                if diff:
+                    wrt = [x for x in xs if not x.stop_gradient]
+                    loss = None
+                    for k, o in enumerate(o for o in outs if not o.stop_gradient):
+                        w = pt.to_tensor(np.random.default_rng(k).standard_normal(
+                            o.shape, dtype=np.float32), dtype=o.dtype, place=place)
+                        term = (o * w).sum()
+                        loss = term if loss is None else loss + term
+                    if loss is not None:
+                        grads = pt.grad([loss], wrt, allow_unused=True)
+                res[where] = (outs, grads)
+            except Exception as e:  # a case that raises is a failure, reported below
+                res[where] = e
+        pt.set_device(previous)
+        out_kind, _, grad_kind = kind.partition("/")
+        grad_kind = grad_kind or out_kind
+        errors = []
+        if isinstance(res["card"], Exception) or isinstance(res["cpu"], Exception):
+            errors.append(f"raised: card {res['card']!r} cpu {res['cpu']!r}"[:300])
+        else:
+            (outs_c, grads_c), (outs_h, grads_h) = res["card"], res["cpu"]
+            if len(outs_c) != len(outs_h) or len(grads_c) != len(grads_h):
+                errors.append("output counts differ")
+            for i, (a, b) in enumerate(zip(outs_c, outs_h)):
+                if a.place.device_type != "gpu":
+                    errors.append(f"output {i} on {a.place}")
+                if a.stop_gradient != b.stop_gradient:
+                    errors.append(f"output {i} stop_gradient {a.stop_gradient} vs "
+                                  f"{b.stop_gradient}")
+                why, share = surface_differ(a.numpy(), b.numpy(), out_kind)
+                worst[out_kind] = max(worst.get(out_kind, (0.0, "")), (share, name))
+                if why:
+                    errors.append(f"output {i}: {why}")
+            for i, (a, b) in enumerate(zip(grads_c, grads_h)):
+                if (a is None) != (b is None):
+                    errors.append(f"gradient {i}: None on one side")
+                elif a is not None:
+                    why, share = surface_differ(a.numpy(), b.numpy(), grad_kind)
+                    worst[grad_kind] = max(worst.get(grad_kind, (0.0, "")), (share, name))
+                    if why:
+                        errors.append(f"gradient {i}: {why}")
+            checked += len(outs_c) + len(grads_c)
+        if errors:
+            failures.append(name)
+            print(f"  FAIL {name}: " + "; ".join(errors))
+        del res
+    print(f"  {len(cases)} functions, {checked} outputs and gradients compared card against "
+          f"CPU in {time.perf_counter() - t0:.1f} s; {len(failures)} failures")
+    print("  the largest |card - cpu| as a share of its bound, by kind: " + ", ".join(
+        f"{k} {v[0]:.3g} ({v[1]})" for k, v in sorted(worst.items())))
+    return failures
+
+
+def host_cost_per_op(torch, pt, dev):
+    """Phase 11b-iii: microseconds of host time per call of four surface ops
+    on small card tensors, against the bare torch calls (the loop, then one
+    synchronise)."""
+    xt = torch.randn(16, 16, device=dev)
+    yt = torch.randn(16, 16, device=dev)
+    x, y = pt.to_tensor(xt), pt.to_tensor(yt)
+    pairs = [
+        ("paddle.add(x, y)", lambda: pt.add(x, y), lambda: torch.add(xt, yt)),
+        ("x + y", lambda: x + y, lambda: xt + yt),
+        ("x.reshape([256])", lambda: x.reshape([256]), lambda: xt.reshape(256)),
+        ("x.sum()", lambda: x.sum(), lambda: xt.sum()),
+    ]
+    out = {}
+    for label, surface, bare in pairs:
+        us = {}
+        for kind, fn in (("surface", surface), ("torch", bare), ("torch", bare),
+                         ("surface", surface)):
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_COST_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            us.setdefault(kind, []).append((time.perf_counter() - t0) / HOST_COST_CALLS * 1e6)
+        out[label] = {k: min(v) for k, v in us.items()}
+        print(f"  {label}: {out[label]['surface']:.2f} us per call through the surface, "
+              f"{out[label]['torch']:.2f} us bare torch (best of 2 loops of "
+              f"{HOST_COST_CALLS}, host clock, one synchronise per loop)")
+    return out
+
+
+def paddle_style_step_345m(torch, pt, fa, fu, dev):
+    """Phase 11b-i: the 345M f32 eager step written as a Paddle user writes it
+    (to_tensor inputs, ``loss = crit(model(ids), labels)``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``, ``float(loss)``) against the same
+    steps with torch inputs on a second model from the same seed; then the eval
+    forward under ``paddle.no_grad()`` and ``paddle.grad(loss, logits)``.
+    Returns its flash and Adam launches and step times."""
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    batch = 8
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    print(f"[11b] the tensor surface: GPT-2 345M f32 eager Adam steps written as a Paddle "
+          f"user writes them, {batch} x {cfg.max_seq_len} tokens, FLAGS_pallas_fused_update on")
+    data = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1))
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    pt.seed(SEED)
+    model = GPTForPretraining(cfg)  # on the current device: the card
+    pt.seed(SEED)
+    twin = GPTForPretraining(cfg, device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters())),
+          "two models from one seed differ")
+    n_params = len(list(model.parameters()))
+    crit = GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.Adam(learning_rate=1e-4, parameters=model.parameters())
+    opt_t = pt.optimizer.Adam(learning_rate=1e-4, parameters=twin.parameters())
+    ids = pt.to_tensor(data[:, :-1], dtype="int64")
+    labels = pt.to_tensor(data[:, 1:], dtype="int64")
+    check(ids.place == pt.CUDAPlace(dev.index or 0) and ids.dtype == pt.int64
+          and ids.stop_gradient, f"to_tensor gave {ids.place} {ids.dtype}")
+    x_t, y_t = ids._value.clone(), labels._value.clone()
+
+    def paddle_step():
+        loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(loss)
+
+    def torch_step():
+        loss = crit(twin(x_t), y_t)
+        loss.backward()
+        opt_t.step()
+        opt_t.clear_grad()
+        return loss.item()
+
+    reset_flash_counts(fa)  # phase 11b's path (the Paddle-style steps) starts here
+    fu.fused_adam.launches = 0
+    losses_p, per_step = [], []
+    for _ in range(SURFACE_STEPS):
+        before, adam_before = flash_counts(fa), fu.fused_adam.launches
+        losses_p.append(paddle_step())
+        torch.cuda.synchronize()
+        got = {k: c - before[k] for k, c in flash_counts(fa).items() if c != before[k]}
+        per_step.append((got, fu.fused_adam.launches - adam_before))
+    surface_flash, surface_adam = flash_counts(fa), fu.fused_adam.launches  # ... ends here
+    losses_t = [torch_step() for _ in range(SURFACE_STEPS)]
+    torch.cuda.synchronize()
+    want = {"fwd_tf32x3": cfg.num_layers, "dkv_tf32x3": cfg.num_layers,
+            "dq_tf32x3": cfg.num_layers}
+    print(f"  launches per Paddle-style step (flash by route, Adam): {per_step}")
+    check(all(g == want and a == n_params for g, a in per_step),
+          f"expected {want} and {n_params} Adam launches per step")
+    print("  losses, Paddle-style: " + " ".join(repr(v) for v in losses_p))
+    print("  losses, torch inputs: " + " ".join(repr(v) for v in losses_t))
+    same = bitwise_same(torch, model, twin, opt, opt_t)
+    print(f"  losses bitwise equal {losses_p == losses_t}; parameters and Adam moments "
+          f"bitwise equal {same}")
+    check(losses_p == losses_t and same, "the Paddle-style step and the torch-input step differ")
+    check(all(math.isfinite(v) for v in losses_p) and losses_p[-1] < losses_p[0],
+          "the Paddle-style loss is not finite or does not fall")
+
+    # the same steps timed, in turns
+    times = {"surface": [], "torch": []}
+    for kind in ("surface", "torch", "torch", "surface") * (SURFACE_TIMED // 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (paddle_step if kind == "surface" else torch_step)()
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    check(bitwise_same(torch, model, twin, opt, opt_t), "the timed steps left the models apart")
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  step (forward, backward, Adam, clear, host read of the loss), host clock, "
+          f"median of {len(times['surface'])} in turns: Paddle-style {step_ms['surface']:.2f} "
+          f"ms, torch inputs {step_ms['torch']:.2f} ms "
+          f"({batch * cfg.max_seq_len / step_ms['surface'] * 1e3:.0f} tokens/s)")
+
+    # eval under paddle.no_grad(): nothing records a backward
+    with pt.no_grad():
+        logits = model(ids)
+        acc = (pt.argmax(logits, axis=-1) == labels).astype("float32").mean()
+    with torch.no_grad():
+        logits_t = twin(x_t)
+        acc_t = (logits_t.argmax(-1) == y_t).float().mean()
+    recorded = [t._value.grad_fn for t in (logits, acc)] + [logits._value.requires_grad]
+    print(f"  eval under paddle.no_grad(): accuracy {float(acc)!r} (torch expression "
+          f"{acc_t.item()!r}), logits bitwise equal {torch.equal(logits._value, logits_t)}, "
+          f"recorded {recorded}")
+    check(float(acc) == acc_t.item() and torch.equal(logits._value, logits_t),
+          "eval accuracy or logits differ from the torch expression")
+    check(acc.stop_gradient and logits.stop_gradient and not any(recorded),
+          "something under paddle.no_grad() recorded a backward")
+    del logits, logits_t, acc, acc_t
+
+    # paddle.grad(loss, logits) against torch.autograd.grad
+    logits = model(ids)
+    (g,) = pt.grad(crit(logits, labels), [logits])
+    logits_t = twin(x_t)
+    (g_t,) = torch.autograd.grad(crit(logits_t, y_t), logits_t)
+    print(f"  paddle.grad(loss, logits) against torch.autograd.grad: bitwise equal "
+          f"{torch.equal(g._value, g_t)}, stop_gradient {g.stop_gradient}")
+    check(torch.equal(g._value, g_t) and g.stop_gradient, "paddle.grad differs from torch's")
+    del logits, logits_t, g, g_t
+    pt.set_flags({"FLAGS_pallas_fused_update": False})
+    del model, twin, opt, opt_t
+    torch.cuda.empty_cache()
+    return {"flash": surface_flash, "adam": surface_adam, "step_ms": step_ms}
+
+
+def tensor_surface(torch, pt, fa, fu, dev):
+    """Phase 11b: the Paddle-style 345M step, the surface sweep on the card,
+    the host cost per op."""
+    step = paddle_style_step_345m(torch, pt, fa, fu, dev)
+    print("[11b-ii] the CPU op sweep's cases (tests/torch_surface_cases.py) on the card at "
+          "the 345M's widths, against the port on the CPU")
+    failures = surface_sweep(torch, pt, dev)
+    check(not failures, f"the surface disagrees with the CPU in {failures}")
+    print("[11b-iii] host cost per op of the surface, small card tensors (16 x 16), after "
+          "phase 8b's profiler session")
+    step["host_us"] = host_cost_per_op(torch, pt, dev)
+    return step
+
+
 # The tf32x3 forward's repeat witness (``--tf32-repeat N``): N fresh processes
 # each build (or load) the library and compare the first two launches of the
 # process at phase 3's first case bit for bit; then, where the toolkit has
@@ -3419,6 +3764,12 @@ def main() -> int:
     inference = flash_counts(fa)  # the inference path's count ends here
     del model, full, out, again
     torch.cuda.empty_cache()
+    # the surface's host cost per op before any profiler session (phase 5c
+    # and 8 trace, and a session makes later launches dearer on the host);
+    # phase 11b-iii measures it again at its own place
+    print("[5a] host cost per op of the tensor surface before any profiler session, small "
+          "card tensors (16 x 16)")
+    early_host_us = host_cost_per_op(torch, pt, dev)
 
     # 5b. the serving engine
     served = serve_345m(torch, pt, fa, fu, card)
@@ -3464,6 +3815,10 @@ def main() -> int:
     profile_replay(torch, step, batch, n_layers,
                    "[8b] torch.profiler trace of one replayed BERT-base step (phase 7d, AdamW)")
     del step, batch
+    torch.cuda.empty_cache()
+    # 11b. the tensor surface: a Paddle user's 345M step, the surface on the card
+    surface = tensor_surface(torch, pt, fa, fu, dev)
+    sf = surface["flash"]
 
     # 12. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
@@ -3496,6 +3851,14 @@ def main() -> int:
           f"{bwd_h['dq']['ms']:.4f}, the pair {bwd_h['pair_ms']:.4f} against SDPA's backward "
           f"{bwd_h['library_again_ms']:.4f} (and {bwd_h['dkv']['library_ms']:.4f}); bounds "
           f"dK/dV {bwd_h['dkv']['bound_ms']:.4f}, dQ {bwd_h['dq']['bound_ms']:.4f}")
+    print(f"    the tensor surface (11b): the Paddle-style 345M f32 step "
+          f"{surface['step_ms']['surface']:.2f} ms against {surface['step_ms']['torch']:.2f} ms "
+          f"with torch inputs; host us per call, surface against bare torch: "
+          + ", ".join(f"{k} {v['surface']:.2f} vs {v['torch']:.2f}"
+                      for k, v in surface["host_us"].items())
+          + "; before any profiler session (5a): "
+          + ", ".join(f"{k} {v['surface']:.2f} vs {v['torch']:.2f}"
+                      for k, v in early_host_us.items()))
     print(f"    launches per path: the recompute step (7b-i, 2 eager steps and the capture) "
           f"{recompute['launches']}; the O1 loop (7b-ii, both runs) {o1['launches']}, Adam "
           f"{o1['adam']}")
@@ -3541,7 +3904,7 @@ def main() -> int:
             inference["fwd_sm90"] + train["launches"]["fwd_sm90"] + resume["fwd_sm90"]
             + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
-            inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"], fwd32),
+            inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"], fwd32),
         # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
@@ -3549,14 +3912,14 @@ def main() -> int:
             train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
             + o1["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
-            f32_train["dkv_tf32x3"], bwd32["dkv"]),
+            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"], bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
             + o1["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
-            f32_train["dq_tf32x3"], bwd32["dq"]),
+            f32_train["dq_tf32x3"] + sf["dq_tf32x3"], bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
             simt_path["dq_simt"], bwd32["dq_simt"]),
     ]
@@ -3587,7 +3950,8 @@ def main() -> int:
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_update.cu",
             "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
-            "launches": launches_f32[kind] + (o1["adam"] if kind == "adam" else 0),
+            "launches": launches_f32[kind] + (o1["adam"] + surface["adam"] if kind == "adam"
+                                              else 0),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -1,1 +1,2 @@
-"""Core: flags, places, random state and dtypes of the PyTorch port."""
+"""Core of the PyTorch port: flags, places, dtypes, random state, the
+``Tensor`` cell and op application with Paddle's autograd semantics."""

@@ -83,6 +83,10 @@ def describe_flags(match: str = None):
     ]
 
 
+define_flag("check_nan_inf", False,
+            "scan the floating outputs of every paddle.* tensor function (the ops "
+            "core.dispatch.apply runs) for NaN/Inf and raise FloatingPointError naming "
+            "the op (debug mode; one host read per op)")
 define_flag(
     "use_flash_attention",
     True,

@@ -1,4 +1,10 @@
-"""Random state: one ``torch.Generator`` per device behind ``seed()``.
+"""Random state: one ``Generator`` per device behind ``seed()``.
+
+``paddle.seed`` reseeds every device's default ``Generator`` and returns the
+current device's, as the JAX package's returns its ``default_generator``; the
+random ops of ``paddle.*`` and the port's modules draw from the default
+Generator of the device they run on (``generator(device)`` is its
+``torch.Generator``).
 
 The counterpart of ``paddle_tpu/core/random.py``, which splits jax keys. The
 two packages can never share random bits, so tests make their inputs with
@@ -34,8 +40,9 @@ _scope = None  # the _Segments of a jit step in progress, if any
 _M64 = (1 << 64) - 1
 
 
-def seed(value: int) -> None:
-    """``paddle.seed``: reseed every device's generator from ``value``.
+def seed(value: int) -> "Generator":
+    """``paddle.seed``: reseed every device's default Generator from ``value``
+    and return the current device's.
 
     Generators are reseeded in place, so CUDA graphs that registered them
     draw from the new seed at their next replay."""
@@ -43,25 +50,78 @@ def seed(value: int) -> None:
     _seed = int(value)
     for gen in _generators.values():
         gen.manual_seed(_seed)
+    return default_generator()
 
 
-def generator(device: torch.device) -> torch.Generator:
-    """The generator of ``device``, made from the current seed on first use."""
-    device = torch.device(device)
+class Generator:
+    """``paddle.Generator``: a seeded source of random bits on one device (the
+    current one unless given), over the ``torch.Generator`` in ``generator``.
+
+    That is made on first use, so a Generator of a card that CUDA cannot
+    reach raises only when it is drawn from."""
+
+    def __init__(self, seed: int = 0, device=None):
+        self.device = _key_device(device)
+        self._seed = int(seed)
+        self._gen = None
+
+    @property
+    def generator(self) -> torch.Generator:
+        if self._gen is None:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(self._seed)
+        return self._gen
+
+    def manual_seed(self, seed: int):
+        self._seed = int(seed)
+        if self._gen is not None:
+            self._gen.manual_seed(self._seed)
+        return self
+
+    def initial_seed(self) -> int:
+        return self._seed if self._gen is None else self._gen.initial_seed()
+
+    def get_state(self):
+        return self.generator.get_state()
+
+    def set_state(self, state):
+        self.generator.set_state(state)
+
+
+def _key_device(device) -> torch.device:
+    """``device`` (a torch device, a Place or its name; the current device when
+    None) as a torch device with its index, without asking CUDA whether the
+    card is there."""
+    if not isinstance(device, torch.device):
+        from .place import device_of
+
+        device = device_of(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def default_generator(device=None) -> Generator:
+    """The default Generator of ``device`` (the current device when None),
+    made from the current seed on first use."""
+    device = _key_device(device)
     key = str(device)
     gen = _generators.get(key)
     if gen is None:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_seed)
-        _generators[key] = gen
+        gen = _generators[key] = Generator(_seed, device)
     return gen
 
 
+def generator(device) -> torch.Generator:
+    """The ``torch.Generator`` of ``device``'s default Generator."""
+    return default_generator(torch.device(device)).generator
+
+
 def get_rng_state():
-    """``paddle.get_rng_state``: the seed and every device generator's state."""
-    return _seed, {key: gen.get_state() for key, gen in _generators.items()}
+    """``paddle.get_rng_state``: the seed and the state of every device
+    generator drawn from so far."""
+    return _seed, {key: gen.get_state() for key, gen in _generators.items()
+                   if gen._gen is not None}
 
 
 def set_rng_state(state) -> None:
@@ -69,6 +129,9 @@ def set_rng_state(state) -> None:
     place for generators that exist (graphs that registered them follow)."""
     global _seed
     _seed, states = int(state[0]), state[1]
+    for gen in _generators.values():
+        if gen._gen is None:
+            gen.manual_seed(_seed)
     for key, value in states.items():
         generator(key).set_state(value)
 
@@ -196,7 +259,7 @@ def register_generator_state(graph, device, segments: int = 0):
     generator(device)
     for key, gen in _generators.items():
         if torch.device(key) == device:
-            graph.register_generator_state(gen)
+            graph.register_generator_state(gen.generator)
     pairs = SegmentPairs(device, segments)
     for pair in pairs:
         for gen in pair:

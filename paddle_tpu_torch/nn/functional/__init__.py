@@ -7,8 +7,10 @@ paths call, in inference and in training (``cross_entropy``).
 shape is eligible; the dense path otherwise. (The JAX selector also keeps
 sharded meshes on the dense path; the port runs on one card.)
 
-Under ``amp.auto_cast`` O1, each function casts its inputs by the O1 lists
-under the op name the JAX function gives ``apply`` (``amp.maybe_cast_inputs``).
+Each takes Paddle Tensors as well as torch tensors (``accepts_tensors``:
+Tensors are unwrapped, results wrapped). Under ``amp.auto_cast`` O1, each
+function casts its inputs by the O1 lists under the op name the JAX
+function gives ``apply`` (``amp.maybe_cast_inputs``).
 """
 from __future__ import annotations
 
@@ -17,14 +19,17 @@ import torch
 from ... import amp as _amp
 from ...core import flags as _flags
 from ...core import random as _random
+from ...core.dispatch import accepts_tensors
 from ...ops import nn_ops as _nn
 
 
+@accepts_tensors
 def linear(x, weight, bias=None, name=None):
     x, weight, bias = _amp.maybe_cast_inputs("linear", (x, weight, bias))
     return _nn.linear(x, weight, bias)
 
 
+@accepts_tensors
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=None):
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
@@ -33,24 +38,29 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05, name=
     return _nn.layer_norm(x, weight, bias, epsilon=epsilon, begin_norm_axis=begin)
 
 
+@accepts_tensors
 def gelu(x, approximate=False, name=None):
     return _nn.gelu(x, approximate=approximate)
 
 
+@accepts_tensors
 def tanh(x, name=None):
     return torch.tanh(x)
 
 
+@accepts_tensors
 def softmax(x, axis=-1, dtype=None, name=None):
     (x,) = _amp.maybe_cast_inputs("softmax", (x,))
     out = _nn.softmax(x, axis=axis)
     return out if dtype is None else out.to(dtype)
 
 
+@accepts_tensors
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     return _nn.embedding(x, weight, padding_idx=padding_idx)
 
 
+@accepts_tensors
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=None):
     if axis is not None:
         raise NotImplementedError("dropout with an axis is not ported yet")
@@ -63,6 +73,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", name=No
     return _nn.dropout(x, _random.generator(x.device), p=p, mode=mode)
 
 
+@accepts_tensors
 def scaled_dot_product_attention(
     query, key, value, attn_mask=None, dropout_p=0.0, is_causal=False,
     training=True, name=None,
@@ -87,6 +98,7 @@ def scaled_dot_product_attention(
     )
 
 
+@accepts_tensors
 def cross_entropy(
     input, label, weight=None, ignore_index=-100, reduction="mean",
     soft_label=False, axis=-1, use_softmax=True, label_smoothing=0.0, name=None,

@@ -11,13 +11,15 @@ stay valid. ``create_parameter``, ``add_parameter``, ``add_sublayer``,
 ``sublayers``, ``named_sublayers``, ``clear_gradients``, ``full_name`` and
 ``register_forward_post_hook`` keep the JAX methods' order and return
 values; torch's own methods of the same purpose (``named_modules``,
-``register_forward_hook``, ...) stay as they are.
+``register_forward_hook``, ...) stay as they are. A layer takes Paddle
+Tensors as well as torch tensors (``__call__``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..convert import source_for
+from ..core import dispatch
 from ..core.dtype import to_torch_dtype
 from ..core.place import torch_device
 
@@ -29,6 +31,16 @@ class Layer(torch.nn.Module):
         super().__init__()
         self._dtype = dtype or "float32"
         self._full_name = name_scope or type(self).__name__.lower()
+
+    def __call__(self, *args, **kwargs):
+        """Run the layer. Paddle Tensor arguments, also inside tuples, lists
+        and dicts, are unwrapped to their torch values (no copy) and the
+        results wrapped as Tensors; a call with torch tensors runs as
+        ``torch.nn.Module`` runs it."""
+        if not dispatch.holds_tensor(args, kwargs):
+            return super().__call__(*args, **kwargs)
+        kwargs = {k: dispatch.unwrap(v) for k, v in kwargs.items()}
+        return dispatch.wrap(super().__call__(*dispatch.unwrap(args), **kwargs))
 
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy ``state_dict``'s values (tensors or numpy arrays) into this

@@ -23,7 +23,10 @@ generator states) and run an O1 fp16 step with a GradScaler on the sm90
 kernels. A checkpoint restored into a captured step lands in the tensors
 the graph reads. BERT's projection-major qkv views take the non-causal sm90
 kernels as they are; a captured BERT step launches them once per layer, and
-the optimizers without a fused kernel replay as their eager steps do.
+the optimizers without a fused kernel replay as their eager steps do. The
+tensor surface lives on the card by default, rebinds in place there, runs
+backward and ``paddle.grad`` there, and a model step with Tensor inputs is
+bitwise the step with torch inputs.
 """
 import copy
 
@@ -865,3 +868,99 @@ def test_optimizers_without_a_fused_kernel_replay_as_they_step(name):
     assert step._captured and next(iter(step._captured.values())).graph is not None
     for a, b in zip(model.parameters(), eager.parameters()):
         assert (a - b).abs().max().item() <= 1e-5
+
+
+# -- the tensor surface on the card (slice 13) ----------------------------------
+@pytest.mark.cuda
+def test_surface_tensors_live_on_the_card_by_default():
+    card = _card()
+    previous = pt.get_device()
+    pt.set_device("gpu")
+    try:
+        x = pt.to_tensor(np.arange(6.0).reshape(2, 3))
+        assert x.place == pt.CUDAPlace(card.index or 0) and x.dtype == pt.float64
+        assert pt.to_tensor([1.5]).dtype == pt.float32 and pt.to_tensor([1]).dtype == pt.int64
+        assert pt.zeros([2]).place == x.place and pt.rand([3]).place == x.place
+        assert pt.arange(4)._value.device.type == "cuda"
+        assert x.cpu().place == pt.CPUPlace() and x.cpu().cuda().place == x.place
+        np.testing.assert_array_equal(x.astype("bfloat16").astype("float32").numpy(),
+                                      x.numpy().astype(np.float32))
+    finally:
+        pt.set_device(previous)
+
+
+@pytest.mark.cuda
+def test_surface_generator_on_the_card():
+    _card()
+    previous = pt.get_device()
+    pt.set_device("gpu")
+    try:
+        g = pt.seed(11)
+        assert isinstance(g, pt.Generator) and g.generator.device.type == "cuda"
+        a = pt.rand([5]).numpy()
+        g.manual_seed(11)
+        np.testing.assert_array_equal(pt.rand([5]).numpy(), a)
+        state = g.get_state()
+        b = pt.randn([4]).numpy()
+        g.set_state(state)
+        np.testing.assert_array_equal(pt.randn([4]).numpy(), b)
+    finally:
+        pt.set_device(previous)
+
+
+@pytest.mark.cuda
+def test_surface_inplace_rebinds_on_the_card():
+    card = _card()
+    x = pt.to_tensor(np.ones((2, 3), np.float32), place=pt.CUDAPlace(card.index or 0))
+    view = x.reshape([3, 2])
+    x.add_(pt.to_tensor(np.ones((2, 3), np.float32), place=x.place))
+    x[0, 0] = 7.0
+    assert view.tolist() == [[1.0, 1.0]] * 3 and x._inplace_version == 2
+    assert x.numpy()[0].tolist() == [7.0, 2.0, 2.0]
+
+
+@pytest.mark.cuda
+def test_surface_backward_and_grad_on_the_card():
+    card = _card()
+    place = pt.CUDAPlace(card.index or 0)
+    x = pt.to_tensor(np.array([1.0, 2.0, 3.0], np.float32), place=place, stop_gradient=False)
+    w = torch.ones(3, device=card, requires_grad=True)
+    y = (pt.multiply(x, w) * x).sum()
+    y.backward(retain_graph=True)
+    assert x.grad.tolist() == [2.0, 4.0, 6.0] and x.grad.place == place
+    assert w.grad.tolist() == [1.0, 4.0, 9.0]
+    (g,) = pt.grad([(x * x * x).sum()], [x], create_graph=True)
+    (gg,) = pt.grad([g.sum()], [x])
+    assert g.tolist() == [3.0, 12.0, 27.0] and gg.tolist() == [6.0, 12.0, 18.0]
+    with pt.no_grad():
+        assert (x * 2).stop_gradient
+    with pytest.raises(RuntimeError):
+        (x * 2).backward()
+
+
+@pytest.mark.cuda
+def test_surface_model_step_equals_the_torch_step_on_the_card():
+    card = _card()
+    cfg = tgpt.GPTConfig(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
+                         max_seq_len=64, dropout=0.0, attn_dropout=0.0)
+    pt.seed(0)
+    model = tgpt.GPTForPretraining(cfg, device=card)
+    twin = copy.deepcopy(model)
+    crit = tgpt.GPTPretrainingCriterion()
+    data = np.random.default_rng(0).integers(0, 128, (2, 65))
+    place = pt.CUDAPlace(card.index or 0)
+    ids = pt.to_tensor(data[:, :-1], place=place)
+    labels = pt.to_tensor(data[:, 1:], place=place)
+    losses = []
+    for m, x, y in ((model, ids, labels), (twin, ids._value, labels._value)):
+        opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=m.parameters())
+        run = []
+        for _ in range(2):
+            loss = crit(m(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            run.append(float(loss))
+        losses.append(run)
+    assert losses[0] == losses[1]
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters()))
