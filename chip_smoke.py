@@ -94,7 +94,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      marking the scaler, a good step timed. Then ``compile_train_step(...,
      grad_input_idx=(0,))`` over float rows: the input gradient of three
      replays against eager autograd's;
-  8. a ``torch.profiler`` trace of one replayed step: the top device
+  8. a ``torch.profiler`` trace of one replayed step (phase 7's, built again
+     in a process of its own: a session late in a process that traced tens
+     of thousands of operations before loses records): the top device
      operations, the flash kernels' share of the step, the device idle share;
  7c. (after phase 8, which frees phase 7's step) checkpoint and resume of
      phase 7's step over 12 steps of batches from a seed, each run in a
@@ -148,7 +150,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the backward forced to SIMT, in turns;
  11. the same comparison for Momentum (Nesterov, L2Decay(1e-4)) and SGD at
      full width and 4 layers, 3 steps each;
- 8b. (after 11) a ``torch.profiler`` trace of one replayed BERT step;
+ 8b. (after 11) a ``torch.profiler`` trace of one replayed BERT step, in a
+     process of its own;
  11b. the tensor surface (``paddle.Tensor``, ``to_tensor``, the ``paddle.*``
      functions, Paddle autograd): GPT-2 345M f32 eager Adam steps at 8 x 1024
      tokens written as a Paddle user writes them (ids and labels from
@@ -164,7 +167,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      on the card at the 345M's widths against the port on the CPU, outputs
      and gradients, sort orders on ties; then the host cost per op of four
      surface calls against the bare torch calls;
- 12. one JSON line of per-kernel numbers, then the result line.
+ 12. ``paddle.nn`` and ResNet-50: (12a) BASELINE.json config 2 as bench.py
+     ``bench_resnet50`` writes it: ``resnet50(num_classes=1000)`` under
+     ``amp.decorate(level="O2", dtype="bfloat16")``, ``Momentum(0.1, 0.9)``,
+     ``CrossEntropyLoss`` on ``out.astype("float32")`` through
+     ``compile_train_step``, ``paddle.to_tensor`` inputs of 256 x 3 x 224^2
+     from ``numpy.random.default_rng(0)``: two eager steps, the capture, 10
+     timed replays (ms per replay, images/s under bench.py's metric name
+     ``resnet50_amp_o2_imgs_per_sec_per_chip``, peak memory), against an
+     eager copy within 1e-2 on the loss; every BN ``_mean`` / ``_variance``
+     keeps its ``data_ptr()``, has moved and equals the eager copy's within
+     3e-2, and eval mode normalises by them; (12b) f32 eager ResNet-50 at 64
+     images with ``FLAGS_pallas_fused_update`` on and off in turns: 161
+     Momentum kernel launches per step, losses, parameters, velocities and BN
+     statistics bitwise over 3 steps, ``opt.step()`` and step ms; (12c)
+     ``TransformerEncoderLayer(768, 12, 3072)`` x 12 and a Linear head at
+     8 x 512: O2 AdamW through ``compile_train_step`` with 12 non-causal
+     sm90 launches of each flash kernel a step, against an eager copy at
+     dropout 0, a dropout-0.1 replay, a bool ``src_mask`` on the dense route,
+     the f32 forward's 12 tf32x3 launches against the dense route within
+     1e-3; (12d) in a process of its own, a ``torch.profiler`` trace of one
+     12a replay by kind and the Momentum rule's ms as a graph of its own;
+ 13. one JSON line of per-kernel numbers, then the result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result. It imports nothing of JAX or of ``paddle_tpu``.
@@ -1383,8 +1407,8 @@ def serve_under_faults(torch, pt, fa, fu, card, served):
 
 def train_345m(torch, pt, fa, gen, dev):
     """Phase 7: the 345M training step as one CUDA graph, against an eager
-    copy. Returns the launches of each flash kernel over the training path,
-    its numbers, and what phase 8 traces (the step stays alive for it)."""
+    copy. Returns the launches of each flash kernel over the training path
+    and its numbers."""
     from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
 
     print("[7] GPT-2 345M training step, 8 x 1024 tokens, AMP O2 bf16, AdamW, one CUDA graph")
@@ -1481,7 +1505,7 @@ def train_345m(torch, pt, fa, gen, dev):
     check(diff <= TOL_EAGER_VS_GRAPH, "the eager copy and the graph replays disagree")
     del eager, opt_e, loss
     return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_gb": mem_gb - held_gb, "profile": (step, x, y, cfg.num_layers)}
+            "peak_gb": mem_gb - held_gb}
 
 
 # Phase 7b. 7b-i: bench.py main()'s step with BENCH_RECOMPUTE=1 and GPTConfig's
@@ -1584,7 +1608,7 @@ def recompute_step_345m(torch, pt, fa, gen, dev, phase7):
     batch, warmup, replays = 8, pt.jit.WARMUP_STEPS, 10
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # phase 7's step, kept for phase 8
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9  # what earlier phases still hold
     pt.seed(SEED)
     cfg = gpt2_345m(dropout=RECOMPUTE_DROPOUT, attn_dropout=0.0, use_recompute=True)
     n = cfg.num_layers
@@ -2377,7 +2401,7 @@ def bert_train_step(torch, pt, fa, dev, opt_name, routes):
     ``opt_name``: two eager steps, the capture, BERT_REPLAYS timed replays,
     against an eager copy stepped with ``loss.backward(); opt.step()``.
     ``routes``: the flash route of the eager steps and the capture, in
-    order. Returns its numbers, and the step and batch for the trace."""
+    order. Returns its numbers."""
     from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
                                               BertPretrainingCriterion)
 
@@ -2453,8 +2477,7 @@ def bert_train_step(torch, pt, fa, dev, opt_name, routes):
     print(f"  parameter dtypes after the steps: {dtypes}")
     del eager, opt_e
     return {"step_ms": step_ms, "host_ms": host_ms, "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_gb": peak_gb, "losses": values, "dtypes": dtypes,
-            "trace": (step, (ids, packed), n)}
+            "peak_gb": peak_gb, "losses": values, "dtypes": dtypes}
 
 
 def bert_masked_step(torch, pt, fa, dev, unmasked_ms):
@@ -2687,17 +2710,15 @@ def bert_noncausal_kernels(torch, fa, gen, dev):
 
 
 def bert_pretraining(torch, pt, fa, gen, dev):
-    """Phase 7d: BERT-base pretraining. Returns its numbers, the flash
+    """Phase 7d: BERT-base pretraining. Returns its numbers and the flash
     launches of its path (the steps, the eval forward and the optimizers'
-    steps; the kernels' comparisons after it count none), and the AdamW step
-    for a trace."""
+    steps; the kernels' comparisons after it count none)."""
     reset_flash_counts(fa)  # the BERT path's count starts here
     warm = pt.jit.WARMUP_STEPS
     adamw = bert_train_step(torch, pt, fa, dev, "AdamW", ["sm90"] * (warm + 1))
     # JAX's Lamb under O2: the f32 bias corrections turn the parameters f32 at
     # the first update, so the later steps run in f32, on the tf32x3 route
     lamb = bert_train_step(torch, pt, fa, dev, "Lamb", ["sm90"] + ["tf32x3"] * warm)
-    lamb.pop("trace")
     print(f"  Lamb's step {lamb['step_ms']:.3f} ms (f32 from the second step, as the JAX "
           f"package's) beside AdamW's {adamw['step_ms']:.3f} ms (bf16)")
     check(lamb["dtypes"] == ["torch.float32"], "Lamb's O2 parameters did not turn f32 as the "
@@ -2710,8 +2731,7 @@ def bert_pretraining(torch, pt, fa, gen, dev):
     print(f"  flash launches over the BERT path: {launches}")
     kernels = bert_noncausal_kernels(torch, fa, gen, dev)
     return {"adamw": adamw, "lamb": lamb, "masked": masked, "eval": evalf,
-            "optimizers": optimizers, "launches": launches, "kernels": kernels,
-            "trace": adamw.pop("trace")}
+            "optimizers": optimizers, "launches": launches, "kernels": kernels}
 
 
 def device_trace(torch, fn):
@@ -2747,9 +2767,15 @@ def device_trace(torch, fn):
     return len(spans), window, busy, wall_ms, by_name
 
 
-def print_trace(label, n_ops, window, busy, wall_ms, by_name):
-    """The top device operations and the operations by kind; returns the kinds
-    as {kind: (ms, count)}."""
+def kind_of(name, kinds):
+    """The first of ``kinds`` (``(kind, pattern)`` pairs) whose pattern a
+    device operation's name matches, else "other"."""
+    return next((k for k, pattern in kinds if re.search(pattern, name)), "other")
+
+
+def print_trace(label, n_ops, window, busy, wall_ms, by_name, kinds=None):
+    """The top device operations and the operations by ``kinds`` (OP_KINDS
+    unless given); returns the kinds as {kind: (ms, count)}."""
     print(f"  {n_ops} device operations over {window / 1e3:.2f} ms of device time "
           f"({wall_ms:.2f} ms host clock, profiler on); device idle share "
           f"{1 - busy / window:.1%} of that window")
@@ -2758,7 +2784,7 @@ def print_trace(label, n_ops, window, busy, wall_ms, by_name):
         print(f"    {total / 1e3:8.3f} ms {total / window:6.1%} x{n:<5d} {name[:110]}")
     groups = {}  # kind of device operation -> (ms, count)
     for name, (total, n) in by_name.items():
-        kind = next((k for k, pattern in OP_KINDS if re.search(pattern, name)), "other")
+        kind = kind_of(name, kinds or OP_KINDS)
         ms, count = groups.get(kind, (0.0, 0))
         groups[kind] = (ms + total / 1e3, count + n)
     print("  by kind: " + "; ".join(
@@ -3516,6 +3542,525 @@ def tensor_surface(torch, pt, fa, fu, dev):
     return step
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: paddle.nn and ResNet-50 (BASELINE.json config 2) on the card.
+# 12a: bench.py bench_resnet50's step as a Paddle user writes it; 12b: the
+# Momentum kernel at ResNet-50's width (f32, eager); 12c: nn.TransformerEncoder
+# on the flash kernels; 12d: a traced ResNet-50 replay by kind.
+# ---------------------------------------------------------------------------
+RESNET_BATCH, RESNET_IMAGE = 256, 224  # bench_resnet50's batch and images (BASELINE config 2)
+RESNET_REPLAYS = 10
+# The eager copy and the captured step run the same kernels on the same
+# batch; at lr 0.1 bf16 rounding and cuDNN's atomic weight-gradient sums move
+# the loss (about 7 at the start) by far less than 1e-2 over 13 steps.
+TOL_RESNET_LOSS = 1e-2
+# BN running statistics after the same steps, eager copy against the graph:
+# bf16 buffers, a few ulps of statistics of magnitude ~1 apart.
+TOL_BN_STATS = 3e-2
+RESNET_F32_BATCH, RESNET_F32_STEPS = 64, 3  # 12b
+# 12c: TransformerEncoderLayer(768, 12, 3072) x 12 at 8 x 512, a Linear head
+ENCODER = dict(d_model=768, nhead=12, dim_feedforward=3072, layers=12, batch=8, seq=512,
+               classes=1024)
+TOL_ENCODER_FLASH_VS_DENSE = 1e-3  # f32 forward: online vs one-pass softmax sums (phase 4's)
+# A ResNet replay's device operations by kind (12d): pooling (first: its
+# backward kernel's name holds "nchw"), cuDNN convolution kernels and their
+# layout transposes, GEMM-named kernels (the fc layer's and CUTLASS GEMMs
+# cuDNN picks), the composed batch norm's reductions, elementwise work
+# (batch norm's arithmetic, ReLU, the residual adds, the Momentum update),
+# and the rest.
+RESNET_KINDS = [
+    ("pooling", r"pool"),
+    ("convolution", r"conv|cudnn|implicit|fprop|dgrad|wgrad|xmma|nhwc|nchw"),
+    ("matmul", r"nvjet|gemm|cutlass"),
+    ("reduction (batch norm statistics, loss)", r"reduce_kernel"),
+    ("elementwise (batch norm arithmetic, ReLU, adds, Momentum)", r"elementwise_kernel"),
+    ("copy / fill", r"Memcpy|Memset|copy|fill"),
+]
+
+
+def resnet_batch(pt, batch, seed=0):
+    """bench_resnet50's inputs: ``numpy.random.default_rng(seed)``'s normal
+    images and labels in [0, 1000), as ``paddle.to_tensor`` on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = pt.to_tensor(rng.standard_normal((batch, 3, RESNET_IMAGE, RESNET_IMAGE))
+                     .astype(np.float32))
+    y = pt.to_tensor(rng.integers(0, 1000, (batch,)).astype(np.int64))
+    return x, y
+
+
+def bn_buffers(model):
+    return [(n, b) for n, b in model.named_buffers() if n.endswith(("_mean", "_variance"))]
+
+
+def resnet50_o2(torch, pt, dev):
+    """Phase 12a: bench_resnet50's step, O2 bf16 ResNet-50 with Momentum(0.1,
+    0.9) through compile_train_step on ``paddle.to_tensor`` inputs, against an
+    eager copy. Returns its numbers."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    batch, warmup = RESNET_BATCH, pt.jit.WARMUP_STEPS
+    print(f"[12a] ResNet-50 training step (BASELINE.json config 2, bench.py bench_resnet50), "
+          f"{batch} x 3 x {RESNET_IMAGE}^2, AMP O2 bf16, Momentum(0.1, 0.9), one CUDA graph")
+    torch.cuda.reset_peak_memory_stats(dev)
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    pt.seed(SEED)
+    model = resnet50(num_classes=1000)
+    eager = copy.deepcopy(model)  # before decorate: the wrapped forward is per model
+    model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    eager = pt.amp.decorate(eager, level="O2", dtype="bfloat16")
+    n_params = len(list(model.parameters()))
+    opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9, parameters=model.parameters())
+    loss_fn = pt.nn.CrossEntropyLoss()
+    step = pt.jit.compile_train_step(model, lambda out, y: loss_fn(out.astype("float32"), y),
+                                     opt)
+    x, y = resnet_batch(pt, batch)
+    buffers = bn_buffers(model)
+    ptrs = [b.data_ptr() for _, b in buffers]
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses.append(step(x, y))  # capture, then the first replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(RESNET_REPLAYS):
+        losses.append(step(x, y))
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / RESNET_REPLAYS
+    step_ms = start.elapsed_time(end) / RESNET_REPLAYS
+    imgs = batch / step_ms * 1e3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    values = [float(v) for v in losses]
+    print(f"  {n_params} parameters, {len(buffers)} BN statistics buffers; {warmup} eager "
+          f"warm-up steps {warm_s:.2f} s, capture + first replay {capture_s:.2f} s")
+    print(f"  {RESNET_REPLAYS} replays: {step_ms:.3f} ms per replay (CUDA events), "
+          f"{host_ms:.3f} ms (host clock); resnet50_amp_o2_imgs_per_sec_per_chip "
+          f"{imgs:.1f}; peak memory allocated {peak_gb:.2f} GB ({held_gb:.2f} GB held "
+          f"before the phase)")
+    print("  losses: " + " ".join(f"{v:.4f}" for v in values))
+    check(isinstance(losses[-1], pt.Tensor), "the step's loss is not a paddle.Tensor")
+    check(all(math.isfinite(v) for v in values), "non-finite ResNet-50 loss")
+    check([b.data_ptr() for _, b in buffers] == ptrs,
+          "a BN statistics buffer was rebound: the graph would read a stale one")
+
+    opt_e = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                  parameters=eager.parameters())
+    eager_values = []
+    for _ in range(len(values)):
+        loss = loss_fn(eager(x).astype("float32"), y)
+        loss.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        eager_values.append(float(loss))
+    diff = max(abs(a - c) for a, c in zip(values, eager_values))
+    print(f"  eager copy (loss.backward(); opt.step(); opt.clear_grad()) vs the warm-up steps "
+          f"and replays: max|d loss|={diff:.3e} over {len(values)} steps, bitwise equal "
+          f"{values == eager_values}, tol={TOL_RESNET_LOSS:g}")
+    check(diff <= TOL_RESNET_LOSS, "the eager copy and the captured step disagree")
+    worst = 0.0
+    for (name, b), (_, be) in zip(buffers, bn_buffers(eager)):
+        d = ((b.float() - be.float()).abs() / (1.0 + be.float().abs())).max().item()
+        worst = max(worst, d)
+        check(d <= TOL_BN_STATS, f"BN statistics {name} differ from the eager copy's by {d:.3e}")
+    moved = sum(not torch.equal(b, torch.zeros_like(b) if n.endswith("_mean") else
+                                torch.ones_like(b)) for n, b in buffers)
+    print(f"  BN statistics after {len(values)} steps: {moved} of {len(buffers)} buffers moved "
+          f"from their initial values, every data_ptr() kept, max |graph - eager| / (1 + |eager|)"
+          f" = {worst:.3e} (tol {TOL_BN_STATS:g})")
+    check(moved == len(buffers), "the captured step did not accumulate every BN statistic")
+    model.eval()
+    eager.eval()
+    with torch.no_grad():
+        xs = x._value[:32]
+        out = model(xs).float()
+        half = model(xs[:8]).float()
+        out_e = eager(xs).float()
+    model.train()
+    eval_diff = (out[:8] - half).abs().max().item()
+    eval_eager = (out - out_e).abs().max().item()
+    scale = out_e.abs().max().item()
+    print(f"  eval mode: logits of 8 images alone against within a batch of 32 max|d|="
+          f"{eval_diff:.3e}; against the eager copy max|d|={eval_eager:.3e} (max|logit| "
+          f"{scale:.3f})")
+    check(eval_diff <= TOL_BN_STATS * max(scale, 1.0),
+          "eval logits depend on the batch: the running statistics are not used")
+    check(eval_eager <= 3 * TOL_BN_STATS * max(scale, 1.0),
+          "eval logits differ from the eager copy's")
+    del eager, opt_e, loss
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "imgs_per_s": imgs, "peak_gb": peak_gb, "host_ms": host_ms}
+
+
+def resnet50_f32_momentum(torch, pt, fu, dev):
+    """Phase 12b: eager f32 ResNet-50 with Momentum(0.1, 0.9), the fused
+    kernel (flag on) against the rule (flag off), in turns. Returns the
+    kernel's launches and the timings."""
+    import numpy as np
+    from paddle_tpu_torch.vision.models import resnet50
+
+    batch, steps = RESNET_F32_BATCH, RESNET_F32_STEPS
+    print(f"[12b] ResNet-50 f32 eager, {batch} x 3 x {RESNET_IMAGE}^2, Momentum(0.1, 0.9), "
+          f"FLAGS_pallas_fused_update on and off in turns, {steps} steps each; cuDNN "
+          f"deterministic, so the flag is the only difference")
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pt.seed(SEED)
+    models = {True: resnet50(num_classes=1000)}
+    models[False] = copy.deepcopy(models[True])
+    n_params = len(list(models[True].parameters()))
+    opts = {flag: pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=m.parameters()) for flag, m in models.items()}
+    crit = pt.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((batch, 3, RESNET_IMAGE, RESNET_IMAGE))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, (batch,))).to(dev)
+    for kernel in fu.KERNELS.values():
+        kernel.launches = 0  # this path's count starts here
+    losses = {True: [], False: []}
+    ms = {True: {"step": [], "opt": []}, False: {"step": [], "opt": []}}
+    launches_on = 0
+    try:
+        for _ in range(steps):
+            for flag in (True, False):
+                pt.set_flags({"FLAGS_pallas_fused_update": flag})
+                before = fu.KERNELS["momentum"].launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = crit(models[flag](x), y)
+                loss.backward()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                opts[flag].step()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                opts[flag].clear_grad()
+                ms[flag]["step"].append((t2 - t0) * 1e3)
+                ms[flag]["opt"].append((t2 - t1) * 1e3)
+                losses[flag].append(loss.item())
+                got = fu.KERNELS["momentum"].launches - before
+                if flag:
+                    launches_on += got
+                check(got == (n_params if flag else 0),
+                      f"flag {flag}: {got} Momentum launches in a step, expected "
+                      f"{n_params if flag else 0}")
+    finally:
+        pt.set_flags({"FLAGS_pallas_fused_update": False})
+        torch.backends.cudnn.deterministic = was
+    launches = fu.KERNELS["momentum"].launches  # ... and ends here
+    others = sum(k.launches for name, k in fu.KERNELS.items() if name != "momentum")
+    same = bitwise_same(torch, models[True], models[False], opts[True], opts[False])
+    bn_same = all(torch.equal(a, b) for (_, a), (_, b) in zip(bn_buffers(models[True]),
+                                                              bn_buffers(models[False])))
+    med = {flag: {k: statistics.median(v) for k, v in d.items()} for flag, d in ms.items()}
+    print(f"  {n_params} parameters: {launches_on // steps} Momentum kernel launches per "
+          f"flag-on step, {launches} over the path, {others} of other kernels; losses "
+          + " ".join(f"{v:.6f}" for v in losses[True])
+          + f"; flag on vs off: losses bitwise {losses[True] == losses[False]}, parameters "
+          f"and velocities bitwise {same}, BN statistics bitwise {bn_same}")
+    print(f"  opt.step(): {med[True]['opt']:.3f} ms with the kernel, {med[False]['opt']:.3f} ms "
+          f"with the rule; the step (forward, backward, opt.step()): {med[True]['step']:.3f} "
+          f"ms and {med[False]['step']:.3f} ms (host clock, synchronised, medians of {steps})")
+    check(launches == n_params * steps and others == 0,
+          f"expected {n_params * steps} Momentum launches, got {launches} ({others} other)")
+    check(all(math.isfinite(v) for v in losses[True]), "non-finite f32 ResNet-50 loss")
+    check(losses[True] == losses[False] and same and bn_same,
+          "the fused Momentum kernel and the rule disagree at ResNet-50's width")
+    del models, opts, loss
+    torch.cuda.empty_cache()
+    return {"launches": launches, "opt_ms": med[True]["opt"], "opt_ms_rule": med[False]["opt"],
+            "step_ms": med[True]["step"], "step_ms_rule": med[False]["step"]}
+
+
+def make_encoder(pt, dropout):
+    """``TransformerEncoderLayer`` x 12 at BERT-base's widths and a Linear head."""
+    cfg = ENCODER
+
+    class Encoder(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            layer = pt.nn.TransformerEncoderLayer(cfg["d_model"], cfg["nhead"],
+                                                  cfg["dim_feedforward"], dropout=dropout)
+            self.encoder = pt.nn.TransformerEncoder(layer, cfg["layers"])
+            self.head = pt.nn.Linear(cfg["d_model"], cfg["classes"])
+
+        def forward(self, x, src_mask=None):
+            return self.head(self.encoder(x, src_mask))
+
+    pt.seed(SEED)
+    return Encoder()
+
+
+def encoder_steps(torch, pt, fa, model, x, y, n, want=None):
+    """``n`` calls of an O2 AdamW compile_train_step over ``model`` (the first
+    WARMUP_STEPS eager, then the capture, then replays); the flash launches
+    of each eager or capturing call are held to ``want``. Returns the losses."""
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                             weight_decay=0.01)
+    crit = pt.nn.CrossEntropyLoss()
+    step = pt.jit.compile_train_step(
+        model, lambda out, lab: crit(out.astype("float32").reshape([-1, ENCODER["classes"]]),
+                                     lab.reshape([-1])), opt)
+    losses = []
+    for i in range(n):
+        before = flash_counts(fa)
+        losses.append(float(step(x, y)))
+        got = {k: v - before[k] for k, v in flash_counts(fa).items()}
+        if want is not None and i <= pt.jit.WARMUP_STEPS:
+            check(got == want, f"encoder step {i}: flash launches {got}, expected {want}")
+    return losses, step
+
+
+def transformer_encoder(torch, pt, fa, dev):
+    """Phase 12c: nn.TransformerEncoder on the flash kernels. Returns the flash
+    launches over the path and the step's ms."""
+    import numpy as np
+
+    cfg = ENCODER
+    b, s = cfg["batch"], cfg["seq"]
+    print(f"[12c] nn.TransformerEncoderLayer({cfg['d_model']}, {cfg['nhead']}, "
+          f"{cfg['dim_feedforward']}) x {cfg['layers']} + Linear head at {b} x {s}: O2 bf16 "
+          f"AdamW through compile_train_step, the f32 forward, a bool mask")
+    rng = np.random.default_rng(2)
+    x = pt.to_tensor(rng.standard_normal((b, s, cfg["d_model"])).astype(np.float32))
+    y = pt.to_tensor(rng.integers(0, cfg["classes"], (b, s)).astype(np.int64))
+    n_layers = cfg["layers"]
+    want = dict.fromkeys(flash_counts(fa), 0)
+    want.update(fwd_sm90=n_layers, dkv_sm90=n_layers, dq_sm90=n_layers)
+    reset_flash_counts(fa)  # the encoder path's count starts here
+    model = make_encoder(pt, 0.0)
+    eager = copy.deepcopy(model)
+    model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    eager = pt.amp.decorate(eager, level="O2", dtype="bfloat16")
+    n = pt.jit.WARMUP_STEPS + 1 + RESNET_REPLAYS
+    losses, step = encoder_steps(torch, pt, fa, model, x, y, n, want)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    before = flash_counts(fa)
+    start.record()
+    for _ in range(RESNET_REPLAYS):
+        step(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / RESNET_REPLAYS
+    check(flash_counts(fa) == before, "the encoder replays did not run the captured graph")
+    opt_e = pt.optimizer.AdamW(learning_rate=1e-4, parameters=eager.parameters(),
+                               weight_decay=0.01)
+    crit = pt.nn.CrossEntropyLoss()
+    eager_losses = []
+    for _ in range(n):
+        before = flash_counts(fa)
+        loss = crit(eager(x).astype("float32").reshape([-1, cfg["classes"]]), y.reshape([-1]))
+        loss.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        eager_losses.append(float(loss))
+        got = {k: v - before[k] for k, v in flash_counts(fa).items()}
+        check(got == want, f"eager encoder step: flash launches {got}, expected {want}")
+    diff = max(abs(a - c) for a, c in zip(losses, eager_losses))
+    print(f"  dropout 0: {n} steps, {step_ms:.3f} ms per replay (CUDA events), "
+          f"{b * s / step_ms * 1e3:.1f} tokens/s; flash launches per step {want}; eager copy "
+          f"vs the compiled step max|d loss|={diff:.3e} (tol {TOL_EAGER_VS_GRAPH:g}); losses "
+          + " ".join(f"{v:.4f}" for v in losses))
+    check(diff <= TOL_EAGER_VS_GRAPH, "the encoder's eager copy and compiled step disagree")
+    del eager, opt_e, step, model
+    torch.cuda.empty_cache()
+
+    dropped = pt.amp.decorate(make_encoder(pt, 0.1), level="O2", dtype="bfloat16")
+    d_losses, _ = encoder_steps(torch, pt, fa, dropped, x, y, pt.jit.WARMUP_STEPS + 2, want)
+    print(f"  dropout 0.1: eager, capture and a replay: losses "
+          + " ".join(f"{v:.4f}" for v in d_losses))
+    check(all(math.isfinite(v) for v in d_losses), "non-finite encoder loss at dropout 0.1")
+    before = flash_counts(fa)
+    mask = torch.rand(b, 1, s, s, device=dev) > 0.2
+    mask |= torch.eye(s, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        masked = dropped(x, pt.to_tensor(mask))
+    got = {k: v - before[k] for k, v in flash_counts(fa).items()}
+    print(f"  a bool src_mask: flash launches {got} (the dense route), output "
+          f"{masked.dtype.name} {masked.shape}")
+    check(sum(got.values()) == 0, f"the masked forward launched a flash kernel: {got}")
+    check(bool(torch.isfinite(masked._value.float()).all()), "non-finite masked output")
+    del dropped, masked
+
+    f32 = make_encoder(pt, 0.1).eval()
+    with torch.no_grad():
+        before = flash_counts(fa)
+        flash = f32(x)._value
+        got = {k: v - before[k] for k, v in flash_counts(fa).items()}
+        pt.set_flags({"FLAGS_use_flash_attention": False})
+        dense = f32(x)._value
+        pt.set_flags({"FLAGS_use_flash_attention": True})
+    f32_want = dict.fromkeys(got, 0)
+    f32_want.update(fwd_tf32x3=n_layers)
+    err = (flash - dense).abs().max().item()
+    print(f"  f32 eval forward: flash launches {got}; flash vs dense max|d|={err:.3e} "
+          f"(max|out| {dense.abs().max().item():.3f}, tol {TOL_ENCODER_FLASH_VS_DENSE:g})")
+    check(got == f32_want, f"f32 encoder forward: flash launches {got}, expected {f32_want}")
+    check(err <= TOL_ENCODER_FLASH_VS_DENSE, "the f32 encoder's flash and dense routes disagree")
+    launches = flash_counts(fa)  # ... and ends here
+    del f32, flash, dense
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def graph_ms(torch, fn, reps=10):
+    """Device ms of ``fn``'s kernels captured as one CUDA graph (after an eager
+    warm-up on a side stream), median of ``reps`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps=reps, warmup=2)
+
+
+def resnet50_trace(torch, step, batch):
+    """Phase 12d (in its own process): a replay by kind, and the Momentum
+    rule's share: its ops over copies of the parameters and velocities, zero
+    gradients, captured as a graph of their own and replayed, as the step's
+    graph runs them."""
+    from paddle_tpu_torch.optimizer.optimizer import apply_update
+
+    print("[12d] torch.profiler trace of one replayed ResNet-50 O2 step (phase 12a's, in a "
+          "process of its own)")
+    step_ms = time_ms(lambda: step(*batch), reps=5, warmup=1)
+    n_ops, window, busy, wall_ms, by_name = device_trace(torch, lambda: step(*batch))
+    print_trace("", n_ops, window, busy, wall_ms, by_name, RESNET_KINDS)
+    for kind in ("convolution", "matmul"):  # what the two kinds hold
+        names = sorted(((t, n, name) for name, (t, n) in by_name.items()
+                        if kind_of(name, RESNET_KINDS) == kind), reverse=True)[:3]
+        print(f"  largest {kind} operations: " + "; ".join(
+            f"{t / 1e3:.3f} ms x{n} {name[:90]}" for t, n, name in names))
+    opt = step.optimizer
+    params = [p.detach().clone() for p in step._params]
+    states = [{k: v.clone() for k, v in opt._state_of(p).items()} for p in step._params]
+    grads = [torch.zeros_like(p) for p in params]
+    lr = torch.tensor(0.1, device=params[0].device)
+    with torch.no_grad():
+        update_ms = graph_ms(torch, lambda: apply_update(opt, params, grads, lr, states))
+    print(f"  the Momentum rule alone ({len(params)} bf16 parameters, its ops captured as "
+          f"one graph, CUDA events): {update_ms:.3f} ms a replay, {update_ms / step_ms:.1%} "
+          f"of the step's {step_ms:.3f} ms")
+
+
+def gpt_trace_step(torch, pt, dev):
+    """Phase 7's step: bench.py main()'s O2 bf16 AdamW 345M at 8 x 1024."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    pt.seed(SEED)
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    model = pt.amp.decorate(GPTForPretraining(cfg, device=dev), level="O2", dtype="bfloat16")
+    criterion = GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                             weight_decay=0.01)
+    step = pt.jit.compile_train_step(model, lambda lo, lb: criterion(lo.float(), lb), opt)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1), generator=gen, device=dev)
+    return step, (ids[:, :-1], ids[:, 1:]), cfg.num_layers
+
+
+def bert_trace_step(torch, pt, dev):
+    """Phase 7d's AdamW step: bench_bert's O2 bf16 BERT-base at 8 x 512."""
+    from paddle_tpu_torch.models.bert import (BertConfig, BertForPretraining,
+                                              BertPretrainingCriterion)
+
+    pt.seed(SEED)
+    cfg = BertConfig(**BERT_CFG, dropout=0.0, attn_dropout=0.0)
+    model = pt.amp.decorate(BertForPretraining(cfg, device=dev), level="O2", dtype="bfloat16")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    step = pt.jit.compile_train_step(model, bert_loss_fn(BertPretrainingCriterion()), opt)
+    return step, bert_batch(torch, cfg, BERT_BATCH, dev), cfg.num_layers
+
+
+def resnet_trace_step(torch, pt, dev):
+    """Phase 12a's step: bench_resnet50's O2 bf16 ResNet-50, Momentum."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    pt.seed(SEED)
+    model = pt.amp.decorate(resnet50(num_classes=1000), level="O2", dtype="bfloat16")
+    opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9, parameters=model.parameters())
+    loss_fn = pt.nn.CrossEntropyLoss()
+    step = pt.jit.compile_train_step(model, lambda out, y: loss_fn(out.astype("float32"), y),
+                                     opt)
+    return step, resnet_batch(pt, RESNET_BATCH), None
+
+
+# The traces (phases 8, 8b and 12d) run in processes of their own: a profiler
+# session in a process where earlier sessions recorded tens of thousands of
+# operations loses some of its records (a BERT replay traced with 6139-6144
+# of its 6159 operations late in this script, one of them a flash launch;
+# ResNet-50's with 3736 of 3778), where a fresh process keeps them all.
+TRACE_STEPS = {"gpt": gpt_trace_step, "bert": bert_trace_step, "resnet": resnet_trace_step}
+TRACE_TITLES = {"gpt": "[8] torch.profiler trace of one replayed step (phase 7's, in a "
+                       "process of its own)",
+                "bert": "[8b] torch.profiler trace of one replayed BERT-base step (phase "
+                        "7d's AdamW step, in a process of its own)"}
+TRACE_CHILD_TIMEOUT_S = 300
+
+
+def trace_child(kind: str) -> int:
+    """``chip_smoke.py --trace KIND``: build KIND's step (``TRACE_STEPS``),
+    run its eager steps and its capture, then trace a replay (phase 8, 8b or
+    12d) with that phase's checks. Returns the exit code."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    step, batch, n_layers = TRACE_STEPS[kind](torch, pt, dev)
+    for _ in range(pt.jit.WARMUP_STEPS + 1):  # the eager steps, then the capture
+        step(*batch)
+    (entry,) = step._captured.values()
+    check(entry.graph is not None, f"the {kind} step was not captured")
+    if kind == "resnet":
+        resnet50_trace(torch, step, batch)
+    else:
+        profile_replay(torch, step, batch, n_layers, TRACE_TITLES[kind])
+    return 0
+
+
+def run_trace_child(kind):
+    """Run ``trace_child(kind)`` in a process of its own; print its output and
+    fail when it does."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--trace", kind],
+                          capture_output=True, text=True, timeout=TRACE_CHILD_TIMEOUT_S)
+    print(proc.stdout.rstrip())
+    print(f"  (its process: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"the {kind} trace failed")
+
+
+def nn_and_resnet50(torch, pt, fa, fu, dev):
+    """Phase 12: 12a-12d."""
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)  # a context before the memory statistics are reset
+    o2 = resnet50_o2(torch, pt, dev)
+    f32 = resnet50_f32_momentum(torch, pt, fu, dev)
+    enc = transformer_encoder(torch, pt, fa, dev)
+    torch.cuda.empty_cache()
+    run_trace_child("resnet")
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+    return {"o2": o2, "f32": f32, "encoder": enc}
+
+
 # The tf32x3 forward's repeat witness (``--tf32-repeat N``): N fresh processes
 # each build (or load) the library and compare the first two launches of the
 # process at phase 3's first case bit for bit; then, where the toolkit has
@@ -3610,6 +4155,8 @@ def main() -> int:
     if "--resume-child" in sys.argv:
         at = sys.argv.index("--resume-child")
         return resume_child(sys.argv[at + 1], sys.argv[at + 2])
+    if "--trace" in sys.argv:
+        return trace_child(sys.argv[sys.argv.index("--trace") + 1])
     if "--tf32-repeat-once" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -3787,12 +4334,10 @@ def main() -> int:
     recompute = recompute_step_345m(torch, pt, fa, gen, dev, train)
     o1 = o1_fp16_scaler_345m(torch, pt, fa, fu, gen, dev)
     grad_input_step(torch, pt, fa, gen, dev)
-    step, x, y, n_layers = train.pop("profile")
-    profile_replay(torch, step, (x, y), n_layers)
-    del step, x, y
     torch.cuda.empty_cache()
-    # 7c. checkpoint and resume, in processes of its own (after phase 8: the
-    # phase 7 step is freed)
+    run_trace_child("gpt")
+    # 7c. checkpoint and resume, in processes of its own (phase 7's step is
+    # freed by now)
     resume = checkpoint_resume_345m(torch, card)
     # 7d. BERT-base pretraining: the non-causal flash kernels on a model's path
     bert = bert_pretraining(torch, pt, fa, gen, dev)
@@ -3811,20 +4356,21 @@ def main() -> int:
     check(f32_train == want, f"f32 training flash launches {f32_train}, expected {want}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
     # 8b. a trace of one replayed BERT step, after every host-clock window
-    step, batch, n_layers = bert.pop("trace")
-    profile_replay(torch, step, batch, n_layers,
-                   "[8b] torch.profiler trace of one replayed BERT-base step (phase 7d, AdamW)")
-    del step, batch
     torch.cuda.empty_cache()
+    run_trace_child("bert")
     # 11b. the tensor surface: a Paddle user's 345M step, the surface on the card
     surface = tensor_surface(torch, pt, fa, fu, dev)
     sf = surface["flash"]
+    # 12. paddle.nn and ResNet-50: the O2 step, the Momentum kernel at its
+    # width, the encoder on the flash kernels, a traced replay
+    nn12 = nn_and_resnet50(torch, pt, fa, fu, dev)
+    enc = nn12["encoder"]["launches"]
 
-    # 12. per-kernel numbers, then the result
+    # 13. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[12] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[13] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -3878,6 +4424,13 @@ def main() -> int:
           f"{bert['lamb']['step_ms']:.3f}, masked with dropout 0.1 (dense attention, f32 after "
           f"the first layer) {bert['masked']['step_ms']:.3f}; f32 eval forward "
           f"{bert['eval']['fwd_ms']:.3f}")
+    o2, f32r = nn12["o2"], nn12["f32"]
+    print(f"    ResNet-50 (12a, O2 bf16, {RESNET_BATCH} x 224^2): {o2['step_ms']:.3f} ms per "
+          f"replay, resnet50_amp_o2_imgs_per_sec_per_chip {o2['imgs_per_s']:.1f}, peak "
+          f"{o2['peak_gb']:.2f} GB; f32 eager (12b, {RESNET_F32_BATCH} images): opt.step() "
+          f"{f32r['opt_ms']:.3f} ms with the Momentum kernel, {f32r['opt_ms_rule']:.3f} with "
+          f"the rule, the step {f32r['step_ms']:.3f} / {f32r['step_ms_rule']:.3f} ms; the "
+          f"encoder step (12c) {nn12['encoder']['step_ms']:.3f} ms per replay")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -3902,22 +4455,24 @@ def main() -> int:
     rows = [
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
             inference["fwd_sm90"] + train["launches"]["fwd_sm90"] + resume["fwd_sm90"]
-            + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"], fwd16),
+            + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"]
+            + enc["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
-            inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"], fwd32),
+            inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"]
+            + enc["fwd_tf32x3"], fwd32),
         # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
             train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
-            + o1["launches"]["dkv_sm90"], bwd["bfloat16"]["dkv"]),
+            + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
             f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"], bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
-            + o1["launches"]["dq_sm90"], bwd["bfloat16"]["dq"]),
+            + o1["launches"]["dq_sm90"] + enc["dq_sm90"], bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
             f32_train["dq_tf32x3"] + sf["dq_tf32x3"], bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
@@ -3951,7 +4506,8 @@ def main() -> int:
             "source": "paddle_tpu_torch/csrc/fused_update.cu",
             "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
             "launches": launches_f32[kind] + (o1["adam"] + surface["adam"] if kind == "adam"
-                                              else 0),
+                                              else 0)
+            + (f32r["launches"] if kind == "momentum" else 0),
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -17,7 +17,7 @@ unwrap a Tensor at entry (no copy) and wrap what they return; calls with
 torch tensors run as they did. The ``paddle.*`` functions also take a plain
 ``torch.Tensor``, as a Tensor whose ``stop_gradient`` is ``not
 requires_grad``. Parameters stay torch ``nn.Parameter``s (their Paddle
-surface, ``ParamAttr`` and friends, is ROADMAP queue 1 item 4).
+surface is ``ParamAttr`` and ``nn.layer.common.param_of``).
 """
 from __future__ import annotations
 
@@ -49,6 +49,8 @@ from . import (  # noqa: F401,E402
 from .autograd import grad  # noqa: F401,E402
 from .batch import batch  # noqa: F401,E402
 from .framework.io_utils import load, save  # noqa: F401,E402
+from .nn.param_attr import ParamAttr  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
 
 bool = bool_  # noqa: A001 — paddle.bool is the dtype
 dtype = DType
@@ -58,6 +60,7 @@ set_cuda_rng_state = set_rng_state
 
 __all__ = sorted(set(_tensor_api.__all__) | {
     "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "CustomPlace", "DType", "Generator",
+    "ParamAttr", "vision",
     "IPUPlace", "MLUPlace", "NPUPlace", "Place", "TPUPlace", "Tensor", "XPUPlace", "amp",
     "autograd", "batch", "bfloat16", "bool", "bool_", "complex64", "complex128",
     "device_count", "distributed", "dtype", "enable_grad", "float16", "float32", "float64",

@@ -51,11 +51,13 @@ def apply(fn: Callable, *args, differentiable: bool = True, **kwargs):
 
 
 def wrap(out):
-    """Torch results as Tensors, through tuples, lists and dicts."""
+    """Torch results as Tensors, through tuples (named ones too), lists and dicts."""
     from .tensor import _wrap
 
     if isinstance(out, torch.Tensor):
         return _wrap(out)
+    if isinstance(out, tuple) and hasattr(out, "_fields"):  # a namedtuple
+        return type(out)(*(wrap(o) for o in out))
     if isinstance(out, (tuple, list)):
         return type(out)(wrap(o) for o in out)
     if isinstance(out, dict):
@@ -64,9 +66,12 @@ def wrap(out):
 
 
 def unwrap(x):
-    """Tensors as their torch values, through tuples, lists and dicts (no copy)."""
+    """Tensors as their torch values, through tuples (named ones too), lists and
+    dicts (no copy)."""
     if isinstance(x, _tensor_cls()):
         return x._value
+    if isinstance(x, tuple) and hasattr(x, "_fields"):  # a namedtuple
+        return type(x)(*(unwrap(v) for v in x))
     if isinstance(x, (tuple, list)):
         return type(x)(unwrap(v) for v in x)
     if isinstance(x, dict):

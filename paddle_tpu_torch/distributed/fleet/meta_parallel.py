@@ -11,7 +11,7 @@ import torch
 
 from ...nn import functional as F
 from ...nn import initializer as I
-from ...nn.layer.common import _init_of, create_parameter
+from ...nn.layer.common import create_parameter, param_of
 from ...nn.layer_base import Layer
 
 __all__ = [
@@ -31,8 +31,8 @@ class VocabParallelEmbedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
                  mp_group=None, name=None, device=None):
         super().__init__()
-        self.weight = create_parameter(
-            [num_embeddings, embedding_dim], _init_of(weight_attr, I.XavierNormal()), device
+        self.weight = param_of(
+            [num_embeddings, embedding_dim], weight_attr, I.XavierNormal(), device
         )
 
     def forward(self, x):
@@ -46,8 +46,8 @@ class ColumnParallelLinear(Layer):
                  gather_output=True, fuse_matmul_bias=False, mp_group=None,
                  name=None, device=None):
         super().__init__()
-        self.weight = create_parameter(
-            [in_features, out_features], _init_of(weight_attr, I.XavierNormal()), device
+        self.weight = param_of(
+            [in_features, out_features], weight_attr, I.XavierNormal(), device
         )
         self.bias = (
             create_parameter([out_features], I.Constant(0.0), device) if has_bias else None
@@ -66,8 +66,8 @@ class RowParallelLinear(Layer):
                  input_is_parallel=False, fuse_matmul_bias=False, mp_group=None,
                  name=None, device=None):
         super().__init__()
-        self.weight = create_parameter(
-            [in_features, out_features], _init_of(weight_attr, I.XavierNormal()), device
+        self.weight = param_of(
+            [in_features, out_features], weight_attr, I.XavierNormal(), device
         )
         self.bias = (
             create_parameter([out_features], I.Constant(0.0), device) if has_bias else None

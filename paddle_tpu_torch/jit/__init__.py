@@ -37,6 +37,13 @@ states registered with the graph, one pair per segment the warm-up steps
 counted, seeded before every replay from a key drawn from the device's
 generator: ``paddle.set_rng_state`` brings back every mask of a replay.
 
+A batch of ``paddle.Tensor``s is unwrapped (no copy) into the step's torch
+inputs, and the model and the loss function get ``Tensor``s over them, as
+the JAX step gives them (``paddle_tpu/jit/__init__.py:418-422``); the loss
+comes back as a ``Tensor``. A batch of torch tensors runs on torch tensors
+throughout and gets a torch loss back. Inside a capture the cells are made
+around the static input buffers, so no cell outlives a replay.
+
 On the CPU the same step function runs eagerly on every call. That is the
 path the tests take, not a fallback: there is no graph on the CPU.
 
@@ -49,6 +56,7 @@ from typing import Callable, Dict
 
 import torch
 
+from ..core import dispatch
 from ..core import random as _random
 from ..optimizer.optimizer import apply_update
 
@@ -86,17 +94,21 @@ class CompiledTrainStep:
     def _states(self):
         return [self.optimizer._state_of(p) for p in self._params]
 
-    def _step_fn(self, batch, lr, states):
+    def _step_fn(self, batch, lr, states, as_tensors=False):
         """The whole step: loss, gradients, then the in-place update. Returns
-        the loss and the gradients of the ``grad_input_idx`` batch inputs."""
+        the loss and the gradients of the ``grad_input_idx`` batch inputs.
+        With ``as_tensors`` the model and the loss function get Paddle
+        Tensors over the batch's torch tensors."""
         model = self.model
         batch = list(batch)
         for i in self._grad_input_idx:
             batch[i] = batch[i].detach().requires_grad_()
         diff = [batch[i] for i in self._grad_input_idx]
+        ins = [dispatch.wrap(b) for b in batch] if as_tensors else batch
         with torch.enable_grad():
-            out = model(*batch[:-1]) if len(batch) > 1 else model(batch[0])
-            loss = self.loss_fn(out, batch[-1]) if self.loss_fn is not None else out
+            out = model(*ins[:-1]) if len(ins) > 1 else model(ins[0])
+            loss = self.loss_fn(out, ins[-1]) if self.loss_fn is not None else out
+            loss = dispatch.unwrap(loss)
             grads = torch.autograd.grad(loss, self._params + diff, allow_unused=True)
         grads, in_grads = list(grads[:len(self._params)]), grads[len(self._params):]
         clip = self.optimizer._grad_clip
@@ -111,30 +123,33 @@ class CompiledTrainStep:
 
     def __call__(self, *batch):
         device = self._device()
-        batch = [torch.as_tensor(b).to(device) for b in batch]
+        as_tensors = dispatch.holds_tensor(batch, {})
+        batch = [torch.as_tensor(dispatch.unwrap(b)).to(device) for b in batch]
         states = self._states()
         if device.type == "cuda":
-            loss, in_grads = self._cuda_step(device, batch, states)
+            loss, in_grads = self._cuda_step(device, batch, states, as_tensors)
         else:
             lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32, device=device)
-            loss, in_grads = self._step_fn(batch, lr, states)
+            loss, in_grads = self._step_fn(batch, lr, states, as_tensors)
         self.optimizer._step_count += 1
+        if as_tensors:
+            loss, in_grads = dispatch.wrap(loss), dispatch.wrap(list(in_grads))
         if self._grad_input_idx:
             return loss, list(in_grads)
         return loss
 
-    def _cuda_step(self, device, batch, states):
+    def _cuda_step(self, device, batch, states, as_tensors):
         if self._lr is None:
             self._lr = torch.empty((), dtype=torch.float32, device=device)
         self._lr.fill_(self.optimizer.get_lr())
-        sig = tuple((tuple(b.shape), b.dtype, b.device) for b in batch)
+        sig = (as_tensors,) + tuple((tuple(b.shape), b.dtype, b.device) for b in batch)
         entry = self._captured.setdefault(sig, _Captured())
         if entry.graph is None and entry.eager_steps < WARMUP_STEPS:
             # eager warm-up on a side stream, as torch.cuda.graphs asks
             side = torch.cuda.Stream(device=device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side), _random.counting_segments() as seen:
-                out = self._step_fn(batch, self._lr, states)
+                out = self._step_fn(batch, self._lr, states, as_tensors)
             torch.cuda.current_stream(device).wait_stream(side)
             entry.segments = seen.count
             entry.eager_steps += 1
@@ -145,7 +160,7 @@ class CompiledTrainStep:
             torch.cuda.synchronize(device)
             with _random.register_generator_state(graph, device, entry.segments) \
                     as entry.pairs, torch.cuda.graph(graph):
-                entry.out = self._step_fn(entry.inputs, self._lr, states)
+                entry.out = self._step_fn(entry.inputs, self._lr, states, as_tensors)
             entry.graph = graph
         for buf, b in zip(entry.inputs, batch):
             buf.copy_(b)

@@ -1,6 +1,14 @@
 """``paddle.nn`` for the port: layers are ``nn.Layer``s, ``torch.nn.Module``s
-with Paddle's state methods."""
-from . import clip, functional, initializer, layer_base  # noqa: F401
+with Paddle's state methods (``paddle_tpu/nn/__init__.py``).
+
+Not ported yet (ROADMAP, open items, queue 1 item 4's remainder): the
+recurrent layers of ``nn/layer/rnn.py`` (``RNN``, ``SimpleRNN``, ``LSTM``,
+``GRU``, their cells, ``BiRNN``, ``BeamSearchDecoder``, ``dynamic_decode``)
+and ``nn.quant``.
+"""
+import torch
+
+from . import clip, functional, initializer, layer_base, utils  # noqa: F401
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm,
     ClipGradByNorm,
@@ -9,5 +17,40 @@ from .clip import (  # noqa: F401
     GradientClipByNorm,
     GradientClipByValue,
 )
-from .layer import Dropout, Embedding, LayerList, LayerNorm, Linear  # noqa: F401
+from .layer.activation import (  # noqa: F401
+    CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh, LeakyReLU, LogSigmoid,
+    LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, SELU, Sigmoid, Silu, Softmax, Softplus,
+    Softshrink, Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU,
+)
+from .layer.common import (  # noqa: F401
+    AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D, Dropout3D, Embedding,
+    Flatten, Fold, Identity, LayerDict, LayerList, Linear, Pad1D, Pad2D, Pad3D,
+    PairwiseDistance, ParameterList, PixelShuffle, PixelUnshuffle, Sequential, Unfold,
+    Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
+)
+from .layer.conv import (  # noqa: F401
+    Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose,
+)
+from .layer.loss import (  # noqa: F401
+    BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, CTCLoss, HingeEmbeddingLoss, HSigmoidLoss,
+    KLDivLoss, L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+)
+from .layer.norm import (  # noqa: F401
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm, InstanceNorm1D,
+    InstanceNorm2D, InstanceNorm3D, LayerNorm, LocalResponseNorm, SpectralNorm, SyncBatchNorm,
+)
+from .layer.pooling import (  # noqa: F401
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+    AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D, AvgPool2D, AvgPool3D, MaxPool1D,
+    MaxPool2D, MaxPool3D, MaxUnPool1D, MaxUnPool2D, MaxUnPool3D,
+)
+from .layer.transformer import (  # noqa: F401
+    MultiHeadAttention, Transformer, TransformerDecoder, TransformerDecoderLayer,
+    TransformerEncoder, TransformerEncoderLayer,
+)
 from .layer_base import Layer  # noqa: F401
+from .param_attr import ParamAttr  # noqa: F401
+from .utils_fns import clip_grad_norm_, clip_grad_value_  # noqa: F401
+
+# the port's parameters are torch's
+Parameter = torch.nn.Parameter

@@ -1,2 +1,1 @@
-from .common import Dropout, Embedding, LayerList, Linear  # noqa: F401
-from .norm import LayerNorm  # noqa: F401
+from . import activation, common, conv, loss, norm, pooling, transformer  # noqa: F401

@@ -11,8 +11,13 @@ stay valid. ``create_parameter``, ``add_parameter``, ``add_sublayer``,
 ``sublayers``, ``named_sublayers``, ``clear_gradients``, ``full_name`` and
 ``register_forward_post_hook`` keep the JAX methods' order and return
 values; torch's own methods of the same purpose (``named_modules``,
-``register_forward_hook``, ...) stay as they are. A layer takes Paddle
-Tensors as well as torch tensors (``__call__``).
+``register_forward_hook``, ...) stay as they are. ``apply`` visits the
+layer before its sublayers, as Paddle does (torch visits it last);
+``to`` and ``register_buffer`` also take Paddle's forms (dtype names,
+place strings, ``persistable``). torch's ``register_forward_pre_hook``
+already has Paddle's contract: ``hook(layer, inputs)``, a result that is
+not None replaces the inputs, and a handle with ``remove()``. A layer
+takes Paddle Tensors as well as torch tensors (``__call__``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 
 from ..convert import source_for
 from ..core import dispatch
-from ..core.dtype import to_torch_dtype
+from ..core.dtype import DType, to_torch_dtype
 from ..core.place import torch_device
 
 __all__ = ["Layer"]
@@ -69,26 +74,47 @@ class Layer(torch.nn.Module):
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
         """A new parameter of ``shape``, not yet registered (assign it to an
-        attribute, or ``add_parameter`` it). Its initializer is ``attr`` when
-        that is an Initializer, else ``default_initializer``, else zeros for
-        a bias and XavierNormal otherwise; its dtype ``dtype`` or the
-        layer's (float32). It lies on the device of this layer's first
+        attribute, or ``add_parameter`` it). ``attr`` is a ``ParamAttr``
+        (its initializer, ``trainable`` and name), an Initializer or None;
+        the initializer falls back to ``set_global_initializer``'s, then to
+        ``default_initializer``, then to zeros for a bias and XavierNormal
+        otherwise (``nn.layer.common.param_of``). Its dtype is ``dtype`` or
+        the layer's (float32). It lies on the device of this layer's first
         parameter, or on the current device when the layer has none, and
-        carries a Paddle name, ``param_<n>``, in ``param_name``."""
-        from . import initializer as I
-        from .layer.common import create_parameter
+        carries a Paddle name, ``param_<n>`` unless the attribute names it,
+        in ``param_name``."""
+        from .layer.common import param_of
 
-        if attr is not None and attr is not False and not isinstance(attr, I.Initializer):
-            raise NotImplementedError(
-                "create_parameter(attr=ParamAttr(...)) is not ported yet (ROADMAP, open "
-                "items, queue 1 item 4); pass an Initializer"
-            )
-        init = attr if isinstance(attr, I.Initializer) else default_initializer
-        if init is None:
-            init = I.Constant(0.0) if is_bias else I.XavierNormal()
         first = next(self.parameters(), None)
         device = first.device if first is not None else torch_device(None)
-        return create_parameter(shape, init, device, to_torch_dtype(dtype or self._dtype))
+        return param_of(shape, attr if attr is not False else None, default_initializer,
+                        device, to_torch_dtype(dtype or self._dtype), is_bias)
+
+    def register_buffer(self, name, tensor, persistable=True, persistent=None):
+        """Paddle's ``persistable`` (torch's ``persistent``): a buffer that is
+        not persistable stays out of ``state_dict``."""
+        return super().register_buffer(
+            name, dispatch.unwrap(tensor), persistable if persistent is None else persistent)
+
+    def to(self, device=None, dtype=None, blocking=None, **kwargs):
+        """``to(device=None, dtype=None, blocking=None)`` with Paddle's dtype
+        names and places, or torch's own arguments: floating parameters and
+        buffers cast, everything moved (``blocking`` is accepted; the copies
+        are torch's)."""
+        if isinstance(device, (torch.dtype, DType)) or (
+                isinstance(device, str) and not device.startswith(("cpu", "gpu", "cuda"))):
+            device, dtype = None, device  # torch's positional dtype
+        if dtype is not None and not isinstance(dtype, torch.dtype):
+            dtype = to_torch_dtype(dtype)
+        if device is not None and not isinstance(device, (torch.device, torch.Tensor, int)):
+            device = torch_device(device)  # a Paddle place or place string
+        return super().to(*[a for a in (device, dtype) if a is not None], **kwargs)
+
+    def apply(self, fn):
+        """``fn(layer)`` on this layer, then on every sublayer depth first."""
+        for layer in self.sublayers(include_self=True):
+            fn(layer)
+        return self
 
     def add_parameter(self, name, parameter):
         self.register_parameter(name, parameter)

@@ -51,3 +51,10 @@ def tril_indices(*, row, col, offset=0, device=None):
 
 def triu_indices(*, row, col, offset=0, device=None):
     return torch.triu_indices(row, col, offset, device=device)
+
+
+def one_hot(x, *, num_classes):
+    """f32 one-hot rows; a label outside ``[0, num_classes)`` gives a row of
+    zeros, as ``jax.nn.one_hot`` does."""
+    classes = torch.arange(num_classes, device=x.device)
+    return (x.unsqueeze(-1) == classes).to(torch.float32)

@@ -254,3 +254,42 @@ def unfold(x, *, kernel_sizes, strides=1, paddings=0, dilations=1):
         paddings = (paddings[0], paddings[1], paddings[0], paddings[1])
     x = torch.nn.functional.pad(x, (paddings[1], paddings[3], paddings[0], paddings[2]))
     return torch.nn.functional.unfold(x, kernel_sizes, dilation=dilations, stride=strides)
+
+
+def pad(x, *, pad, mode="constant", value=0.0, data_format="NCHW"):
+    """``paddle.nn.functional.pad``: a pad list of 2 x ndim is a (before,
+    after) pair per axis in order; a shorter one pads the trailing spatial
+    axes, last axis first (before the channel axis for channel-last
+    formats). ``reflect`` mirrors without the edge, ``replicate`` repeats it,
+    ``circular`` wraps, as jnp's ``reflect``, ``edge`` and ``wrap``."""
+    pad = [int(p) for p in pad]
+    if len(pad) == 2 * x.dim():
+        widths = [(pad[2 * i], pad[2 * i + 1]) for i in range(x.dim())]
+    else:
+        n_spatial = len(pad) // 2
+        widths = [(0, 0)] * x.dim()
+        if data_format.endswith("C"):
+            spatial_axes = list(range(1, 1 + n_spatial))
+        else:
+            spatial_axes = list(range(x.dim() - n_spatial, x.dim()))
+        for i, ax in enumerate(reversed(spatial_axes)):
+            widths[ax] = (pad[2 * i], pad[2 * i + 1])
+    if mode == "constant":
+        flat = [v for lo, hi in reversed(widths) for v in (lo, hi)]
+        return torch.nn.functional.pad(x, flat, value=value)
+    for ax, (lo, hi) in enumerate(widths):
+        if lo == 0 and hi == 0:
+            continue
+        n = x.shape[ax]
+        i = torch.arange(-lo, n + hi, device=x.device)
+        if mode == "replicate":
+            i = i.clamp(0, n - 1)
+        elif mode == "reflect":
+            i = i.abs()
+            i = torch.where(i >= n, 2 * (n - 1) - i, i)
+        elif mode == "circular":
+            i = i.remainder(n)
+        else:
+            raise ValueError(f"unknown pad mode {mode!r}")
+        x = x.index_select(ax, i)
+    return x

@@ -1150,6 +1150,24 @@ def _bind_remaining_tensor_methods():
         mod.setdefault(nm, getattr(Tensor, nm))
 
 
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """A standalone trainable parameter on the current device
+    (``paddle.create_parameter``): ``default_initializer``, else the
+    attribute's initializer, else zeros for a bias and XavierNormal
+    otherwise; ``name`` becomes its ``param_name``."""
+    from .nn import initializer as I
+    from .nn.layer.common import create_parameter as make
+
+    init = (default_initializer or getattr(attr, "initializer", None)
+            or (I.Constant(0.0) if is_bias else I.XavierNormal()))
+    param = make(shape, init, None, to_torch_dtype(dtype))
+    if name:
+        param.param_name = name
+    return param
+
+
 _bind_remaining_tensor_methods()
 
 __all__ = [n for n, v in globals().items() if not n.startswith("_") and n != "METHOD_NAMES"

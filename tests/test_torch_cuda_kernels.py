@@ -26,7 +26,9 @@ kernels as they are; a captured BERT step launches them once per layer, and
 the optimizers without a fused kernel replay as their eager steps do. The
 tensor surface lives on the card by default, rebinds in place there, runs
 backward and ``paddle.grad`` there, and a model step with Tensor inputs is
-bitwise the step with torch inputs.
+bitwise the step with torch inputs. A batch norm's running statistics
+accumulate in place across a compiled step's graph replays, and a
+convolution decorated for O2 runs in bf16.
 """
 import copy
 
@@ -964,3 +966,66 @@ def test_surface_model_step_equals_the_torch_step_on_the_card():
         losses.append(run)
     assert losses[0] == losses[1]
     assert all(torch.equal(a, b) for a, b in zip(model.parameters(), twin.parameters()))
+
+
+@pytest.mark.cuda
+def test_batch_norm_statistics_accumulate_across_graph_replays_in_place():
+    """A compiled step over a BatchNorm2D network: every replay writes the
+    running statistics into the same buffers, so after N replays they equal
+    an eager copy's after the same N steps."""
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    try:
+        pt.seed(0)
+        net = pt.nn.Sequential(pt.nn.Conv2D(3, 8, 3, padding=1), pt.nn.BatchNorm2D(8),
+                               pt.nn.ReLU(), pt.nn.AdaptiveAvgPool2D(1), pt.nn.Flatten(),
+                               pt.nn.Linear(8, 4))
+        twin = copy.deepcopy(net)
+        crit = pt.nn.CrossEntropyLoss()
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((16, 3, 8, 8)).astype(np.float32)).to(card)
+        y = torch.from_numpy(rng.integers(0, 4, 16)).to(card)
+        opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9, parameters=net.parameters())
+        step = pt.jit.compile_train_step(net, lambda o, t: crit(o, t), opt)
+        bn, bn_twin = net[1], twin[1]
+        ptrs = (bn._mean.data_ptr(), bn._variance.data_ptr())
+        n = pt.jit.WARMUP_STEPS + 4  # the eager steps, the capture, then replays
+        for _ in range(n):
+            step(x, y)
+        opt_t = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                      parameters=twin.parameters())
+        for _ in range(n):
+            loss = crit(twin(x), y)
+            loss.backward()
+            opt_t.step()
+            opt_t.clear_grad()
+        torch.cuda.synchronize()
+        assert (bn._mean.data_ptr(), bn._variance.data_ptr()) == ptrs
+        assert step._captured and all(e.graph is not None for e in step._captured.values())
+        torch.testing.assert_close(bn._mean, bn_twin._mean, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(bn._variance, bn_twin._variance, rtol=1e-4, atol=1e-5)
+        assert not torch.equal(bn._variance, torch.ones_like(bn._variance))
+    finally:
+        pt.set_device(was)
+
+
+@pytest.mark.cuda
+def test_conv2d_under_o2_runs_in_bf16():
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    try:
+        conv = pt.amp.decorate(pt.nn.Conv2D(4, 8, 3, padding=1), level="O2", dtype="bfloat16")
+        assert conv.weight.dtype == torch.bfloat16
+        x = torch.randn(2, 4, 16, 16, device=card)
+        out = conv(x)
+        assert out.dtype == torch.bfloat16 and out.device.type == "cuda"
+        ref = torch.nn.functional.conv2d(x.bfloat16().float(), conv.weight.float(),
+                                         conv.bias.float(), padding=1)
+        torch.testing.assert_close(out.float(), ref, rtol=3e-2, atol=3e-2)
+        with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+            f32 = pt.nn.Conv2D(4, 8, 3, padding=1)
+            assert f32(x).dtype == torch.bfloat16  # conv2d is on the O1 white list
+    finally:
+        pt.set_device(was)

@@ -202,8 +202,18 @@ def test_create_parameter_matches_jax():
     xavier = layer.create_parameter([64, 64])
     assert xavier.device.type == "cpu"
     assert 0.1 < xavier.std().item() < 0.15  # XavierNormal: sqrt(2 / 128) = 0.125
-    with pytest.raises(NotImplementedError, match="ParamAttr"):
-        layer.create_parameter([2], attr=object())
+    # a ParamAttr: its initializer over the default, its trainable flag and name
+    attr = pt.nn.ParamAttr(name="w_attr", initializer=pt.nn.initializer.Constant(0.25),
+                           trainable=False)
+    jattr = paddle.nn.ParamAttr(name="w_attr", initializer=paddle.nn.initializer.Constant(0.25),
+                                trainable=False)
+    frozen = layer.create_parameter([3], attr=attr,
+                                    default_initializer=pt.nn.initializer.Constant(9.0))
+    jfrozen = paddle.nn.Layer().create_parameter(
+        [3], attr=jattr, default_initializer=paddle.nn.initializer.Constant(9.0))
+    np.testing.assert_array_equal(frozen.detach().numpy(), jfrozen.numpy())
+    assert not frozen.requires_grad and jfrozen.stop_gradient
+    assert frozen.param_name == jfrozen.name == "w_attr"
 
 
 def test_clear_gradients_and_forward_post_hook_match_jax():

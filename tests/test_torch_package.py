@@ -422,12 +422,11 @@ def test_bert_path_loads_neither_jax_nor_paddle_tpu():
 
 # top-level names of API.spec whose modules belong to later queue items
 # (ROADMAP queue 1): hapi (item 14), DataParallel (item 13), static mode
-# (item 14), ParamAttr and create_parameter (item 4)
+# (item 14)
 TOP_LEVEL_LATER = {
     "paddle.Model": "item 14", "paddle.summary": "item 14", "paddle.flops": "item 14",
     "paddle.DataParallel": "item 13", "paddle.enable_static": "item 14",
-    "paddle.disable_static": "item 14", "paddle.ParamAttr": "item 4",
-    "paddle.create_parameter": "item 4",
+    "paddle.disable_static": "item 14",
 }
 
 
@@ -503,6 +502,64 @@ def test_paddle_style_script_loads_neither_jax_nor_paddle_tpu():
         "with paddle.no_grad():\n"
         "    acc = (paddle.argmax(m(ids[:, :-1]), axis=-1) == ids[:, 1:]).astype('float32').mean()\n"
         "assert acc.stop_gradient and 0.0 <= float(acc) <= 1.0\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
+
+
+# API.spec names of paddle.nn left to queue 1 item 4's remainder (nn/layer/rnn.py)
+NN_REMAINDER = {"BeamSearchDecoder", "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN",
+                "RNNCellBase", "SimpleRNN", "SimpleRNNCell", "dynamic_decode"}
+# paddle.vision.models names of models_extra.py, with the rest of vision/ (item 14)
+VISION_LATER = {"DenseNet", "GoogLeNet", "InceptionV3", "MobileNetV1", "MobileNetV3",
+                "MobileNetV3Large", "MobileNetV3Small", "ShuffleNetV2", "SqueezeNet",
+                "densenet121", "densenet161", "densenet169", "densenet201", "densenet264",
+                "googlenet", "inception_v3", "mobilenet_v1", "mobilenet_v3_large",
+                "mobilenet_v3_small", "shufflenet_v2_swish", "shufflenet_v2_x0_25",
+                "shufflenet_v2_x0_33", "shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
+                "shufflenet_v2_x1_5", "shufflenet_v2_x2_0", "squeezenet1_0", "squeezenet1_1"}
+
+
+def test_api_spec_surface_of_nn_and_vision_models():
+    """Every ``paddle.nn.*``, ``paddle.nn.functional.*``,
+    ``paddle.nn.initializer.*`` and ``paddle.vision.models`` / ``resnet`` /
+    ``vgg`` name of API.spec resolves in the port, but the recurrent layers
+    (item 4's remainder) and ``models_extra``'s families (item 14)."""
+    names = _api_names()
+    scoped = [n for n in names if n.startswith(("paddle.nn.", "paddle.vision.models."))
+              or n.startswith(("paddle.vision.resnet", "paddle.vision.vgg"))
+              or n in ("paddle.vision.LeNet", "paddle.vision.ResNet")]
+    assert len(scoped) > 300
+    missing = sorted(n.rsplit(".", 1)[1] for n in scoped if _resolve(n) is None)
+    assert missing == sorted(NN_REMAINDER | VISION_LATER), missing
+    assert _resolve("paddle.nn.Conv2D") is pt.nn.layer.conv.Conv2D
+    assert _resolve("paddle.vision.resnet50") is pt.vision.models.resnet50
+    assert _resolve("paddle.ParamAttr") is pt.nn.ParamAttr
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 711  # 461 of 1208 before the nn slice
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names "
+          f"({covered / len(names):.1%}); nn and vision models: "
+          f"{len(scoped) - len(missing)} of {len(scoped)}")
+
+
+def test_nn_and_resnet_paths_load_neither_jax_nor_paddle_tpu():
+    # the nn slice: a Paddle-style ResNet step through compile_train_step on
+    # paddle.Tensor inputs, and the nn layers of the encoder
+    out = _run(
+        "import sys, numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "from paddle_tpu_torch.vision.models import resnet18\n"
+        "paddle.set_device('cpu')\n"
+        "m = paddle.amp.decorate(resnet18(num_classes=4), level='O2', dtype='bfloat16')\n"
+        "opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,\n"
+        "                                parameters=m.parameters())\n"
+        "crit = paddle.nn.CrossEntropyLoss()\n"
+        "step = paddle.jit.compile_train_step(m, lambda o, y: crit(o.astype('float32'), y), opt)\n"
+        "x = paddle.to_tensor(np.zeros((2, 3, 32, 32), np.float32))\n"
+        "loss = step(x, paddle.to_tensor(np.array([1, 2])))\n"
+        "assert isinstance(loss, paddle.Tensor) and np.isfinite(float(loss))\n"
+        "enc = paddle.nn.TransformerEncoder(paddle.nn.TransformerEncoderLayer(8, 2, 16), 2)\n"
+        "assert enc(paddle.to_tensor(np.ones((1, 4, 8), np.float32))).shape == [1, 4, 8]\n"
         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
     )
     assert out.strip() == "[]"

@@ -150,11 +150,27 @@ def test_cross_entropy_with_an_ignore_index_at_the_class_count(reduction):
 
 
 def test_cross_entropy_unported_branches_raise():
-    logits, labels = (torch.from_numpy(a) for a in _logits_labels(seed=5))
-    for kw in (dict(label_smoothing=0.1), dict(weight=torch.ones(11)),
-               dict(use_softmax=False), dict(soft_label=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TF.cross_entropy(logits, labels, **kw)
+    """The branches that raised before the nn slice (label smoothing, a class
+    weight, ``use_softmax=False``, soft labels) now match the JAX function,
+    loss and gradient."""
+    logits, labels = _logits_labels(seed=5)
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    soft = np.random.default_rng(6).dirichlet(np.ones(logits.shape[-1]), logits.shape[:-1])
+    weight = np.random.default_rng(7).uniform(0.5, 2.0, logits.shape[-1]).astype(np.float32)
+    for kw, x, lab in ((dict(label_smoothing=0.1), logits, labels),
+                       (dict(weight=weight), logits, labels),
+                       (dict(use_softmax=False), probs, labels),
+                       (dict(soft_label=True), logits, soft.astype(np.float32))):
+        jkw = {k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+        jx = paddle.to_tensor(x, stop_gradient=False)
+        jl = JF.cross_entropy(jx, paddle.to_tensor(lab), **jkw)
+        tx = torch.from_numpy(x).requires_grad_()
+        tl = TF.cross_entropy(tx, torch.from_numpy(lab), **tkw)
+        np.testing.assert_allclose(tl.detach().numpy(), jl.numpy(), **TOL_LOSS)
+        jl.backward()
+        tl.backward()
+        np.testing.assert_allclose(tx.grad.numpy(), jx.grad.numpy(), **TOL_LOSS)
 
 
 @pytest.mark.parametrize("masked", [False, True])
