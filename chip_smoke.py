@@ -188,7 +188,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      the f32 forward's 12 tf32x3 launches against the dense route within
      1e-3; (12d) in a process of its own, a ``torch.profiler`` trace of one
      12a replay by kind and the Momentum rule's ms as a graph of its own;
- 13. one JSON line of per-kernel numbers, then the result line.
+ 13. eager lazy dispatch and whole-step capture (``core/lazy.py``): (13a)
+     BASELINE.json config 1 as bench.py ``bench_mnist_eager`` writes it
+     (``LeNet()``, ``Adam(1e-3)``, ``CrossEntropyLoss``, 64 x 1 x 28^2 from
+     ``default_rng(0)``, ``paddle.to_tensor`` inputs, the plain eager loop)
+     per-op, lazy (capture off) and captured, ``FLAGS_pallas_fused_update``
+     off and on: 5 steps of each regime bitwise per-op (cuDNN
+     deterministic), programs a step (3 lazy, 1 captured), 10 fused Adam
+     launches in the captured graph and none through the wrapper on its
+     replays, steps/s under ``mnist_lenet_eager_steps_per_sec`` timed as
+     bench's ``_timed(median_best=True)``, the host breakdown of bench's
+     ``_host_breakdown``, 0 capture fallbacks in every timed window; (13b)
+     phase 11b's Paddle-style 345M f32 step under lazy dispatch with capture:
+     one graph a step holding 24 tf32x3 launches of each flash kernel and
+     292 fused Adam launches, bitwise the per-op steps of a twin model over
+     2 warm-up and 3 captured steps, ms a step in turns; (13c) the medium
+     PTB LSTM language model (Zaremba, Sutskever and Vinyals 2014, PaddleNLP
+     ``examples/language_model/rnnlm``: vocab 10000, 2 x 650 LSTM, 20 x 35
+     tokens, SGD(1.0), ``ClipGradByGlobalNorm(5.0)``, uniform init +-0.05,
+     random token ids) per-op, lazy and captured with the fused SGD kernel
+     once per parameter inside the graph: bitwise per-op at dropout 0, new
+     masks each replay at 0.5 (and the same masks after
+     ``paddle.set_rng_state``), ms a step and tokens/s;
+ 14. one JSON line of per-kernel numbers, the script's time, then the
+     result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
 and prints no result. It imports nothing of JAX or of ``paddle_tpu``.
@@ -199,6 +222,16 @@ runs only the tf32x3 forward's repeat witness: N fresh processes, each
 comparing its first two launches bit for bit, then one process under each of
 compute-sanitizer's racecheck, synccheck and initcheck where the toolkit has
 it and the card is supported.
+
+    python3 chip_smoke.py --eager-dispatch
+
+runs only phase 13, after building the libraries its paths launch.
+
+    python3 chip_smoke.py --host-cost-vs DIR
+
+times the per-op path's host cost (phase 5a's four ops and 13a's per-op
+LeNet step) of the port checked out at DIR (an unpacked ``git archive`` of
+another commit) and of this one, in turns, each in a fresh process.
 """
 from __future__ import annotations
 
@@ -4147,6 +4180,500 @@ def tf32_repeat_witness(n: int) -> int:
     return 1 if failed else 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: eager lazy dispatch and whole-step capture (core/lazy.py) on the
+# card. 13a: BASELINE.json config 1 as bench.py bench_mnist_eager writes it
+# (LeNet, Adam(1e-3), CrossEntropyLoss, 64 x 1 x 28² from default_rng(0),
+# the plain eager loop), per-op, lazy (capture off) and captured, with
+# FLAGS_pallas_fused_update off (bench's default) and on; 13b: phase 11b's
+# Paddle-style 345M f32 step captured whole; 13c: the medium PTB LSTM
+# language model of Zaremba, Sutskever and Vinyals (2014), PaddleNLP's
+# examples/language_model/rnnlm setting, per-op, lazy and captured.
+# ---------------------------------------------------------------------------
+LENET_BATCH = 64
+LENET_STEPS = 30      # bench_mnist_eager's window: 30 steps
+LENET_REPS = 6        # ... median of the best half of 6 windows (BENCH_REPS' eager default)
+LENET_BITWISE_STEPS = 5
+REGIMES = {"per_op": (False, False), "lazy": (True, False), "captured": (True, True)}
+# the medium configuration (Zaremba et al. 2014, section 4; PaddleNLP rnnlm):
+# vocab 10000, 650 units in the embedding and both LSTM layers, 35 unrolled
+# steps, batch 20, uniform init in +-0.05, SGD at lr 1.0, global-norm clip 5,
+# dropout 0.5; random token ids from the seed stand in for PTB
+PTB = dict(vocab=10000, hidden=650, layers=2, num_steps=35, batch=20, init=0.05, lr=1.0,
+           clip=5.0, dropout=0.5)
+PTB_STEPS = 20        # steps per timed window
+PTB_BITWISE_STEPS = 3
+CAPTURE_345M_STEPS = 3  # captured steps held bitwise, after the warm-up
+
+
+def set_regime(pt, name):
+    lazy_on, capture = REGIMES[name]
+    pt.set_flags({"FLAGS_eager_lazy_dispatch": lazy_on, "FLAGS_eager_step_capture": capture})
+
+
+def median_best_window(fn, steps, reps):
+    """bench.py's ``_timed(median_best=True)``: the median of the best half of
+    ``reps`` windows of ``steps`` calls, each ended by a host read."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        last = None
+        for _ in range(steps):
+            last = fn()
+        float(last)
+        times.append(time.perf_counter() - t0)
+    best = sorted(times)[:max(1, reps // 2)]
+    return best[len(best) // 2]
+
+
+def host_breakdown(pt, fn, steps):
+    """bench.py's ``_host_breakdown``: per-step host ms from the dispatch
+    counters' timers over ``steps`` calls, and the counters themselves."""
+    prof = pt.profiler
+    prof.reset_dispatch_counters()
+    t0 = time.perf_counter()
+    last = None
+    for _ in range(steps):
+        last = fn()
+    float(last)
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    c = prof.dispatch_counters()
+    return {"trace_ms": c["trace_time_ms"] / steps, "compile_ms": c["compile_time_ms"] / steps,
+            "replay_ms": c["replay_time_ms"] / steps,
+            "async_compile_ms": c["async_compile_ms"] / steps, "wall_ms": wall,
+            "segment_graph_replays": c["segment_graph_replays"],
+            "capture_fallbacks": c["capture_fallbacks"],
+            "fallback_reasons": dict(c["capture_fallback_reasons"])}
+
+
+def kernel_counts(fa, fu):
+    """Every wrapper's launch count: the flash kernels by route, the updates."""
+    out = flash_counts(fa)
+    out.update(adam=fu.fused_adam.launches, sgd=fu.fused_sgd.launches,
+               momentum=fu.fused_momentum.launches)
+    return out
+
+
+def counts_since(fa, fu, before):
+    return {k: v - before[k] for k, v in kernel_counts(fa, fu).items() if v != before[k]}
+
+
+def per_step_programs(c):
+    return {k: c[k] for k in ("programs", "op_programs", "segment_programs",
+                              "backward_programs", "optimizer_programs", "captured_programs")}
+
+
+def lenet_trainer(torch, pt, dev):
+    import numpy as np
+
+    pt.seed(0)
+    model = pt.vision.models.LeNet()
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    loss_fn = pt.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(0)
+    x = pt.to_tensor(rng.standard_normal((LENET_BATCH, 1, 28, 28)).astype(np.float32))
+    y = pt.to_tensor(rng.integers(0, 10, (LENET_BATCH,)))
+
+    def step():
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, step
+
+
+def lenet_regimes(torch, pt, fa, fu, dev, fused):
+    """13a with ``FLAGS_pallas_fused_update`` at ``fused``: bitwise the three
+    regimes over LENET_BITWISE_STEPS steps, then each regime's counts, steps/s
+    and host breakdown."""
+    from paddle_tpu_torch.core import lazy
+
+    pt.set_flags({"FLAGS_pallas_fused_update": fused})
+    runs = {}
+    for name in REGIMES:
+        set_regime(pt, name)
+        lazy.reset_lazy_state()
+        model, opt, step = lenet_trainer(torch, pt, dev)
+        losses = [float(step()) for _ in range(LENET_BITWISE_STEPS)]
+        runs[name] = (model, opt, losses)
+    ref_model, ref_opt, ref_losses = runs["per_op"]
+    same = {name: losses == ref_losses and bitwise_same(torch, model, ref_model, opt, ref_opt)
+            for name, (model, opt, losses) in runs.items() if name != "per_op"}
+    print(f"  fused update {'on' if fused else 'off'}: losses over {LENET_BITWISE_STEPS} steps, "
+          f"per-op {ref_losses}; bitwise per-op (losses, parameters, moments): {same}")
+    check(all(same.values()), "a lazy or captured LeNet step differs from the per-op step")
+    out = {}
+    for name in REGIMES:
+        set_regime(pt, name)
+        lazy.reset_lazy_state()
+        _, _, step = lenet_trainer(torch, pt, dev)
+        float(step())
+        float(step())
+        before = kernel_counts(fa, fu)
+        float(step())  # captured: the build, then the first replay
+        built_adam = counts_since(fa, fu, before).get("adam", 0)
+        progs = per_step_programs(pt.profiler.measure_programs(step, warmup=1))
+        before = kernel_counts(fa, fu)
+        sps = LENET_STEPS / median_best_window(step, LENET_STEPS, LENET_REPS)
+        timed_adam = counts_since(fa, fu, before).get("adam", 0)
+        host = host_breakdown(pt, step, LENET_STEPS)
+        out[name] = {"steps_per_s": sps, "programs": progs, "host": host,
+                     "adam_in_build": built_adam, "adam_timed": timed_adam}
+        print(f"  {name}: mnist_lenet_eager_steps_per_sec {sps:.1f}; programs a step {progs}; "
+              f"host ms a step {{trace {host['trace_ms']:.4f}, compile {host['compile_ms']:.4f}, "
+              f"replay {host['replay_ms']:.4f}, async {host['async_compile_ms']:.4f}, wall "
+              f"{host['wall_ms']:.4f}}}; capture fallbacks in the windows "
+              f"{host['capture_fallbacks']} {host['fallback_reasons']}; segment graph replays "
+              f"{host['segment_graph_replays']}; Adam launches: "
+              f"{built_adam} in the third step (captured: the graph's build), {timed_adam} "
+              f"in {LENET_STEPS * LENET_REPS} timed steps")
+        check(host["capture_fallbacks"] == 0, f"{name}: capture fell back in a timed window "
+                                              f"({lazy.last_capture_error[0]})")
+        if name == "lazy":
+            check(host["segment_graph_replays"] == LENET_STEPS,
+                  f"{host['segment_graph_replays']} of {LENET_STEPS} lazy steps replayed the "
+                  f"segment's graphs ({lazy.last_capture_error[0]})")
+    want = {"lazy": (3, 1, 1, 1, 0), "captured": (1, 0, 0, 0, 1)}
+    for name, (n, seg, bwd, opt_n, cap) in want.items():
+        p = out[name]["programs"]
+        check((p["programs"], p["segment_programs"], p["backward_programs"],
+               p["optimizer_programs"], p["captured_programs"]) == (n, seg, bwd, opt_n, cap),
+              f"{name}: {p} programs a step, expected {n} (the last call that could not be "
+              f"deferred: {lazy.last_infer_failure[0]})")
+    if fused:
+        check(out["captured"]["adam_in_build"] == 10 and out["captured"]["adam_timed"] == 0,
+              "the captured LeNet step's graph does not hold the 10 fused Adam launches, or "
+              "a replay went through the wrapper")
+        check(out["lazy"]["adam_timed"] == 10 * LENET_STEPS * LENET_REPS,
+              "the lazy LeNet step did not launch 10 fused Adam kernels a step")
+    pt.set_flags({"FLAGS_pallas_fused_update": False})
+    return out
+
+
+def capture_345m(torch, pt, fa, fu, dev):
+    """13b: phase 11b's Paddle-style 345M f32 step under lazy dispatch with
+    capture against the same per-op steps on a twin model: bitwise, the
+    launches its graph holds, ms a step in turns."""
+    import numpy as np
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    batch = 8
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    print(f"[13b] phase 11b's Paddle-style 345M f32 step captured whole: {batch} x "
+          f"{cfg.max_seq_len}, Adam through the fused kernel, lazy dispatch with capture "
+          f"against the per-op steps")
+    data = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1))
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    models, opts = [], []
+    for _ in range(2):
+        pt.seed(SEED)
+        models.append(GPTForPretraining(cfg))
+        opts.append(pt.optimizer.Adam(learning_rate=1e-4, parameters=models[-1].parameters()))
+    n_params = len(list(models[0].parameters()))
+    crit = GPTPretrainingCriterion(cfg)
+    ids = pt.to_tensor(data[:, :-1], dtype="int64")
+    labels = pt.to_tensor(data[:, 1:], dtype="int64")
+
+    def stepper(i, regime):
+        def step():
+            set_regime(pt, regime)
+            loss = crit(models[i](ids), labels)
+            loss.backward()
+            opts[i].step()
+            opts[i].clear_grad()
+            return loss
+        return step
+
+    per_op, captured = stepper(0, "per_op"), stepper(1, "captured")
+    lazy.reset_lazy_state()
+    warm = pt.get_flags("FLAGS_eager_capture_warmup")["FLAGS_eager_capture_warmup"]
+    n = warm + CAPTURE_345M_STEPS
+    losses_ref = [float(per_op()) for _ in range(n)]
+    pt.profiler.reset_dispatch_counters()
+    losses, built = [], None
+    for i in range(n):
+        before = kernel_counts(fa, fu)
+        losses.append(float(captured()))
+        if i == warm:  # the build: what the capture launched is what each replay holds
+            got = counts_since(fa, fu, before)
+            built = {"flash": {k: v for k, v in got.items() if k.endswith("tf32x3") or
+                               k.endswith("sm90") or k.endswith("simt")},
+                     "adam": got.get("adam", 0)}
+    c = pt.profiler.dispatch_counters()
+    same = losses == losses_ref and bitwise_same(torch, models[1], models[0], opts[1], opts[0])
+    print(f"  losses per-op {losses_ref}; lazy + capture {losses}; bitwise (losses, parameters, "
+          f"moments) {same}; counters: {c['capture_builds']} build, {c['capture_replays']} "
+          f"replays, fallbacks {dict(c['capture_fallback_reasons'])}; the graph holds "
+          f"{built['flash']} flash and {built['adam']} Adam launches")
+    want = {"fwd_tf32x3": cfg.num_layers, "dkv_tf32x3": cfg.num_layers,
+            "dq_tf32x3": cfg.num_layers}
+    check(same, "the captured 345M step differs from the per-op step")
+    check(c["capture_replays"] == CAPTURE_345M_STEPS and c["capture_fallbacks"] == 0,
+          f"the 345M step did not replay once a step without a fallback (the last capture "
+          f"error: {lazy.last_capture_error[0]})")
+    check(built["flash"] == want and built["adam"] == n_params,
+          f"the captured 345M graph holds {built}, expected {want} and {n_params} Adam")
+    before = kernel_counts(fa, fu)
+    times = {"per_op": [], "captured": []}
+    for kind in ("per_op", "captured", "captured", "per_op") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float((per_op if kind == "per_op" else captured)())
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    timed_launches = counts_since(fa, fu, before)
+    c = pt.profiler.dispatch_counters()
+    check(c["capture_fallbacks"] == 0, "a timed captured 345M step fell back")
+    check(bitwise_same(torch, models[1], models[0], opts[1], opts[0]),
+          "the timed steps left the two models apart")
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  step (forward, backward, Adam, clear, host read of the loss), host clock, median "
+          f"of {len(times['captured'])} in turns: captured {step_ms['captured']:.2f} ms, per-op "
+          f"{step_ms['per_op']:.2f} ms ({batch * cfg.max_seq_len / step_ms['captured'] * 1e3:.0f} "
+          f"tokens/s captured); peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GB")
+    set_regime(pt, "per_op")
+    pt.set_flags({"FLAGS_pallas_fused_update": False})
+    lazy.reset_lazy_state()
+    del models, opts
+    torch.cuda.empty_cache()
+    return {"built": built, "timed": timed_launches, "step_ms": step_ms, "losses": losses}
+
+
+def ptb_model(pt, dropout):
+    nn = pt.nn
+
+    class LSTMLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            V, H, L = PTB["vocab"], PTB["hidden"], PTB["layers"]
+            self.embedder = nn.Embedding(V, H)
+            self.lstm = nn.LSTM(H, H, num_layers=L, dropout=dropout)
+            self.dropout = nn.Dropout(dropout)
+            self.fc = nn.Linear(H, V)
+            init = nn.initializer.Uniform(-PTB["init"], PTB["init"])
+            for p in self.parameters():
+                init(p)
+
+        def forward(self, x, h, c):
+            y, (h, c) = self.lstm(self.dropout(self.embedder(x)), (h, c))
+            return self.fc(self.dropout(y)), h, c
+
+    return LSTMLM()
+
+
+def ptb_trainer(torch, pt, dropout, seed=SEED):
+    import numpy as np
+
+    pt.seed(seed)
+    model = ptb_model(pt, dropout)
+    opt = pt.optimizer.SGD(learning_rate=PTB["lr"], parameters=model.parameters(),
+                           grad_clip=pt.nn.ClipGradByGlobalNorm(PTB["clip"]))
+    crit = pt.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(seed)
+    B, T, V, H, L = PTB["batch"], PTB["num_steps"], PTB["vocab"], PTB["hidden"], PTB["layers"]
+    stream = rng.integers(0, V, (8, B, T + 1))  # 8 batches of the token stream, cycled
+    batches = [(pt.to_tensor(s[:, :-1]), pt.to_tensor(s[:, 1:])) for s in stream]
+    state = {"i": 0, "h": pt.zeros([L, B, H]), "c": pt.zeros([L, B, H])}
+
+    def step():
+        x, y = batches[state["i"] % len(batches)]
+        state["i"] += 1
+        logits, h, c = model(x, state["h"], state["c"])
+        loss = crit(logits.reshape([-1, V]), y.reshape([-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        state["h"], state["c"] = h.detach(), c.detach()  # truncated BPTT, as rnnlm carries it
+        return loss
+
+    return model, opt, step, state
+
+
+def ptb_lstm_lm(torch, pt, fa, fu, dev):
+    """13c: the medium PTB LSTM LM, per-op, lazy and captured, fused SGD."""
+    from paddle_tpu_torch.core import lazy
+
+    n_tok = PTB["batch"] * PTB["num_steps"]
+    print(f"[13c] LSTM language model, PTB medium (Zaremba et al. 2014; PaddleNLP rnnlm): vocab "
+          f"{PTB['vocab']}, {PTB['layers']} x {PTB['hidden']} LSTM, {PTB['batch']} x "
+          f"{PTB['num_steps']} tokens, SGD({PTB['lr']}) + ClipGradByGlobalNorm({PTB['clip']}), "
+          f"FLAGS_pallas_fused_update on, random token ids from the seed")
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    runs = {}
+    for name in REGIMES:
+        set_regime(pt, name)
+        lazy.reset_lazy_state()
+        model, opt, step, _ = ptb_trainer(torch, pt, 0.0)
+        losses = [float(step()) for _ in range(2 + PTB_BITWISE_STEPS)]
+        runs[name] = (model, opt, losses)
+    ref = runs["per_op"]
+    same = {n: r[2] == ref[2] and bitwise_same(torch, r[0], ref[0], r[1], ref[1])
+            for n, r in runs.items() if n != "per_op"}
+    n_params = len(list(ref[0].parameters()))
+    print(f"  dropout 0: losses per-op {ref[2]}; bitwise per-op (losses, parameters): {same}; "
+          f"{n_params} parameters, {sum(p.numel() for p in ref[0].parameters())} values")
+    check(all(same.values()), "a lazy or captured LM step differs from the per-op step")
+    del runs, ref
+    out = {}
+    for name in REGIMES:
+        set_regime(pt, name)
+        lazy.reset_lazy_state()
+        _, opt, step, state = ptb_trainer(torch, pt, PTB["dropout"])
+        for _ in range(3):  # the first step's carried state is the zeros, not a step's
+            float(step())
+        before = kernel_counts(fa, fu)
+        float(step())  # captured: the build, then the first replay
+        built = counts_since(fa, fu, before).get("sgd", 0)
+        progs = per_step_programs(pt.profiler.measure_programs(step, warmup=0))
+        before = kernel_counts(fa, fu)
+        dt = median_best_window(step, PTB_STEPS, 3)
+        timed = counts_since(fa, fu, before).get("sgd", 0)
+        host = host_breakdown(pt, step, PTB_STEPS)
+        out[name] = {"ms": dt * 1e3 / PTB_STEPS, "tokens_per_s": n_tok * PTB_STEPS / dt,
+                     "programs": progs, "host": host, "sgd_in_build": built, "sgd_timed": timed}
+        print(f"  {name}, dropout {PTB['dropout']}: {dt * 1e3 / PTB_STEPS:.3f} ms a step, "
+              f"{n_tok * PTB_STEPS / dt:.0f} tokens/s; programs a step {progs}; host ms a step "
+              f"{{trace {host['trace_ms']:.4f}, replay {host['replay_ms']:.4f}, wall "
+              f"{host['wall_ms']:.4f}}}; fallbacks {host['capture_fallbacks']}; SGD launches "
+              f"{built} in the measured steps, {timed} in {PTB_STEPS * 3} timed steps")
+        check(host["capture_fallbacks"] == 0, f"{name}: capture fell back in a timed window "
+                                              f"({lazy.last_capture_error[0]})")
+        if name == "captured":
+            check(progs["programs"] == 1 and progs["captured_programs"] == 1,
+                  f"the captured LM step is {progs}")
+            check(built == n_params and timed == 0,
+                  f"the captured LM graph holds {built} SGD launches, expected {n_params}")
+            # new masks each replay: at lr 0, one batch from one carried state
+            # twice gives two losses, and the same loss once the generator's
+            # state is put back (paddle.set_rng_state)
+            opt.set_lr(0.0)
+            at = (state["i"], state["h"], state["c"])
+            rng = pt.get_rng_state()
+            a = float(step())
+            state["i"], state["h"], state["c"] = at
+            again = float(step())
+            state["i"], state["h"], state["c"] = at
+            pt.set_rng_state(rng)
+            same = float(step())
+            print(f"  captured at lr 0, one batch and state three times: {a!r}, {again!r} "
+                  f"(new masks), {same!r} (the generator's state put back)")
+            check(a != again and a == same, "the captured LM step's dropout masks did not "
+                                            "change between replays, or did not follow the "
+                                            "generator's state")
+        if name == "lazy":
+            check(progs["programs"] == 3, f"the lazy LM step is {progs}")
+            check(host["segment_graph_replays"] == PTB_STEPS,
+                  f"{host['segment_graph_replays']} of {PTB_STEPS} lazy LM steps replayed the "
+                  f"segment's graphs ({lazy.last_capture_error[0]})")
+    set_regime(pt, "per_op")
+    pt.set_flags({"FLAGS_pallas_fused_update": False})
+    lazy.reset_lazy_state()
+    torch.cuda.empty_cache()
+    return out
+
+
+def eager_dispatch(torch, pt, fa, fu, dev):
+    """Phase 13: 13a, 13b, 13c. Returns the launches of each kernel on its
+    paths (the wrappers' counts, set to 0 before and read after each)."""
+    t0 = time.perf_counter()
+    for wrapper in (*(getattr(fa, a) for a in FLASH_WRAPPERS.values()), fu.fused_adam,
+                    fu.fused_sgd, fu.fused_momentum):  # phase 13's counts start here
+        wrapper.launches = 0
+    reset_flash_counts(fa)
+    print("[13a] BASELINE.json config 1 (bench_mnist_eager): LeNet, Adam(1e-3), "
+          f"{LENET_BATCH} x 1 x 28², per-op, lazy (capture off) and captured; "
+          f"{LENET_STEPS}-step windows, median of the best half of {LENET_REPS}")
+    torch.backends.cudnn.deterministic = True  # bitwise across regimes needs it
+    try:
+        lenet = {fused: lenet_regimes(torch, pt, fa, fu, dev, fused) for fused in (False, True)}
+        big = capture_345m(torch, pt, fa, fu, dev)
+        ptb = ptb_lstm_lm(torch, pt, fa, fu, dev)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        set_regime(pt, "per_op")
+    launches = kernel_counts(fa, fu)  # ... and end here
+    print(f"  phase 13 in {time.perf_counter() - t0:.1f} s; launches on its paths (a graph's "
+          f"counted once, when it was captured) {launches}")
+    return {"lenet": lenet, "345m": big, "ptb": ptb, "launches": launches}
+
+
+def eager_dispatch_alone(torch) -> int:
+    """``python3 chip_smoke.py --eager-dispatch``: phase 13 alone, after
+    building the libraries its paths launch (the tf32x3 flash kernels and
+    the fused updates)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_update as fu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME, fu.KERNEL_NAME]
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    out = eager_dispatch(torch, pt, fa, fu, torch.device("cuda", 0))
+    print(json.dumps({k: v for k, v in out.items() if k != "launches"}, default=str))
+    return 0
+
+
+def host_cost_child(root: str) -> int:
+    """``chip_smoke.py --host-cost-child ROOT``: the host cost of the per-op
+    path of the port checked out at ROOT, on the card: phase 5a's four
+    surface ops (``host_cost_per_op``) and 13a's per-op LeNet step in
+    bench's metric. Prints one JSON line. Builds nothing: neither path
+    launches a kernel of the port."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import paddle_tpu_torch as pt
+
+    dev = torch.device("cuda", 0)
+    us = host_cost_per_op(torch, pt, dev)
+    _, _, step = lenet_trainer(torch, pt, dev)
+    for _ in range(3):
+        float(step())
+    sps = LENET_STEPS / median_best_window(step, LENET_STEPS, LENET_REPS)
+    print(json.dumps({"package": os.path.dirname(pt.__file__), "host_us": us,
+                      "lenet_per_op_steps_per_s": sps}))
+    return 0
+
+
+def host_cost_in_turns(parent: str) -> int:
+    """``chip_smoke.py --host-cost-vs PARENT``: ``host_cost_child`` on the port
+    checked out at PARENT and on this one's, in turns (PARENT, this, this,
+    PARENT), each in a fresh process, with the card's name and power limit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True, capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    rows = []
+    for label, root in (("parent", parent), ("this", here), ("this", here),
+                        ("parent", parent)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--host-cost-child",
+                               root], capture_output=True, text=True, cwd=here)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        rows.append((label, got))
+        print(f"{label}: per-op LeNet {got['lenet_per_op_steps_per_s']:.1f} steps/s; host us "
+              f"per call (surface / bare torch): " + ", ".join(
+                  f"{op} {v['surface']:.2f} / {v['torch']:.2f}"
+                  for op, v in got["host_us"].items()))
+    print(json.dumps({"card": card, "turns": rows}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4157,6 +4684,12 @@ def main() -> int:
         return resume_child(sys.argv[at + 1], sys.argv[at + 2])
     if "--trace" in sys.argv:
         return trace_child(sys.argv[sys.argv.index("--trace") + 1])
+    if "--eager-dispatch" in sys.argv:
+        return eager_dispatch_alone(torch)
+    if "--host-cost-child" in sys.argv:
+        return host_cost_child(sys.argv[sys.argv.index("--host-cost-child") + 1])
+    if "--host-cost-vs" in sys.argv:
+        return host_cost_in_turns(sys.argv[sys.argv.index("--host-cost-vs") + 1])
     if "--tf32-repeat-once" in sys.argv:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -4166,6 +4699,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt2_345m
@@ -4365,12 +4899,15 @@ def main() -> int:
     # width, the encoder on the flash kernels, a traced replay
     nn12 = nn_and_resnet50(torch, pt, fa, fu, dev)
     enc = nn12["encoder"]["launches"]
+    # 13. eager lazy dispatch and whole-step capture
+    p13 = eager_dispatch(torch, pt, fa, fu, dev)
+    l13 = p13["launches"]
 
-    # 13. per-kernel numbers, then the result
+    # 14. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[13] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[14] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -4431,6 +4968,14 @@ def main() -> int:
           f"{f32r['opt_ms']:.3f} ms with the Momentum kernel, {f32r['opt_ms_rule']:.3f} with "
           f"the rule, the step {f32r['step_ms']:.3f} / {f32r['step_ms_rule']:.3f} ms; the "
           f"encoder step (12c) {nn12['encoder']['step_ms']:.3f} ms per replay")
+    lenet = p13["lenet"]
+    print("    eager dispatch (13a), mnist_lenet_eager_steps_per_sec per-op / lazy / captured: "
+          + "; ".join(f"fused update {'on' if f else 'off'} "
+                      + " / ".join(f"{lenet[f][r]['steps_per_s']:.1f}" for r in REGIMES)
+                      for f in (False, True))
+          + f"; the 345M captured step (13b) {p13['345m']['step_ms']['captured']:.2f} ms "
+          f"against {p13['345m']['step_ms']['per_op']:.2f} per-op; the PTB LM (13c) "
+          + " / ".join(f"{p13['ptb'][r]['ms']:.3f}" for r in REGIMES) + " ms a step")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -4459,7 +5004,7 @@ def main() -> int:
             + enc["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
             inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"]
-            + enc["fwd_tf32x3"], fwd32),
+            + enc["fwd_tf32x3"] + l13["fwd_tf32x3"], fwd32),
         # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
@@ -4467,14 +5012,14 @@ def main() -> int:
             train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
             + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
-            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"], bwd32["dkv"]),
+            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"] + l13["dkv_tf32x3"], bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
             + o1["launches"]["dq_sm90"] + enc["dq_sm90"], bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
-            f32_train["dq_tf32x3"] + sf["dq_tf32x3"], bwd32["dq"]),
+            f32_train["dq_tf32x3"] + sf["dq_tf32x3"] + l13["dq_tf32x3"], bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
             simt_path["dq_simt"], bwd32["dq_simt"]),
     ]
@@ -4507,7 +5052,7 @@ def main() -> int:
             "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
             "launches": launches_f32[kind] + (o1["adam"] + surface["adam"] if kind == "adam"
                                               else 0)
-            + (f32r["launches"] if kind == "momentum" else 0),
+            + (f32r["launches"] if kind == "momentum" else 0) + l13[kind],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -4515,6 +5060,8 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    print(f"[14] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
+          f"check")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

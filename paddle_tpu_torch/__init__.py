@@ -16,8 +16,12 @@ taken earlier are never changed and recorded history is never broken. Layers,
 unwrap a Tensor at entry (no copy) and wrap what they return; calls with
 torch tensors run as they did. The ``paddle.*`` functions also take a plain
 ``torch.Tensor``, as a Tensor whose ``stop_gradient`` is ``not
-requires_grad``. Parameters stay torch ``nn.Parameter``s (their Paddle
-surface is ``ParamAttr`` and ``nn.layer.common.param_of``).
+requires_grad``. Parameters are ``nn.Parameter``s, a ``torch.nn.Parameter``
+subclass whose grad the whole-step capture watches (their Paddle surface is
+``ParamAttr`` and ``nn.layer.common.param_of``). Under
+``FLAGS_eager_lazy_dispatch`` eager calls are deferred into segments and a
+steady training step is captured whole (``core/lazy.py``);
+``paddle.device.synchronize()`` flushes.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from .tensor_api import *  # noqa: F401,F403
 from . import tensor_api as _tensor_api
 
 from . import (  # noqa: F401,E402
-    amp, autograd, distributed, framework, incubate, inference, io, jit, models, nn,
+    amp, autograd, device, distributed, framework, incubate, inference, io, jit, models, nn,
     optimizer, profiler, regularizer, resilience, serving,
 )
 from .autograd import grad  # noqa: F401,E402
@@ -62,7 +66,7 @@ __all__ = sorted(set(_tensor_api.__all__) | {
     "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "CustomPlace", "DType", "Generator",
     "ParamAttr", "vision",
     "IPUPlace", "MLUPlace", "NPUPlace", "Place", "TPUPlace", "Tensor", "XPUPlace", "amp",
-    "autograd", "batch", "bfloat16", "bool", "bool_", "complex64", "complex128",
+    "autograd", "batch", "bfloat16", "device", "bool", "bool_", "complex64", "complex128",
     "device_count", "distributed", "dtype", "enable_grad", "float16", "float32", "float64",
     "framework", "get_cuda_rng_state", "get_default_dtype", "get_device", "get_flags",
     "get_rng_state", "grad", "incubate", "inference", "int8", "int16", "int32", "int64",

@@ -12,22 +12,70 @@ accumulate, a non-scalar root without a gradient raises, a second backward
 without ``retain_graph`` raises, ``create_graph`` records the backward);
 and the
 ``FLAGS_check_nan_inf`` scan of every op's outputs.
+
+It is also the eager dispatcher's front (``paddle_tpu/core/dispatch.py:688-715,
+1065-1085``): the OUTERMOST Paddle-level call with Tensor arguments (an
+``apply``, an ``nn.Layer`` call, a functional through ``accepts_tensors``)
+counts one op program, or is deferred onto the pending lazy segment under
+FLAGS_eager_lazy_dispatch (``core/lazy.py``). Calls nested inside it run
+at once and count nothing. ``run_backward`` is the whole-step capture's
+backward hook and counts one backward program per sweep.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from . import flags
+from . import lazy as _lazy
+from .lazy import LazyRef
+
+# how deep this thread is inside a Paddle-level call: only depth 0 counts a
+# program or defers
+_tls = threading.local()
+
+
+def _depth() -> int:
+    return getattr(_tls, "depth", 0)
+
+
+def _set_depth(d: int):
+    _tls.depth = d
+
+
+# read on every Paddle-level call (set_flags writes these dicts in place)
+_LAZY = flags.entry("eager_lazy_dispatch")
+_NAN_CHECK = flags.entry("check_nan_inf")
+_profiler: list = []  # the profiler module, imported at the first count
+
+
+def _count_op():
+    if not _profiler:
+        from .. import profiler
+
+        _profiler.append(profiler)
+    c = _profiler[0]._counters
+    c["op_programs"] += 1
+    c["programs"] += 1
+
+
+_tensor_api: tuple = ()  # (Tensor, _wrap) of core/tensor.py, which imports this module
+
+
+def _load_tensor_api() -> tuple:
+    global _tensor_api
+    from .tensor import Tensor, _wrap
+
+    _tensor_api = (Tensor, _wrap)
+    return _tensor_api
 
 
 def _tensor_cls():
-    from .tensor import Tensor
-
-    return Tensor
+    return (_tensor_api or _load_tensor_api())[0]
 
 
 def apply(fn: Callable, *args, differentiable: bool = True, **kwargs):
@@ -35,19 +83,52 @@ def apply(fn: Callable, *args, differentiable: bool = True, **kwargs):
     they are) and wrap its torch results as Tensors; a tuple or list of
     results comes back as a list. ``differentiable=False`` runs it without
     recording."""
-    from .tensor import Tensor, _wrap
-
-    vals = [a._value if isinstance(a, Tensor) else a for a in args]
-    if differentiable:
-        out = fn(*vals, **kwargs)
-    else:
-        with torch.no_grad():
+    Tensor, _wrap = _tensor_api or _load_tensor_api()
+    depth = getattr(_tls, "depth", 0)
+    if not depth:
+        if _LAZY["value"]:
+            out = _lazy.record(fn, _lazy._fn_key(fn), args, kwargs,
+                               differentiable and torch.is_grad_enabled(), True)
+            if out is not _lazy.FALLBACK:
+                return out
+            _lazy.observe_op_program()
+        _count_op()
+    _tls.depth = depth + 1
+    try:
+        vals = [(a._v if type(a._v) is not LazyRef else a._value) if isinstance(a, Tensor)
+                else a for a in args]
+        if differentiable:
             out = fn(*vals, **kwargs)
-    if flags.flag("check_nan_inf"):
+        else:
+            with torch.no_grad():
+                out = fn(*vals, **kwargs)
+    finally:
+        _tls.depth = depth
+    if _NAN_CHECK["value"]:
         _check_nan_inf(getattr(fn, "__name__", "op"), out)
     if isinstance(out, torch.Tensor):
         return _wrap(out)
     return [_wrap(o) if isinstance(o, torch.Tensor) else o for o in out]
+
+
+def tensor_call(key, fn, args, kwargs, module=None):
+    """``fn`` (a function of torch tensors) called with arguments that hold
+    Tensors: the outermost such call counts one op program, or is deferred
+    under lazy dispatch (``key`` is its op key, ``module`` the layer it
+    calls); the Tensors are unwrapped (no copy) and the results wrapped."""
+    depth = getattr(_tls, "depth", 0)
+    if not depth:
+        if _LAZY["value"]:
+            out = _lazy.record(fn, key, args, kwargs, torch.is_grad_enabled(), False, module)
+            if out is not _lazy.FALLBACK:
+                return out
+            _lazy.observe_op_program()
+        _count_op()
+    _tls.depth = depth + 1
+    try:
+        return wrap(fn(*unwrap(args), **{k: unwrap(v) for k, v in kwargs.items()}))
+    finally:
+        _tls.depth = depth
 
 
 def wrap(out):
@@ -102,11 +183,13 @@ def accepts_tensors(fn):
     is one or holds one (in a tuple, list or dict), the arguments are
     unwrapped (no copy) and the results wrapped. Calls with torch tensors go
     straight through."""
+    key = _lazy._fn_key(fn)
+
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
         if not holds_tensor(args, kwargs):
             return fn(*args, **kwargs)
-        return wrap(fn(*unwrap(args), **{k: unwrap(v) for k, v in kwargs.items()}))
+        return tensor_call(key, fn, args, kwargs)
 
     return wrapper
 
@@ -222,6 +305,13 @@ def run_backward(tensors: Sequence, grad_tensors: Optional[Sequence] = None,
     backward through a graph not retained."""
     if grad_tensors is None:
         grad_tensors = [None] * len(tensors)
+    key = None
+    if flags.flag("eager_lazy_dispatch") and len(tensors) == 1 and not retain_graph \
+            and grad_tensors[0] is None:
+        if _lazy.step_capture_backward(tensors[0]):
+            return
+        key = _lazy.backward_key(tensors[0])
+    _lazy.flush_if_pending("backward")
     roots, seeds = [], []
     for t, g in zip(tensors, grad_tensors):
         v = _torch_of(t)
@@ -229,10 +319,19 @@ def run_backward(tensors: Sequence, grad_tensors: Optional[Sequence] = None,
             continue
         roots.append(v)
         seeds.append(None if g is None else _torch_of(g))
-    if not roots:
-        return
+    if roots:
+        _sweep(roots, seeds, retain_graph)
+    if flags.flag("eager_lazy_dispatch"):
+        _lazy.observe_backward(key)
+
+
+def _sweep(roots, seeds, retain_graph):
+    """One backward sweep (a backward program) with the cells' hooks on."""
+    from .. import profiler
+
     with _attached_hooks():
         torch.autograd.backward(roots, seeds, retain_graph=retain_graph)
+    profiler.count_program("backward")
 
 
 def run_grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph=False,
@@ -242,6 +341,9 @@ def run_grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph
     reach. ``retain_graph`` defaults to ``create_graph``."""
     if retain_graph is None:
         retain_graph = create_graph
+    _lazy.flush_if_pending("backward")
+    if create_graph:
+        _lazy._higher_order[0] = True
     if grad_outputs is None:
         grad_outputs = [None] * len(outputs)
     pairs = [(_torch_of(o), None if g is None else _torch_of(g))
@@ -250,11 +352,14 @@ def run_grad(outputs, inputs, grad_outputs=None, retain_graph=None, create_graph
     want = [i for i, t in enumerate(inputs) if _torch_of(t).requires_grad]
     got = [None] * len(inputs)
     if pairs and want:
+        from .. import profiler
+
         with _attached_hooks(no_grad_vars or ()):
             res = torch.autograd.grad(
                 [o for o, _ in pairs], [_torch_of(inputs[i]) for i in want],
                 grad_outputs=[g for _, g in pairs], retain_graph=bool(retain_graph),
                 create_graph=create_graph, allow_unused=True)
+        profiler.count_program("backward")
         for i, g in zip(want, res):
             got[i] = g
     if not allow_unused and any(g is None for g in got):

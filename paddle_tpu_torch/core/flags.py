@@ -38,11 +38,14 @@ def _norm(name: str) -> str:
     return name[len("FLAGS_"):] if name.startswith("FLAGS_") else name
 
 
-def define_flag(name: str, default: Any, doc: str = ""):
+def define_flag(name: str, default: Any, doc: str = "", later: str = None):
+    """Register a flag. ``later`` names the queue item that ports what the
+    flag turns on: setting it to anything but its default raises
+    NotImplementedError naming that item."""
     name = _norm(name)
     env = os.environ.get("FLAGS_" + name)
     value = default if env is None else _parse(env, default)
-    _registry[name] = {"value": value, "default": default, "doc": doc}
+    _registry[name] = {"value": value, "default": default, "doc": doc, "later": later}
     return value
 
 
@@ -67,11 +70,21 @@ def set_flags(flags: Dict[str, Any]):
         entry = _registry[key]
         if isinstance(v, str) and not isinstance(entry["default"], str):
             v = _parse(v, entry["default"])
+        if entry["later"] and v != entry["default"]:
+            raise NotImplementedError(
+                f"FLAGS_{key}={v!r} is not ported yet (ROADMAP, open items, queue 1 "
+                f"{entry['later']})")
         entry["value"] = v
 
 
 def flag(name: str):
     return _registry[_norm(name)]["value"]
+
+
+def entry(name: str) -> dict:
+    """A flag's registry entry, for a hot path that reads ``["value"]`` on
+    every call: ``set_flags`` writes the value into this same dict."""
+    return _registry[_norm(name)]
 
 
 def describe_flags(match: str = None):
@@ -360,4 +373,76 @@ define_flag(
     "FLAGS_trace_stall_ms watchdog firing mid-tick) before failing "
     "cleanly: past the cap every queued and in-flight request is answered "
     "with an error response and the engine goes 'dead' — zero hangs",
+)
+
+# -- eager dispatch: lazy segments and whole-step capture (core/lazy.py) -----
+define_flag("benchmark", False,
+            "accepted for parity with the JAX package, where it syncs after each op; "
+            "the port reads it nowhere (time with CUDA events instead)")
+define_flag("eager_op_jit", True,
+            "accepted for parity with the JAX package, where it jits each eager op "
+            "into a cached XLA program; the port has no per-op compile: it has no "
+            "effect")
+define_flag("eager_tape_jit", True,
+            "accepted for parity with the JAX package, where it compiles the eager "
+            "backward sweep into one XLA program; the port's backward is torch's "
+            "autograd sweep (one CUDA graph inside a graphed segment): no effect")
+define_flag("eager_jit_cache_size", 4096,
+            "LRU cap on the lazy-dispatch output-spec cache (FakeTensorMode "
+            "inference per op signature; 0 = unbounded). The JAX package's per-op "
+            "jit and vjp caches, which it also bounds, have no counterpart here")
+define_flag(
+    "eager_lazy_dispatch", False,
+    "defer eager Paddle-level calls (an outermost nn.Layer call or "
+    "nn.functional call with Tensor arguments, and core.dispatch.apply) onto "
+    "a pending per-thread segment whose outputs answer shape and dtype "
+    "without running; a host read, backward(), device.synchronize() or an "
+    "op that cannot be deferred flushes the whole segment as ONE program: "
+    "its op plan run eagerly the first time, a CUDA graph (forward) with a "
+    "CUDA graph for its autograd sweep after that, on the card",
+)
+define_flag("eager_segment_cache_size", 256,
+            "LRU cap on the lazy-dispatch segment cache (plans and their CUDA "
+            "graphs; 0 = unbounded)")
+define_flag("eager_segment_max_ops", 256,
+            "flush a pending lazy-dispatch segment once it holds this many ops")
+define_flag(
+    "eager_step_capture", True,
+    "whole-step capture under FLAGS_eager_lazy_dispatch: once a steady-state "
+    "train step (forward segment + backward + optimizer.step) repeats with "
+    "one signature for FLAGS_eager_capture_warmup steps, the next one runs "
+    "forward, backward, grad clip and update as ONE program (one CUDA graph "
+    "on the card, parameters and optimizer state written in place); any "
+    "signature mismatch, hook, retain_graph or read between backward() and "
+    "step() resolves the step on the 3-program path with the same numerics, "
+    "counted in capture_fallback_reasons",
+)
+define_flag("eager_capture_warmup", 2,
+            "consecutive identical steady-state steps observed before the whole-step "
+            "capture arms")
+define_flag("eager_capture_cache_size", 8,
+            "LRU cap on captured whole-step programs (0 = unbounded); evictions "
+            "are counted")
+define_flag("eager_capture_donate", True,
+            "accepted for parity with the JAX package, where it donates parameter "
+            "and state buffers to the captured program; a CUDA graph writes them in "
+            "place either way, so the port's captured step is the same with it off")
+define_flag("eager_capture_sharded", True,
+            "mesh-aware whole-step capture in the JAX package; the port has no "
+            "mesh, so every capture is single-card and only the default is "
+            "accepted (ROADMAP queue 1 item 13)", later="item 13")
+define_flag("check_programs", 0,
+            "the JAX package's program verifier (0 off, 1 warn, 2 raise) over "
+            "segments and captured steps, with the capture's equivalence "
+            "certificate; not ported: only 0 is accepted (ROADMAP queue 1 item 12)",
+            later="item 12")
+define_flag("memory_plan", "",
+            "the JAX package's rematerialization plan of a captured step ('auto'); "
+            "not ported: only '' is accepted (ROADMAP queue 1 item 12)", later="item 12")
+define_flag(
+    "eager_async_compile", True,
+    "accepted for parity with the JAX package, where it compiles a new "
+    "segment or captured step on a background thread while its first "
+    "occurrence runs the plain path; the port's build of a program is a "
+    "tuple of plan ops made on the calling thread, so it has no effect",
 )

@@ -23,6 +23,15 @@ tracks no gradient for them). A trainable leaf rebound by an in-place op
 keeps receiving its gradient in ``grad``, as the JAX cell does. Hooks are
 kept on the cell, so they survive a rebind, and are attached to ``_value``
 for the duration of each backward (``dispatch.run_backward``).
+
+Under lazy dispatch (``core/lazy.py``) a cell may hold a ``LazyRef``, the
+pending output of a deferred op: ``shape``, ``ndim``, ``size``, ``dtype``,
+``place`` and ``stop_gradient`` answer from its spec without running
+anything; every other read of ``_value`` (``numpy``, ``item``, ``float``,
+``bool``, ...) flushes the pending segment and holds the result from then
+on. While a whole training step is deferred between ``backward()`` and
+``optimizer.step()``, reading or writing the ``grad`` of one of its leaves
+(a cell, or a port ``Parameter``) is seen by the capture controller.
 """
 from __future__ import annotations
 
@@ -33,7 +42,9 @@ import numpy as np
 import torch
 
 from . import dispatch
+from . import lazy as _lazy
 from .dtype import DType, get_default_dtype, to_paddle_dtype, to_torch_dtype
+from .lazy import LazyRef
 from .place import Place, place_of, torch_device
 
 # cells that hold hooks; dispatch attaches them around each backward
@@ -66,7 +77,7 @@ def _to_numpy(v: torch.Tensor) -> np.ndarray:
 class Tensor:
     """Mutable eager tensor over a ``torch.Tensor``."""
 
-    __slots__ = ("_value", "_stop", "_inplace_version", "__weakref__", "__dict__")
+    __slots__ = ("_v", "_stop", "_inplace_version", "__weakref__", "__dict__")
 
     # rarely set; kept out of the slots so a new cell assigns three fields
     name = ""
@@ -100,28 +111,40 @@ class Tensor:
         if not stop_gradient:
             self.stop_gradient = False
 
-    # -- meta ---------------------------------------------------------------
+    @property
+    def _value(self) -> torch.Tensor:
+        """The torch value; a pending one is computed first (a flush)."""
+        v = self._v
+        if type(v) is LazyRef:
+            v = self._v = v.materialize()
+        return v
+
+    @_value.setter
+    def _value(self, value):
+        self._v = value
+
+    # -- meta (a pending value answers from its spec) --------------------------
     @property
     def shape(self):
-        return list(self._value.shape)
+        return list(self._v.shape)
 
     @property
     def ndim(self):
-        return self._value.dim()
+        return len(self._v.shape)
 
     dim = ndim
 
     @property
     def size(self):
-        return self._value.numel()
+        return self._v.numel()
 
     @property
     def dtype(self) -> DType:
-        return to_paddle_dtype(self._value.dtype)
+        return to_paddle_dtype(self._v.dtype)
 
     @property
     def place(self) -> Place:
-        return place_of(self._value.device)
+        return place_of(self._v.device)
 
     @property
     def is_leaf(self):
@@ -134,7 +157,7 @@ class Tensor:
     # -- autograd state -------------------------------------------------------
     @property
     def stop_gradient(self) -> bool:
-        v = self._value
+        v = self._v
         if v.requires_grad:
             return False
         return True if _differentiable(v) else self._stop
@@ -156,6 +179,8 @@ class Tensor:
 
     @property
     def grad(self):
+        if _lazy.deferred_step[0] is not None:
+            _lazy.on_grad_access(self._grad_holder(), None, False)
         g = self._grad_holder().grad
         if g is None:
             return None
@@ -166,7 +191,11 @@ class Tensor:
 
     @grad.setter
     def grad(self, value):
-        self._grad_holder().grad = None if value is None else _unwrap(value)
+        value = None if value is None else _unwrap(value)
+        if _lazy.deferred_step[0] is not None and _lazy.on_grad_access(
+                self._grad_holder(), value, True):
+            return
+        self._grad_holder().grad = value
 
     def clear_grad(self):
         self.grad = None
@@ -231,7 +260,7 @@ class Tensor:
     def __len__(self):
         if self.ndim == 0:
             raise TypeError("len() of a 0-D tensor")
-        return self._value.shape[0]
+        return self._v.shape[0]
 
     def __iter__(self):
         if self.ndim == 0:
@@ -384,10 +413,32 @@ class Tensor:
         return out
 
 
+class Parameter(torch.nn.Parameter):
+    """The port's ``paddle.nn.Parameter``: a ``torch.nn.Parameter`` whose
+    ``grad`` the whole-step capture controller sees. While a training step
+    is deferred between ``backward()`` and ``optimizer.step()``, reading
+    the grad of one of its leaves resolves the step on the 3-program path
+    first, and writing one is remembered and honoured by ``step()``, as the
+    JAX package's placeholder grads are. Autograd itself writes the grad in
+    C++ and is not slowed down."""
+
+    @property
+    def grad(self):
+        if _lazy.deferred_step[0] is not None:
+            _lazy.on_grad_access(self, None, False)
+        return _lazy._raw_grad(self)
+
+    @grad.setter
+    def grad(self, value):
+        if _lazy.deferred_step[0] is not None and _lazy.on_grad_access(self, value, True):
+            return
+        _lazy._set_raw_grad(self, value)
+
+
 def _wrap(value: torch.Tensor) -> Tensor:
     """A new cell over ``value`` (no copy)."""
     t = object.__new__(Tensor)
-    t._value = value
+    t._v = value
     t._stop = True
     t._inplace_version = 0
     return t

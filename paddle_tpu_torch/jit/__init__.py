@@ -56,7 +56,7 @@ from typing import Callable, Dict
 
 import torch
 
-from ..core import dispatch
+from ..core import cuda_graphs, dispatch
 from ..core import random as _random
 from ..optimizer.optimizer import apply_update
 
@@ -71,10 +71,14 @@ class _Captured:
     def __init__(self):
         self.eager_steps = 0
         self.segments = 0  # recompute segments per step, counted while warming up
-        self.pairs = None  # their generator pairs, registered with the graph
-        self.graph = None
+        self.graph = None  # a cuda_graphs.Graph
         self.inputs = None
         self.out = None
+
+    @property
+    def pairs(self):
+        """The recompute segments' generator pairs registered with the graph."""
+        return None if self.graph is None else self.graph.pairs
 
 
 class CompiledTrainStep:
@@ -145,26 +149,19 @@ class CompiledTrainStep:
         sig = (as_tensors,) + tuple((tuple(b.shape), b.dtype, b.device) for b in batch)
         entry = self._captured.setdefault(sig, _Captured())
         if entry.graph is None and entry.eager_steps < WARMUP_STEPS:
-            # eager warm-up on a side stream, as torch.cuda.graphs asks
-            side = torch.cuda.Stream(device=device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side), _random.counting_segments() as seen:
-                out = self._step_fn(batch, self._lr, states, as_tensors)
-            torch.cuda.current_stream(device).wait_stream(side)
+            with _random.counting_segments() as seen:
+                out = cuda_graphs.warm_up(device, self._step_fn, batch, self._lr, states,
+                                          as_tensors)
             entry.segments = seen.count
             entry.eager_steps += 1
             return out
         if entry.graph is None:
             entry.inputs = [b.clone() for b in batch]
-            graph = torch.cuda.CUDAGraph()
-            torch.cuda.synchronize(device)
-            with _random.register_generator_state(graph, device, entry.segments) \
-                    as entry.pairs, torch.cuda.graph(graph):
+            graph = cuda_graphs.Graph(device)
+            with graph.capture(segments=entry.segments):
                 entry.out = self._step_fn(entry.inputs, self._lr, states, as_tensors)
             entry.graph = graph
-        for buf, b in zip(entry.inputs, batch):
-            buf.copy_(b)
-        entry.pairs.reseed()
+        cuda_graphs.copy_in(entry.inputs, batch)
         entry.graph.replay()
         # the static outputs are overwritten by the next replay: hand out copies
         loss, in_grads = entry.out

@@ -1,12 +1,12 @@
 """``paddle.nn`` for the port: layers are ``nn.Layer``s, ``torch.nn.Module``s
-with Paddle's state methods (``paddle_tpu/nn/__init__.py``).
+with Paddle's state methods (``paddle_tpu/nn/__init__.py``), the recurrent
+layers of ``nn/layer/rnn.py`` included. ``nn.Parameter`` is the port's
+``core.tensor.Parameter``, a ``torch.nn.Parameter`` whose grad the
+whole-step capture watches.
 
-Not ported yet (ROADMAP, open items, queue 1 item 4's remainder): the
-recurrent layers of ``nn/layer/rnn.py`` (``RNN``, ``SimpleRNN``, ``LSTM``,
-``GRU``, their cells, ``BiRNN``, ``BeamSearchDecoder``, ``dynamic_decode``)
-and ``nn.quant``.
+Not ported yet (ROADMAP, open items, queue 1 item 14): ``nn.quant``, whose
+working layers come from ``quantization/``.
 """
-import torch
 
 from . import clip, functional, initializer, layer_base, utils  # noqa: F401
 from .clip import (  # noqa: F401
@@ -52,5 +52,8 @@ from .layer_base import Layer  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .utils_fns import clip_grad_norm_, clip_grad_value_  # noqa: F401
 
-# the port's parameters are torch's
-Parameter = torch.nn.Parameter
+from .layer.rnn import (  # noqa: F401,E402
+    GRU, LSTM, RNN, BeamSearchDecoder, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
+    SimpleRNNCell, dynamic_decode,
+)
+from ..core.tensor import Parameter  # noqa: F401,E402

@@ -2,21 +2,26 @@
 python/paddle/fluid/clip.py, used by optimizers through ``grad_clip=...``).
 
 Each clip is one function over the raw grad tensors (``_pure()``), with the
-JAX ``_pure``'s formulas as torch ops. ``__call__(params_grads)`` applies it
-to the grads of ``[(param, grad), ...]`` and keeps a None grad as None. The
-eager ``Optimizer.step()`` and the compiled training step
-(``paddle_tpu_torch.jit``) both call it between the backward and the update.
-The ops read nothing back to the host, so a CUDA graph can capture them.
+JAX ``_pure``'s formulas as torch ops. ``__call__(params_grads)`` (through
+``_clip``) applies it to the grads of ``[(param, grad), ...]`` and keeps a
+None grad as None. The eager ``Optimizer.step()``, the compiled training
+step (``paddle_tpu_torch.jit``) and the captured step of ``core/lazy.py``
+call it between the backward and the update. The ops read nothing back to
+the host, so a CUDA graph captures them.
 
-Not ported: the JAX module's ``capture_clip_fn`` / ``clip_fingerprint``,
-which key the whole-step capture of ``core/lazy.py`` (ROADMAP, open items,
-queue 1 item 9).
+``clip_fingerprint()`` is the capture controller's hashable identity of a
+clip config, part of the step signature; ``capture_clip_fn()`` the pure
+clip function of a stock clip. A clip of another class (a subclass
+overriding ``_clip``) has semantics the capture cannot vouch for: its
+fingerprint is None and such a step is never armed for capture.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = [
+    "capture_clip_fn",
+    "clip_fingerprint",
     "ClipGradBase",
     "ClipGradByValue",
     "ClipGradByNorm",
@@ -32,8 +37,14 @@ class ClipGradBase:
         """``list[grad tensors] -> list[clipped tensors]``."""
         raise NotImplementedError
 
+    def _fingerprint(self):
+        raise NotImplementedError
+
     @torch.no_grad()
     def __call__(self, params_grads):
+        return self._clip(params_grads)
+
+    def _clip(self, params_grads):
         clipped = iter(self._pure()([g for _, g in params_grads if g is not None]))
         return [(p, None if g is None else next(clipped)) for p, g in params_grads]
 
@@ -50,6 +61,9 @@ class ClipGradByValue(ClipGradBase):
             return [torch.clamp(g, lo, hi) for g in g_vals]
 
         return fn
+
+    def _fingerprint(self):
+        return ("value", self.min, self.max)
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -71,6 +85,9 @@ class ClipGradByNorm(ClipGradBase):
             return out
 
         return fn
+
+    def _fingerprint(self):
+        return ("norm", self.clip_norm)
 
 
 class ClipGradByGlobalNorm(ClipGradBase):
@@ -94,6 +111,35 @@ class ClipGradByGlobalNorm(ClipGradBase):
             return [(g.float() * scale).to(g.dtype) for g in g_vals]
 
         return fn
+
+    def _fingerprint(self):
+        return ("global_norm", self.clip_norm)
+
+
+_BUILTIN_CLIPS = (ClipGradByValue, ClipGradByNorm, ClipGradByGlobalNorm)
+
+
+def _is_builtin(clip) -> bool:
+    # the exact class AND the stock _clip: a subclass has semantics the pure
+    # form does not cover
+    return type(clip) in _BUILTIN_CLIPS and type(clip)._clip is ClipGradBase._clip
+
+
+def capture_clip_fn(clip):
+    """The pure clip function of a stock clip config, or None."""
+    if clip is None or not _is_builtin(clip):
+        return None
+    return clip._pure()
+
+
+def clip_fingerprint(clip):
+    """``("none",)`` for no clip, ``(tag, hypers...)`` for the three stock
+    clips, None for any other (its step is never armed for capture)."""
+    if clip is None:
+        return ("none",)
+    if not _is_builtin(clip):
+        return None
+    return clip._fingerprint()
 
 
 GradientClipByValue = ClipGradByValue

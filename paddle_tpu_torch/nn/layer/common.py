@@ -22,6 +22,7 @@ import collections
 import torch
 
 from ...core.place import torch_device
+from ...core.tensor import Parameter
 from .. import functional as F
 from .. import initializer as I
 from ..layer_base import Layer
@@ -38,7 +39,7 @@ def create_parameter(shape, initializer, device=None, dtype=torch.float32):
     as in the JAX package, as ``param_name`` (torch reserves ``Tensor.name``);
     the optimizer keys its state by it."""
     t = torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=torch_device(device))
-    param = torch.nn.Parameter(initializer(t))
+    param = Parameter(initializer(t))
     _param_count[0] += 1
     param.param_name = f"param_{_param_count[0]}"
     return param

@@ -25,6 +25,7 @@ import torch
 
 from ..convert import source_for
 from ..core import dispatch
+from ..core import lazy as _lazy
 from ..core.dtype import DType, to_torch_dtype
 from ..core.place import torch_device
 
@@ -41,11 +42,12 @@ class Layer(torch.nn.Module):
         """Run the layer. Paddle Tensor arguments, also inside tuples, lists
         and dicts, are unwrapped to their torch values (no copy) and the
         results wrapped as Tensors; a call with torch tensors runs as
-        ``torch.nn.Module`` runs it."""
+        ``torch.nn.Module`` runs it. The outermost call with Tensors is one
+        op program, deferred under lazy dispatch (``core/lazy.py``)."""
         if not dispatch.holds_tensor(args, kwargs):
             return super().__call__(*args, **kwargs)
-        kwargs = {k: dispatch.unwrap(v) for k, v in kwargs.items()}
-        return dispatch.wrap(super().__call__(*dispatch.unwrap(args), **kwargs))
+        key = _lazy.layer_key(self) if _lazy.lazy_on() and not dispatch._depth() else None
+        return dispatch.tensor_call(key, _lazy._LayerCall(self), args, kwargs, self)
 
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy ``state_dict``'s values (tensors or numpy arrays) into this

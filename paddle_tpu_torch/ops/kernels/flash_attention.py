@@ -5,7 +5,9 @@ wrapper that launches the hand-written Hopper kernel on a CUDA tensor (built
 with nvcc at first use, see ``_build``) and counts the launch in its
 ``launches``, and runs the plain PyTorch version the kernel is held against
 on a CPU tensor. Any other device raises. There is no fallback from a kernel
-to its plain version.
+to its plain version. A FakeTensor (lazy dispatch's output-spec inference,
+``core/lazy.py``) gets empty outputs of the right specs and launches
+nothing.
 
   - ``flash_attention_fwd``: O and the row logsumexp; plain version
     ``fwd_plain``.
@@ -306,11 +308,22 @@ def _fwd_cuda(q, k, v, scale: float, causal: bool, route: str):
     return o, lse
 
 
+def _fake(t) -> bool:
+    """A FakeTensor: lazy dispatch infers a deferred call's output specs by
+    running it on fake tensors (``core/lazy.py``); a wrapper then gives
+    outputs of the right specs and launches nothing."""
+    return type(t).__name__ == "FakeTensor"
+
+
 def flash_attention_fwd(q, k, v, scale: float, causal: bool):
     """O and lse of attention over ``[b, s, h, d]`` q, k, v of one shape.
 
-    CUDA tensors launch the kernel of their route; CPU tensors run ``fwd_plain``."""
+    CUDA tensors launch the kernel of their route; CPU tensors run ``fwd_plain``;
+    fake tensors (output-spec inference) give empty outputs."""
     _check_shapes("flash_attention_fwd", (q, k, v))
+    if _fake(q):
+        b, s, h, _ = q.shape
+        return torch.empty_like(q), torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if q.device.type == "cuda":
         return _fwd_cuda(q, k, v, scale, causal, _fwd_route((q, k, v)))
     if q.device.type == "cpu":
@@ -350,6 +363,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool)
 
     CUDA tensors launch the kernel of their route; CPU tensors run ``bwd_plain``."""
     _check_shapes("flash_attention_bwd_dkv", (q, k, v, do))
+    if _fake(q):
+        return torch.empty_like(k), torch.empty_like(v)
     if q.device.type == "cuda":
         return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
                               _bwd_route((q, k, v, do)))
@@ -389,6 +404,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     CUDA tensors launch the kernel of their route, which is dkv's for the
     same inputs; CPU tensors run ``bwd_plain``."""
     _check_shapes("flash_attention_bwd_dq", (q, k, v, do))
+    if _fake(q):
+        return torch.empty_like(q)
     if q.device.type == "cuda":
         return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
                             _bwd_route((q, k, v, do)))

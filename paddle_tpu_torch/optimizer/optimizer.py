@@ -27,9 +27,16 @@ State is one dict of tensors per parameter, on the parameter's device, in
 ``_accumulators`` keyed by ``id(param)``. ``lr`` reaches the rule as a 0-d
 float32 tensor on that device. Only SGD, Momentum and Adam have fused
 kernels (``fused_update.rule_kind``); every other rule runs its torch ops on
-both appliers, as in the JAX package. Not ported yet (ROADMAP, open items,
-queue 1 items 9 and 12): the lazy whole-step capture and offload hooks of
-``step()``, and the fused telemetry output.
+both appliers, as in the JAX package.
+
+``step()`` is also the whole-step capture's boundary
+(``paddle_tpu/optimizer/optimizer.py:194-212``): ``lazy.step_capture_step``
+first flushes the pending lazy segment and observes the step, or runs a
+deferred step as one captured program, in which case ``step()`` only
+counts it. The captured program runs ``_update_params``, the same clip
+and update as the eager step, with the learning rate from a device scalar.
+Not ported yet (ROADMAP, open items, queue 1 item 12): the offload hooks
+of ``step()`` and the fused telemetry output.
 """
 from __future__ import annotations
 
@@ -38,6 +45,7 @@ from typing import Dict, List
 import torch
 
 from .. import profiler
+from ..core import lazy as _lazy
 from ..ops.kernels import fused_update as _fu
 from ..ops.nn_ops import promoted
 from ..resilience import faults as _faults
@@ -216,21 +224,38 @@ class Optimizer:
         """Update every parameter that has a gradient, in place: the grad
         clip, then the fused update (``make_fused_update``), then the
         numeric-rescue policy when ``FLAGS_numeric_rescue`` is set; then the
-        resilience step boundary."""
+        resilience step boundary. A deferred whole step runs here as one
+        captured program instead (``core/lazy.py``)."""
         try:
-            params_grads = [(p, p.grad) for p in self._param_list()
-                            if p.requires_grad and p.grad is not None]
-            if self._grad_clip is not None:
-                params_grads = self._grad_clip(params_grads)
+            if _lazy.step_capture_step(self):
+                self._step_count += 1
+                return
             self._step_count += 1
-            if params_grads:
-                self._apply_fused(params_grads)
+            if self._update_params():
+                profiler.count_program("optimizer")
         finally:
             # advances the fault-injection step counter, the ladder's
             # cooldown clocks and the 'train' heartbeat
             _rrt.on_step_end()
 
-    def _apply_fused(self, params_grads):
+    def _update_params(self, lr=None, clip_fn=None) -> bool:
+        """The update of ``step()``: the clip over the parameters that have a
+        gradient (``clip_fn``, the pure form of a stock clip that a captured
+        step passes, else the optimizer's ``grad_clip``), then the fused
+        update with ``lr`` (a 0-d float32 device tensor; ``get_lr()`` when
+        None). Returns whether anything had a gradient."""
+        params_grads = [(p, p.grad) for p in self._param_list()
+                        if p.requires_grad and p.grad is not None]
+        if clip_fn is not None:
+            clipped = iter(clip_fn([g for _, g in params_grads]))
+            params_grads = [(p, next(clipped)) for p, _ in params_grads]
+        elif self._grad_clip is not None:
+            params_grads = self._grad_clip(params_grads)
+        if params_grads:
+            self._apply_fused(params_grads, lr)
+        return bool(params_grads)
+
+    def _apply_fused(self, params_grads, lr=None):
         params = [p for p, _ in params_grads]
         grads = [g for _, g in params_grads]
         # chaos harness: a `nan:grads` clause poisons the first gradient this
@@ -244,7 +269,8 @@ class Optimizer:
         states = [self._state_of(p) for p in params]
         # a fill on the device, not a copy from the host: nothing here
         # waits for the card
-        lr = torch.full((), self.get_lr(), dtype=torch.float32, device=params[0].device)
+        if lr is None:
+            lr = torch.full((), self.get_lr(), dtype=torch.float32, device=params[0].device)
         update = make_fused_update(self, params, sentinel=sentinel)
         # the kernels write p, m and v IN PLACE, where the JAX update is
         # pure: a real fault after the launch may have applied part of the

@@ -1,9 +1,13 @@
 """Profiler: the port's dispatch-counter registry, ``metrics`` and ``trace``.
 
 ``dispatch_counters()`` / ``reset_dispatch_counters()`` keep the JAX
-package's names (``paddle_tpu.profiler``) for the counters the serving
-engine and the resilience runtime keep. The port has no per-op dispatcher,
-so the JAX package's program and flush counters are not here; the
+package's names (``paddle_tpu.profiler``, ``paddle_tpu/core/dispatch.py:174``)
+for the counters the eager dispatcher, the serving engine and the
+resilience runtime keep: programs by category (one per Paddle-level op
+call, lazy segment, backward sweep, optimizer update or captured step),
+the lazy segment and capture caches, the fallback-reason families and the
+host-time split that ``bench.py``'s ``_host_breakdown`` reads.
+``measure_programs`` counts the programs of one steady-state step. The
 numeric-rescue counters stay in ``resilience.rescue.counters``. ``trace``
 is the flight recorder, the stall watchdog and the crash postmortem.
 ``StepTimer`` is the step-time EMA the checkpoint cadence tuner reads. The
@@ -20,11 +24,53 @@ from typing import Any, Dict, Mapping, Optional
 from . import metrics, trace  # noqa: F401
 
 __all__ = ["StepTimer", "count", "count_labeled", "count_locked", "dispatch_counters",
-           "gauge_locked", "metrics", "reset_dispatch_counters", "trace"]
+           "gauge_locked", "measure_programs", "metrics", "reset_dispatch_counters", "trace"]
 
 # the keys and what counts them (serving/engine.py, core/lazy.py,
 # resilience/, profiler/trace.py, distributed/checkpoint.py)
 _COUNTERS = (
+    # eager dispatch (core/dispatch.py, core/lazy.py): programs by category.
+    # An op program is one Paddle-level call run at once (an outermost
+    # layer or functional call with Tensor arguments, an apply); a segment
+    # program one lazy flush; a backward program one autograd sweep; an
+    # optimizer program one optimizer.step() update; a captured program one
+    # whole step (or one accumulate-only microstep) run as one program
+    "programs",
+    "op_programs",
+    "segment_programs",
+    "backward_programs",
+    "optimizer_programs",
+    "captured_programs",
+    "segments_flushed",
+    "lazy_ops_deferred",
+    "segment_cache_hits",
+    "segment_cache_misses",
+    "segment_cache_evictions",
+    "segment_graph_builds",       # a segment's forward and backward CUDA graphs captured
+    "segment_graph_replays",
+    "segment_graph_invalidations",  # a segment's graphs dropped: a parameter or buffer rebound
+    "jit_cache_evictions",        # the output-spec cache's LRU
+    "capture_builds",
+    "capture_replays",
+    "capture_fallbacks",
+    "capture_evictions",
+    "capture_invalidations",      # an entry dropped: parameters or state rebound
+    "capture_accum_builds",
+    "capture_accum_replays",
+    # the JAX package's background-build counters, kept under its names:
+    # always 0 here, where builds are synchronous (FLAGS_eager_async_compile)
+    "capture_async_builds",
+    "capture_build_pending_steps",
+    "async_compiles",
+    "async_compile_joins",
+    "async_compile_skipped",
+    "async_bridge_flushes",
+    # host time, ms: recording (spec inference included), a program's
+    # first build, cached runs, and background builds (0: see above)
+    "trace_time_ms",
+    "compile_time_ms",
+    "replay_time_ms",
+    "async_compile_ms",
     "serve_prefills",             # prefill programs run
     "serve_decode_steps",         # decode batches run
     "serve_capture_builds",       # first call of a captured program (graph built)
@@ -70,7 +116,8 @@ _COUNTERS = (
     "ckpt_cadence_retunes",
     "ckpt_auto_save_freq",        # a gauge: the cadence tuner's save frequency
 )
-_FAMILIES = ("serve_shed_reasons", "serve_expire_stages", "fault_sites")
+_FAMILIES = ("serve_shed_reasons", "serve_expire_stages", "fault_sites", "flush_reasons",
+             "capture_fallback_reasons")
 
 _counters: Dict[str, Any] = {}
 # the stall watchdog's thread prunes postmortems and the checkpoint persist
@@ -87,6 +134,13 @@ def reset_dispatch_counters():
 
 def count(key: str, n: int = 1):
     _counters[key] += n
+
+
+def count_program(category: str):
+    """One program of ``category`` (op, segment, backward, optimizer,
+    captured) and one of the total."""
+    _counters[category + "_programs"] += 1
+    _counters["programs"] += 1
 
 
 def count_locked(key: str, n: int = 1):
@@ -111,6 +165,29 @@ def dispatch_counters() -> Mapping[str, Any]:
     """A read-only snapshot; the labeled families are copied too."""
     return MappingProxyType({k: MappingProxyType(dict(v)) if isinstance(v, dict) else v
                              for k, v in _counters.items()})
+
+
+def measure_programs(step_fn, *args, warmup: int = 2, **kwargs):
+    """The dispatch counters of ONE steady-state ``step_fn`` call
+    (``paddle_tpu/profiler/__init__.py:400``): ``warmup`` calls first (with
+    whole-step capture on, the steps that arm it), then the pending lazy
+    segment is flushed, the counters are zeroed, one call is measured and
+    flushed again so its trailing lazy ops count. Returns a plain dict of the counters, with the step's result in
+    ``_step_result`` and ``lazy.step_capture_state()`` in
+    ``_capture_state``."""
+    from ..core import lazy
+
+    for _ in range(max(0, warmup)):
+        step_fn(*args, **kwargs)
+    lazy.flush_if_pending("measure_programs")
+    reset_dispatch_counters()
+    out = step_fn(*args, **kwargs)
+    lazy.flush_if_pending("measure_programs")
+    counters = {k: dict(v) if isinstance(v, Mapping) else v
+                for k, v in dispatch_counters().items()}
+    counters["_step_result"] = out
+    counters["_capture_state"] = lazy.step_capture_state()
+    return counters
 
 
 class StepTimer:

@@ -7,13 +7,14 @@ identical numerics. After a cooldown of clean steps the tier is
 re-promoted and the fast path is tried again — a capture-with-fallback
 loop driven by observed fault history.
 
-In the port the ladder's client is the serving engine: each prefill/decode
-bucket program is keyed by its signature at the ``captured`` tier, so a
-disruptive fault demotes that ONE bucket from its CUDA graph to the
-retained rung while every other bucket keeps replaying its graph. The
-state machine takes any tier name, as the JAX one does; the JAX package's
-``_lazy_demoted`` fast flag is left out: the port has no lazy segments to
-read it.
+In the port the ladder's clients are the serving engine (each
+prefill/decode bucket program keyed by its signature at the ``captured``
+tier, so a disruptive fault demotes that ONE bucket from its CUDA graph to
+the retained rung while every other bucket keeps replaying its graph) and
+the eager dispatcher (a captured training step keyed by its step
+signature at ``captured``; lazy segments at ``lazy``, demoted globally,
+which ``runtime.lazy_tier_ok`` reads). The state machine takes any tier
+name, as the JAX one does.
 """
 from __future__ import annotations
 

@@ -15,8 +15,8 @@ install it for the loop, call ``step_boundary`` after every step and
 uninstall it at the end; a relaunch restores the emergency snapshot and
 resumes at the next step.
 
-Not ported: the JAX guard first flushes pending lazy segments
-(``lazy.flush_if_pending``), which the port does not have.
+An emergency save first flushes what lazy dispatch holds pending
+(``lazy.flush_if_pending``), as the JAX guard does.
 """
 from __future__ import annotations
 
@@ -120,7 +120,11 @@ class PreemptionGuard:
         async save that already covers the boundary is joined, anything
         else superseded), else a plain ``save``; then ``wait``."""
         from .. import profiler
+        from ..core import lazy
 
+        # resolve a pending lazy segment or deferred whole step first, so the
+        # snapshot holds a consistent state
+        lazy.flush_if_pending("preemption")
         if self.checkpointer is not None and self.state_dict is not None:
             emergency = getattr(self.checkpointer, "emergency_save", None)
             if emergency is not None:

@@ -22,9 +22,14 @@ Every event lands in paddle_tpu_torch.profiler.dispatch_counters():
 fault_events / injected_faults / transient_faults / fatal_faults /
 retry_attempts / retry_exhausted / retry_backoff_ms / fault_sites.
 
-Not ported: ``lazy_tier_ok`` (the port has no lazy segments, ROADMAP queue
-1 item 9) and the perf sentinel's and attribution's step laps of
-``on_step_end`` (item 12).
+The eager tiers form the ladder captured → lazy → per-op
+(``core/lazy.py``): a lazy segment runs at site ``segment`` (tier
+``lazy``: a disruptive fault there demotes lazy dispatch and calls take
+the per-op path, ``lazy_tier_ok``), a captured step's replay at site
+``captured``, keyed by its step signature (a demoted signature is not
+armed again until its cooldown ends, and its steps run on the 3-program
+path). Not ported: the perf sentinel's and attribution's step laps of
+``on_step_end`` (ROADMAP queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -39,14 +44,15 @@ from . import ladder as _ladder
 from . import rescue as _rescue
 from . import retry as _retry
 
-__all__ = ["captured_tier_ok", "execute", "on_step_end", "reset", "state"]
+__all__ = ["captured_tier_ok", "execute", "lazy_tier_ok", "on_step_end", "reset", "state"]
 
 # site → ladder tier that owns faults there. The floor and the optimizer
 # update run at the ladder floor (retried, never demoted). The serving
 # engine's prefill/decode launches run at the captured tier keyed by their
 # bucket signature: a disruptive fault demotes that ONE bucket's program
 # while other buckets keep replaying their CUDA graphs.
-_SITE_TIER = {"prefill": "captured", "decode": "captured"}
+_SITE_TIER = {"prefill": "captured", "decode": "captured", "captured": "captured",
+              "segment": "lazy"}
 
 # exception type names that pass through untouched: control flow and
 # verdicts, not faults
@@ -147,6 +153,12 @@ def _record_fault(site: str, e: BaseException, transient: bool,
         tier = _SITE_TIER.get(site)
         if tier is not None:
             _ladder.degradation_ladder().record_fault(tier, key=ladder_key)
+
+
+def lazy_tier_ok() -> bool:
+    """Fast gate read by the eager dispatcher: False while the ladder has
+    the lazy tier demoted (calls then take the per-op path)."""
+    return _ladder.degradation_ladder().allows("lazy")
 
 
 def captured_tier_ok(key: Hashable = None) -> bool:

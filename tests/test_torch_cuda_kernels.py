@@ -28,7 +28,13 @@ tensor surface lives on the card by default, rebinds in place there, runs
 backward and ``paddle.grad`` there, and a model step with Tensor inputs is
 bitwise the step with torch inputs. A batch norm's running statistics
 accumulate in place across a compiled step's graph replays, and a
-convolution decorated for O2 runs in bf16.
+convolution decorated for O2 runs in bf16. Under lazy dispatch a LeNet
+step's segment runs as a forward graph and a backward graph, and a
+captured step as one graph holding the fused Adam launches, both bitwise
+the per-op steps; a parameter rebound after a capture invalidates it (and
+a segment's graphs under lazy dispatch), and
+a layer put into eval mode, swapped or given a new attribute between steps
+is captured anew, bitwise the per-op steps.
 """
 import copy
 
@@ -1028,4 +1034,258 @@ def test_conv2d_under_o2_runs_in_bf16():
             f32 = pt.nn.Conv2D(4, 8, 3, padding=1)
             assert f32(x).dtype == torch.bfloat16  # conv2d is on the O1 white list
     finally:
+        pt.set_device(was)
+
+
+def _lenet_eager(card, regime, steps=5):
+    """bench_mnist_eager's LeNet loop (batch 8) on the card in ``regime``:
+    its losses, parameters and moments, and the dispatch counters."""
+    from paddle_tpu_torch.core import lazy
+
+    lazy.reset_lazy_state()
+    pt.set_flags({"FLAGS_eager_lazy_dispatch": regime != "per_op",
+                  "FLAGS_eager_step_capture": regime == "captured",
+                  "FLAGS_eager_async_compile": False})
+    pt.profiler.reset_dispatch_counters()
+    pt.seed(0)
+    model = pt.vision.models.LeNet()
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    loss_fn = pt.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(0)
+    x = pt.to_tensor(rng.standard_normal((8, 1, 28, 28)).astype(np.float32))
+    y = pt.to_tensor(rng.integers(0, 10, (8,)))
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss)
+    values = [float(v) for v in losses]  # each step's own value, read after all of them
+    state = [p.detach().clone() for p in model.parameters()]
+    state += [v.clone() for p in model.parameters() for v in opt._accumulators[id(p)].values()]
+    return values, state, dict(pt.profiler.dispatch_counters())
+
+
+@pytest.mark.cuda
+def test_lazy_and_captured_lenet_steps_are_bitwise_per_op_with_fused_adam():
+    """Lazy (a forward graph and a backward graph a segment) and captured (one
+    graph a step) LeNet steps on the card, the fused Adam kernel inside the
+    captured graph: bitwise the per-op steps; the captured graph holds one
+    Adam launch per parameter and its replays call no wrapper."""
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    try:
+        ref = _lenet_eager(card, "per_op")
+        lz = _lenet_eager(card, "lazy")
+        before = tfu.fused_adam.launches
+        cap = _lenet_eager(card, "captured")
+        assert lz[2]["segment_graph_replays"] >= 3, lz[2]
+        assert cap[2]["capture_replays"] == 3 and cap[2]["capture_fallbacks"] == 0, cap[2]
+        # 2 eager steps and one capture launch through the wrapper; replays do not
+        assert tfu.fused_adam.launches - before == 3 * 10
+        for got in (lz, cap):
+            assert got[0] == ref[0]
+            assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+        assert lazy.step_capture_state()["cuda_graphs"] == 1
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_eager_lazy_dispatch": False,
+                      "FLAGS_eager_step_capture": True, "FLAGS_eager_async_compile": True})
+        lazy.reset_lazy_state()
+        pt.set_device(was)
+
+
+@pytest.mark.cuda
+def test_captured_step_rebuilds_after_a_parameter_is_rebound():
+    """A parameter whose storage is replaced after the capture invalidates
+    the captured program (counted) instead of replaying stale addresses;
+    the step after rebuilds it."""
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    lazy.reset_lazy_state()
+    pt.set_flags({"FLAGS_eager_lazy_dispatch": True, "FLAGS_eager_async_compile": False})
+    try:
+        pt.seed(0)
+        model = pt.nn.Sequential(pt.nn.Linear(8, 16), pt.nn.ReLU(), pt.nn.Linear(16, 4))
+        opt = pt.optimizer.Adam(learning_rate=1e-2, parameters=model.parameters())
+        loss_fn = pt.nn.CrossEntropyLoss()
+        x = pt.to_tensor(np.ones((4, 8), np.float32))
+        y = pt.to_tensor(np.zeros((4,), np.int64))
+
+        def step():
+            loss = loss_fn(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss)
+
+        for _ in range(4):
+            step()
+        assert pt.profiler.dispatch_counters()["capture_replays"] >= 2
+        w = model[0].weight
+        w.data = w.data.clone()  # new storage: the graph's address is stale
+        pt.profiler.reset_dispatch_counters()
+        for _ in range(4):
+            step()
+        c = pt.profiler.dispatch_counters()
+        assert c["capture_invalidations"] == 1, dict(c)
+        assert c["capture_fallback_reasons"].get("param_rebound") == 1, dict(c)
+        assert c["capture_builds"] == 1 and c["capture_replays"] >= 1, dict(c)
+    finally:
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": False, "FLAGS_eager_async_compile": True})
+        lazy.reset_lazy_state()
+        pt.set_device(was)
+
+
+class _ChangingNet(pt.nn.Layer):
+    """An MLP whose forward reads batch norm's and dropout's modes, an
+    activation sublayer and a plain attribute."""
+
+    def __init__(self, dropout):
+        super().__init__()
+        self.fc1 = pt.nn.Linear(8, 16)
+        self.bn = pt.nn.BatchNorm1D(16)
+        self.act = pt.nn.ReLU()
+        self.drop = pt.nn.Dropout(dropout)
+        self.fc2 = pt.nn.Linear(16, 4)
+        self.scale = 1.0
+
+    def forward(self, x):
+        return self.fc2(self.drop(self.act(self.bn(self.fc1(x))))) * self.scale
+
+
+def _changing_run(regime, steps=12):
+    """Adam steps of _ChangingNet (dropout 0) on the card in ``regime``:
+    batch norm put into eval mode before step 4, the activation swapped and
+    the attribute set before step 8. The losses, parameters, BN statistics
+    and moments, and each third's counters."""
+    from paddle_tpu_torch.core import lazy
+
+    lazy.reset_lazy_state()
+    pt.set_flags({"FLAGS_eager_lazy_dispatch": regime != "per_op",
+                  "FLAGS_eager_step_capture": regime == "captured"})
+    pt.seed(0)
+    model = _ChangingNet(0.0)
+    opt = pt.optimizer.Adam(learning_rate=1e-2, parameters=model.parameters())
+    loss_fn = pt.nn.CrossEntropyLoss()
+    rng = np.random.default_rng(3)
+    x = pt.to_tensor(rng.standard_normal((6, 8)).astype(np.float32))
+    y = pt.to_tensor(rng.integers(0, 4, (6,)))
+    losses, counters = [], []
+    for i in range(steps):
+        if i in (4, 8):
+            counters.append(dict(pt.profiler.dispatch_counters()))
+            pt.profiler.reset_dispatch_counters()
+            if i == 4:
+                model.bn.eval()
+            else:
+                model.act = pt.nn.Tanh()
+                model.scale = 0.5
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss)
+    counters.append(dict(pt.profiler.dispatch_counters()))
+    state = [t.detach().clone() for t in (*model.parameters(), *model.buffers())]
+    state += [v.clone() for p in model.parameters() for v in opt._accumulators[id(p)].values()]
+    return [float(v) for v in losses], state, counters
+
+
+@pytest.mark.cuda
+def test_lazy_and_captured_steps_follow_layers_changed_between_steps():
+    """Batch norm put into eval mode, and then an activation swapped and an
+    attribute set, between steps whose segment graphs (lazy) or whole-step
+    graph (captured) already exist: the next steps capture anew and every
+    step is bitwise the per-op step. A dropout put into eval mode after its
+    segment's graphs were captured stops dropping."""
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    try:
+        ref = _changing_run("per_op")
+        for regime in ("lazy", "captured"):
+            got = _changing_run(regime)
+            assert got[0] == ref[0], regime
+            assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1])), regime
+            for c in got[2]:
+                if regime == "lazy":
+                    assert c["segment_graph_replays"] >= 2, c
+                else:
+                    assert c["capture_replays"] >= 1, c
+        # dropout: graphs captured in training, then eval mode
+        lazy.reset_lazy_state()
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": True, "FLAGS_eager_step_capture": False})
+        pt.seed(0)
+        model = _ChangingNet(0.5)
+        x = pt.to_tensor(np.ones((6, 8), np.float32))
+        for _ in range(3):
+            model(x).sum().backward()
+        assert pt.profiler.dispatch_counters()["segment_graph_replays"] >= 1
+        model.drop.eval()
+        lazy_out = [model(x).numpy() for _ in range(2)]
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": False})
+        eager_out = model(x).numpy()
+        assert np.array_equal(lazy_out[0], eager_out) and np.array_equal(lazy_out[1], eager_out)
+    finally:
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": False, "FLAGS_eager_step_capture": True})
+        lazy.reset_lazy_state()
+        pt.set_device(was)
+
+
+@pytest.mark.cuda
+def test_segment_graphs_rebuild_after_a_parameter_is_rebound():
+    """Under lazy dispatch (no whole-step capture) a parameter whose storage
+    is replaced after its segment's graphs were captured drops those graphs
+    (counted) instead of replaying stale addresses; every step equals the
+    per-op step of a model rebound the same way."""
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+
+    def run(lazy_on):
+        lazy.reset_lazy_state()
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": lazy_on, "FLAGS_eager_step_capture": False})
+        pt.seed(0)
+        model = pt.nn.Sequential(pt.nn.Linear(8, 16), pt.nn.ReLU(), pt.nn.Linear(16, 4))
+        opt = pt.optimizer.SGD(learning_rate=1e-2, parameters=model.parameters())
+        x = pt.to_tensor(np.ones((4, 8), np.float32))
+        losses = []
+        for i in range(6):
+            if i == 3:
+                w = model[0].weight
+                w.data = w.data.clone()
+                pt.profiler.reset_dispatch_counters()
+            loss = model(x).sum()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        return losses, [p.detach().clone() for p in model.parameters()], dict(
+            pt.profiler.dispatch_counters())
+
+    try:
+        ref = run(False)
+        got = run(True)
+        assert got[0] == ref[0]
+        assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+        c = got[2]
+        assert c["segment_graph_invalidations"] == 1 and c["segment_graph_replays"] == 3, c
+    finally:
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": False, "FLAGS_eager_step_capture": True})
+        lazy.reset_lazy_state()
         pt.set_device(was)

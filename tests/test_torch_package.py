@@ -507,9 +507,9 @@ def test_paddle_style_script_loads_neither_jax_nor_paddle_tpu():
     assert out.strip() == "[]"
 
 
-# API.spec names of paddle.nn left to queue 1 item 4's remainder (nn/layer/rnn.py)
-NN_REMAINDER = {"BeamSearchDecoder", "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN",
-                "RNNCellBase", "SimpleRNN", "SimpleRNNCell", "dynamic_decode"}
+# API.spec names of paddle.nn left to queue 1 item 4's remainder: none, now
+# that nn/layer/rnn.py is ported (nn.quant moved to item 14)
+NN_REMAINDER = set()
 # paddle.vision.models names of models_extra.py, with the rest of vision/ (item 14)
 VISION_LATER = {"DenseNet", "GoogLeNet", "InceptionV3", "MobileNetV1", "MobileNetV3",
                 "MobileNetV3Large", "MobileNetV3Small", "ShuffleNetV2", "SqueezeNet",
@@ -523,8 +523,8 @@ VISION_LATER = {"DenseNet", "GoogLeNet", "InceptionV3", "MobileNetV1", "MobileNe
 def test_api_spec_surface_of_nn_and_vision_models():
     """Every ``paddle.nn.*``, ``paddle.nn.functional.*``,
     ``paddle.nn.initializer.*`` and ``paddle.vision.models`` / ``resnet`` /
-    ``vgg`` name of API.spec resolves in the port, but the recurrent layers
-    (item 4's remainder) and ``models_extra``'s families (item 14)."""
+    ``vgg`` name of API.spec resolves in the port, the recurrent layers
+    included, but ``models_extra``'s families (item 14)."""
     names = _api_names()
     scoped = [n for n in names if n.startswith(("paddle.nn.", "paddle.vision.models."))
               or n.startswith(("paddle.vision.resnet", "paddle.vision.vgg"))
@@ -535,8 +535,9 @@ def test_api_spec_surface_of_nn_and_vision_models():
     assert _resolve("paddle.nn.Conv2D") is pt.nn.layer.conv.Conv2D
     assert _resolve("paddle.vision.resnet50") is pt.vision.models.resnet50
     assert _resolve("paddle.ParamAttr") is pt.nn.ParamAttr
+    assert _resolve("paddle.nn.LSTM") is pt.nn.layer.rnn.LSTM
     covered = sum(_resolve(n) is not None for n in names)
-    assert covered >= 711  # 461 of 1208 before the nn slice
+    assert covered >= 732  # 461 of 1208 before the nn layers, 711 before the recurrent ones
     print(f"API.spec coverage of the port: {covered} of {len(names)} names "
           f"({covered / len(names):.1%}); nn and vision models: "
           f"{len(scoped) - len(missing)} of {len(scoped)}")
@@ -560,6 +561,47 @@ def test_nn_and_resnet_paths_load_neither_jax_nor_paddle_tpu():
         "assert isinstance(loss, paddle.Tensor) and np.isfinite(float(loss))\n"
         "enc = paddle.nn.TransformerEncoder(paddle.nn.TransformerEncoderLayer(8, 2, 16), 2)\n"
         "assert enc(paddle.to_tensor(np.ones((1, 4, 8), np.float32))).shape == [1, 4, 8]\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip() == "[]"
+
+
+def test_api_spec_surface_of_device():
+    """Every ``paddle.device.*`` name of API.spec resolves in the port
+    (``paddle_tpu_torch/device``)."""
+    names = [n for n in _api_names() if n.startswith("paddle.device")]
+    assert len(names) >= 10
+    assert [n for n in names if _resolve(n) is None] == []
+    assert _resolve("paddle.device.synchronize") is pt.device.synchronize
+    assert _resolve("paddle.device.cuda") is pt.device.cuda
+
+
+def test_eager_dispatch_rnn_and_device_paths_load_neither_jax_nor_paddle_tpu():
+    # eager dispatch: a LeNet loop under lazy dispatch, captured whole, an LSTM, a
+    # beam search, paddle.device
+    out = _run(
+        "import sys, numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "paddle.set_flags({'FLAGS_eager_lazy_dispatch': True})\n"
+        "m = paddle.vision.models.LeNet()\n"
+        "opt = paddle.optimizer.Adam(learning_rate=1e-3, parameters=m.parameters())\n"
+        "crit = paddle.nn.CrossEntropyLoss()\n"
+        "x = paddle.to_tensor(np.zeros((2, 1, 28, 28), np.float32))\n"
+        "y = paddle.to_tensor(np.array([1, 2]))\n"
+        "def step():\n"
+        "    loss = crit(m(x), y); loss.backward(); opt.step(); opt.clear_grad()\n"
+        "    return loss\n"
+        "c = paddle.profiler.measure_programs(step, warmup=3)  # the 3rd: build pending\n"
+        "assert c['programs'] == 1 and c['captured_programs'] == 1, c\n"
+        "lstm = paddle.nn.LSTM(4, 3, num_layers=2, direction='bidirect')\n"
+        "out, (h, cell) = lstm(paddle.to_tensor(np.ones((2, 5, 4), np.float32)))\n"
+        "assert out.shape == [2, 5, 6] and h.shape == [4, 2, 3]\n"
+        "dec = paddle.nn.BeamSearchDecoder(paddle.nn.GRUCell(4, 8), 0, 1, 2,\n"
+        "    embedding_fn=paddle.nn.Embedding(10, 4), output_fn=paddle.nn.Linear(8, 10))\n"
+        "ids, scores = paddle.nn.dynamic_decode(dec, inits=paddle.zeros([2, 8]), max_step_num=3)\n"
+        "paddle.device.synchronize()\n"
+        "assert paddle.device.memory_allocated() == 0 and ids.shape[:2] == [2, 2]\n"
         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
     )
     assert out.strip() == "[]"
