@@ -210,7 +210,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      once per parameter inside the graph: bitwise per-op at dropout 0, new
      masks each replay at 0.5 (and the same masks after
      ``paddle.set_rng_state``), ms a step and tokens/s;
- 14. one JSON line of per-kernel numbers, the script's time, then the
+ 14. frozen parameters, O1 casts, ``paddle.linalg``, ``paddle.autograd``'s
+     functional API and the serve-probe CLI: (14a) 13b's Paddle-style 345M
+     f32 step with ``wte`` and ``wpe`` frozen by ``trainable = False`` (the
+     LM head is tied to ``wte``) and blocks 0-11 by ``stop_gradient =
+     True``, 5 per-op steps and 2 warm-up + 3 captured steps on twin models:
+     frozen parameters bitwise unchanged, the trainable ones (and their
+     moments) bitwise equal between the paths, each step 146 fused Adam
+     launches, 24 tf32x3 forwards and 12 of each tf32x3 backward kernel (the
+     backward stops at block 12), the captured step one program, ms a step
+     in turns beside 13b's unfrozen step, peak memory; (14b) inside
+     ``auto_cast(level="O1", dtype="bfloat16")`` at 8192 x 1024 by 1024 x
+     4096: ``paddle.matmul``, ``@``, ``mm``, ``bmm`` and ``einsum`` of f32
+     Tensors give bf16, ``exp``, ``log``, ``mean``, ``sum``, ``Tensor.sum``,
+     ``pow``, ``cumsum``, ``square`` and ``norm`` of bf16 Tensors f32, each
+     against its f32 result; (14c) every ``paddle.linalg`` function on a
+     4096 x 4096 f32 matrix (SPD where needed; ``eig`` and ``eigvals`` at
+     1024) and a 256 x 64 x 64 batch, held by its residual and against the
+     port on the CPU, timed by CUDA events, its host synchronisations
+     listed (torch's sync debug mode); the Jacobian and Hessian of a 2-layer
+     MLP loss against the CPU port; (14d) ``python -m
+     paddle_tpu_torch.tools.serve_probe`` in a process of its own on the
+     card: exit 0 and ``ALL SCENARIOS PASSED``;
+ 15. one JSON line of per-kernel numbers, the script's time, then the
      result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -226,6 +248,10 @@ it and the card is supported.
     python3 chip_smoke.py --eager-dispatch
 
 runs only phase 13, after building the libraries its paths launch.
+
+    python3 chip_smoke.py --phase14
+
+runs only phase 14, after building the libraries its paths launch.
 
     python3 chip_smoke.py --host-cost-vs DIR
 
@@ -2978,11 +3004,11 @@ def check_update_kernels(torch, fu, gen, dev):
 
 def bitwise_same(torch, model_a, model_b, opt_a, opt_b):
     """Whether two models' parameters and their optimizers' states are equal
-    to the bit."""
+    to the bit (a frozen parameter has no state in either)."""
     for a, b in zip(model_a.parameters(), model_b.parameters()):
         if not torch.equal(a, b):
             return False
-        sa, sb = opt_a._accumulators[id(a)], opt_b._accumulators[id(b)]
+        sa, sb = opt_a._accumulators.get(id(a), {}), opt_b._accumulators.get(id(b), {})
         if sorted(sa) != sorted(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
             return False
     return True
@@ -4674,6 +4700,547 @@ def host_cost_in_turns(parent: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 14. frozen parameters, O1 casts, paddle.linalg and autograd.functional,
+# the serve-probe CLI
+# ---------------------------------------------------------------------------
+FROZEN_BLOCKS = 12     # 14a: the embeddings (and the tied head) and blocks 0-11 frozen
+FROZEN_STEPS = 3       # per-op steps, and captured steps after the warm-up, held bitwise
+O1_SHAPE = (8192, 1024, 4096)  # 14b: an (m, k) by (k, n) product
+TOL_O1_PRODUCT = 3e-2  # bf16 operands and result against the f32 product, of its largest entry
+TOL_O1_F32 = 1e-5      # f32 results of bf16 inputs against torch's f32 op on the same values
+LINALG_N = 4096        # 14c: one f32 matrix of this size ...
+LINALG_BATCH = (256, 64, 64)  # ... and a batch of this shape
+LINALG_EIG_N = 1024    # eig and eigvals: the general eigenproblem runs on the host
+# 14c: a residual (relative, Frobenius) of a decomposition or solve of a
+# well-conditioned f32 matrix (condition numbers below ~10): the rounding of
+# sums of up to 4096 terms, ~sqrt(n) * eps * cond, with a margin
+TOL_LINALG_RESIDUAL = 1e-4
+# the card against the port on the CPU for the same inputs: cuSOLVER and
+# LAPACK factor in other orders, so their results differ by ~cond * eps
+# relative to the largest entry, with a margin
+TOL_LINALG_CPU = 1e-3
+TOL_HESSIAN_CPU = 1e-4  # 14c: the MLP's Jacobian and Hessian, card against CPU, of the largest
+SERVE_PROBE_TIMEOUT_S = 300
+
+
+def frozen_finetune_345m(torch, pt, fa, fu, dev, unfrozen):
+    """14a: phase 13b's Paddle-style 345M f32 step with the embeddings
+    (``trainable = False``; the head is tied to them) and blocks
+    0..FROZEN_BLOCKS-1 (``stop_gradient = True``) frozen, per-op and
+    captured on twin models: frozen parameters bitwise unchanged, the
+    trainable ones bitwise equal between the paths, each step launching one
+    Adam kernel per trainable parameter, 24 tf32x3 forwards and 12 of each
+    backward kernel, the captured step one program. ``unfrozen`` is 13b's
+    result (None when phase 13 did not run in this process)."""
+    import numpy as np
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    batch = 8
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    print(f"[14a] the half-frozen GPT-2 345M fine-tune: phase 13b's Paddle-style f32 step "
+          f"({batch} x {cfg.max_seq_len}, Adam through the fused kernel) with wte and wpe "
+          f"frozen (trainable = False; the LM head is tied to wte) and blocks 0-"
+          f"{FROZEN_BLOCKS - 1} (stop_gradient = True), per-op and captured on twin models")
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1))
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    models, opts = [], []
+    for _ in range(2):
+        pt.seed(SEED)
+        m = GPTForPretraining(cfg)
+        emb = m.gpt.embeddings
+        emb.word_embeddings.weight.trainable = False
+        emb.position_embeddings.weight.trainable = False
+        for block in m.gpt.layers[:FROZEN_BLOCKS]:
+            for p in block.parameters():
+                p.stop_gradient = True
+        models.append(m)
+        opts.append(pt.optimizer.Adam(learning_rate=1e-4, parameters=m.parameters()))
+    params = list(models[0].parameters())
+    trainable = [p for p in params if not p.stop_gradient]
+    frozen_before = [[p.detach().clone() for p in m.parameters() if p.stop_gradient]
+                     for m in models]
+    n_frozen = len(frozen_before[0])
+    print(f"  {len(params)} parameters, {len(trainable)} trainable, {n_frozen} frozen")
+    check(len(trainable) + n_frozen == len(params) and n_frozen > 0, "the freeze took nothing")
+    crit = GPTPretrainingCriterion(cfg)
+    ids = pt.to_tensor(data[:, :-1], dtype="int64")
+    labels = pt.to_tensor(data[:, 1:], dtype="int64")
+
+    def stepper(i, regime):
+        def step():
+            set_regime(pt, regime)
+            loss = crit(models[i](ids), labels)
+            loss.backward()
+            opts[i].step()
+            opts[i].clear_grad()
+            return loss
+        return step
+
+    per_op, captured = stepper(0, "per_op"), stepper(1, "captured")
+    lazy.reset_lazy_state()
+    warm = pt.get_flags("FLAGS_eager_capture_warmup")["FLAGS_eager_capture_warmup"]
+    n = warm + FROZEN_STEPS
+    want = {"fwd_tf32x3": cfg.num_layers, "dkv_tf32x3": cfg.num_layers - FROZEN_BLOCKS,
+            "dq_tf32x3": cfg.num_layers - FROZEN_BLOCKS, "adam": len(trainable)}
+    losses_ref, per_step = [], []
+    for _ in range(n):
+        before = kernel_counts(fa, fu)
+        losses_ref.append(float(per_op()))
+        per_step.append(counts_since(fa, fu, before))
+    pt.profiler.reset_dispatch_counters()
+    losses, built = [], None
+    for i in range(n):
+        before = kernel_counts(fa, fu)
+        losses.append(float(captured()))
+        if i == warm:  # the build: what the capture launched is what each replay holds
+            built = counts_since(fa, fu, before)
+    c = pt.profiler.dispatch_counters()
+    frozen_ok = all(torch.equal(a, b) for m, olds in zip(models, frozen_before)
+                    for a, b in zip([p for p in m.parameters() if p.stop_gradient], olds))
+    same = losses == losses_ref and bitwise_same(torch, models[1], models[0], opts[1], opts[0])
+    print(f"  losses per-op {losses_ref}; lazy + capture {losses}; frozen parameters bitwise "
+          f"unchanged on both paths: {frozen_ok}; bitwise (losses, parameters, moments) {same}; "
+          f"counters: {c['capture_builds']} build, {c['capture_replays']} replays, fallbacks "
+          f"{dict(c['capture_fallback_reasons'])}")
+    print(f"  launches of each per-op step {per_step}; the captured graph holds {built}; "
+          f"expected a step {want}")
+    check(frozen_ok, "a frozen parameter moved")
+    check(same, "the captured half-frozen step differs from the per-op step")
+    check(all(s == want for s in per_step), f"per-op half-frozen steps launched {per_step}, "
+                                            f"expected {want} each")
+    check(built == want, f"the captured half-frozen graph holds {built}, expected {want}")
+    check(c["capture_replays"] == FROZEN_STEPS and c["capture_fallbacks"] == 0,
+          f"the half-frozen step did not replay once a step without a fallback (the last "
+          f"capture error: {lazy.last_capture_error[0]})")
+    before = kernel_counts(fa, fu)
+    progs = per_step_programs(pt.profiler.measure_programs(captured, warmup=0))
+    check(progs["programs"] == 1 and progs["captured_programs"] == 1,
+          f"the captured half-frozen step took {progs} programs, expected 1")
+    check(counts_since(fa, fu, before) == {}, "a replay launched through a wrapper")
+    float(per_op())  # the twin takes the step measure_programs took
+    times = {"per_op": [], "captured": []}
+    for kind in ("per_op", "captured", "captured", "per_op") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float((per_op if kind == "per_op" else captured)())
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    check(pt.profiler.dispatch_counters()["capture_fallbacks"] == 0,
+          "a timed half-frozen captured step fell back")
+    check(bitwise_same(torch, models[1], models[0], opts[1], opts[0]),
+          "the timed half-frozen steps left the two models apart")
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ref = ("13b unfrozen in this run: captured {captured:.2f} ms, per-op {per_op:.2f} ms"
+           .format(**unfrozen["step_ms"]) if unfrozen else "13b not run in this process")
+    print(f"  step (forward, backward, Adam, clear, host read of the loss), host clock, median of "
+          f"{len(times['captured'])} in turns: captured {step_ms['captured']:.2f} ms, per-op "
+          f"{step_ms['per_op']:.2f} ms ({ref}); one program a step {progs['programs']}; peak "
+          f"memory {peak:.2f} GB (two models)")
+    set_regime(pt, "per_op")
+    pt.set_flags({"FLAGS_pallas_fused_update": False})
+    lazy.reset_lazy_state()
+    del models, opts
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "per_step": want, "built": built, "peak_gb": peak}
+
+
+def o1_casts_on_card(torch, pt, dev):
+    """14b: ``auto_cast(level="O1", dtype="bfloat16")`` on the card: the
+    white-listed products of f32 Tensors give bf16 (within TOL_O1_PRODUCT of
+    the f32 product), the black-listed ops on bf16 Tensors give f32 (within
+    TOL_O1_F32 of torch's op in f32 on the same values); ms of the O1
+    product beside the f32 one."""
+    m, k, n = O1_SHAPE
+    print(f"[14b] AMP O1 bf16 casts of the paddle.* functions on the card: ({m}, {k}) by "
+          f"({k}, {n}) products, and the black list on bf16 ({m}, {k})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    xv = torch.randn(m, k, device=dev, generator=gen)
+    wv = torch.randn(k, n, device=dev, generator=gen) / k ** 0.5
+    x, w = pt.to_tensor(xv), pt.to_tensor(wv)
+    ref = xv @ wv
+    bx = x.reshape([8, m // 8, k])
+    products = {
+        "matmul": lambda: pt.matmul(x, w), "@": lambda: x @ w, "mm": lambda: pt.mm(x, w),
+        "bmm": lambda: pt.bmm(bx, w.reshape([1, k, n]).expand([8, k, n])),
+        "einsum": lambda: pt.einsum("ij,jk->ik", x, w),
+    }
+    got = {}
+    with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        for name, fn in products.items():
+            out = fn()
+            err = float((out._value.float().reshape(m, n) - ref).abs().max() / ref.abs().max())
+            got[name] = (str(out.dtype), err)
+            check(out.dtype == pt.bfloat16, f"O1 {name} of f32 Tensors gave {out.dtype}")
+            check(err <= TOL_O1_PRODUCT, f"O1 {name}: {err:.3e} of the largest entry from the f32 "
+                                         f"product, tolerance {TOL_O1_PRODUCT:g}")
+        o1_ms = time_ms(lambda: pt.matmul(x, w), reps=10, warmup=2)
+    f32_ms = time_ms(lambda: pt.matmul(x, w), reps=10, warmup=2)
+    xb = x.astype("bfloat16")
+    xf = xb._value.float()
+    pos = (xb.abs() + 1.0).astype("bfloat16")
+    black = {
+        "exp": (lambda: pt.exp(xb), lambda: torch.exp(xf)),
+        "log": (lambda: pt.log(pos), lambda: torch.log(pos._value.float())),
+        "mean": (lambda: pt.mean(xb, axis=1), lambda: xf.mean(dim=1)),
+        "sum": (lambda: pt.sum(xb), lambda: xf.sum()),
+        "Tensor.sum": (lambda: xb.sum(axis=0), lambda: xf.sum(dim=0)),
+        "pow": (lambda: pt.pow(xb, 2.0), lambda: xf.pow(2.0)),
+        "cumsum": (lambda: pt.cumsum(xb, axis=1), lambda: xf.cumsum(dim=1)),
+        "square": (lambda: pt.square(xb), lambda: xf.square()),
+        "norm": (lambda: pt.norm(xb), lambda: xf.square().sum().sqrt()),
+    }
+    with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+        for name, (fn, plain) in black.items():
+            out, want = fn(), plain()
+            err = float((out._value - want).abs().max() / want.abs().max().clamp_min(1e-30))
+            got[name] = (str(out.dtype), err)
+            check(out.dtype == pt.float32, f"O1 {name} of bf16 Tensors gave {out.dtype}")
+            check(err <= TOL_O1_F32, f"O1 {name}: {err:.3e} of the largest entry from torch's "
+                                     f"f32 op, tolerance {TOL_O1_F32:g}")
+    print("  dtype and error of the largest entry: " + "; ".join(
+        f"{k} {d} {e:.2e}" for k, (d, e) in got.items()))
+    print(f"  the product: {o1_ms:.3f} ms under O1 (bf16), {f32_ms:.3f} ms in f32 (CUDA events, "
+          f"median of 10)")
+    return {"o1_ms": o1_ms, "f32_ms": f32_ms, "dtypes": {k: d for k, (d, _) in got.items()}}
+
+
+def host_syncs(torch, fn):
+    """The host synchronisations ``fn`` makes (torch's sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+    return sorted({str(w.message).splitlines()[0][:80] for w in caught
+                   if "synchroniz" in str(w.message).lower()})
+
+
+def _wide(torch, x):
+    """``x`` in float64 (complex128 if complex), detached."""
+    return x.detach().to(torch.complex128 if x.is_complex() else torch.float64)
+
+
+def _rel(torch, a, b):
+    """max |a - b| over max |b|, in float64 on a's device."""
+    a, b = _wide(torch, a), _wide(torch, b.to(a.device))
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _fro_rel(torch, a, b):
+    """||a - b|| over ||b|| (Frobenius), in float64."""
+    a, b = _wide(torch, a), _wide(torch, b)
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-30))
+
+
+def _linalg_inputs(torch, dev, n, batch, n_eig):
+    """The 14c matrices on ``dev`` from one seed: general ``a`` (G / sqrt(n) +
+    2 I: singular values ~1-3), SPD ``s`` (G G^T / n + I), its Cholesky
+    factor's right-hand sides, a tall ``tall`` and the batch."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def general(*shape):
+        g = torch.randn(*shape, device=dev, generator=gen) / shape[-1] ** 0.5
+        return g + 2 * torch.eye(shape[-1], device=dev)
+
+    def spd(*shape):
+        g = torch.randn(*shape, device=dev, generator=gen)
+        return g @ g.mT / shape[-1] + torch.eye(shape[-1], device=dev)
+
+    return {
+        "a": general(n, n), "s": spd(n, n), "b": torch.randn(n, 16, device=dev, generator=gen),
+        "tall": torch.randn(n, n // 4, device=dev, generator=gen),
+        "y": torch.randn(n, 16, device=dev, generator=gen),
+        "ab": general(*batch), "sb": spd(*batch),
+        "bb": torch.randn(*batch[:-1], 8, device=dev, generator=gen),
+        "e": general(n_eig, n_eig),
+    }
+
+
+def linalg_cases(torch, pt):
+    """(name, run(L, t) -> outputs, residual(t, outs) -> relative error (0 or
+    1 for a count or a flag), and whether the outputs are held against the
+    CPU port as they are: False where signs, orders or pivots are free (Q,
+    U, V, eigenvectors, LU factors: a near-tie may pivot otherwise)). ``t``
+    maps the input names ``a`` (general), ``s`` (SPD), ``b`` (right-hand
+    sides), ``tall``, ``y`` and ``e`` (eig's) to Tensors."""
+    eye = lambda x: torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)  # noqa: E731
+    v = lambda x: x._value  # noqa: E731
+    return [
+        ("cholesky", lambda L, t: L.cholesky(t["s"]),
+         lambda t, o: _fro_rel(torch, v(o[0]) @ v(o[0]).mT, v(t["s"])), True),
+        ("inv", lambda L, t: L.inv(t["a"]),
+         lambda t, o: _fro_rel(torch, v(t["a"]) @ v(o[0]), eye(v(t["a"]))), True),
+        ("pinv", lambda L, t: L.pinv(t["a"]),
+         lambda t, o: _fro_rel(torch, v(t["a"]) @ v(o[0]), eye(v(t["a"]))), True),
+        ("det", lambda L, t: L.det(t["a"]),
+         lambda t, o: float(not torch.isclose(
+             v(o[0]).double(), torch.linalg.slogdet(v(t["a"]).double())[0]
+             * torch.linalg.slogdet(v(t["a"]).double())[1].exp(), rtol=1e-3).all()), True),
+        ("slogdet", lambda L, t: L.slogdet(t["a"]),
+         lambda t, o: _rel(torch, v(o[0])[1], torch.linalg.slogdet(v(t["a"]).double())[1]),
+         True),
+        ("matrix_rank", lambda L, t: L.matrix_rank(t["a"]),
+         lambda t, o: float(int(v(o[0])) != v(t["a"]).shape[-1]), True),
+        ("matrix_power", lambda L, t: L.matrix_power(t["a"], 3),
+         lambda t, o: _fro_rel(torch, v(o[0]), v(t["a"]) @ v(t["a"]) @ v(t["a"])), True),
+        ("solve", lambda L, t: L.solve(t["a"], t["b"]),
+         lambda t, o: _fro_rel(torch, v(t["a"]) @ v(o[0]), v(t["b"])), True),
+        ("triangular_solve", lambda L, t: L.triangular_solve(L.cholesky(t["s"]), t["b"],
+                                                             upper=False),
+         lambda t, o: _fro_rel(torch, torch.linalg.cholesky(v(t["s"])) @ v(o[0]), v(t["b"])),
+         True),
+        ("cholesky_solve", lambda L, t: L.cholesky_solve(t["b"], L.cholesky(t["s"])),
+         lambda t, o: _fro_rel(torch, v(t["s"]) @ v(o[0]), v(t["b"])), True),
+        ("lstsq", lambda L, t: L.lstsq(t["tall"], t["y"]),
+         lambda t, o: _fro_rel(torch, v(t["tall"]).mT @ (v(t["tall"]) @ v(o[0])),
+                               v(t["tall"]).mT @ v(t["y"])), True),
+        ("lu", lambda L, t: L.lu(t["a"]), None, False),
+        ("lu_unpack", lambda L, t: L.lu_unpack(*L.lu(t["a"])),
+         lambda t, o: _fro_rel(torch, v(o[0]) @ v(o[1]) @ v(o[2]), v(t["a"])), False),
+        ("qr", lambda L, t: L.qr(t["a"]),
+         lambda t, o: max(_fro_rel(torch, v(o[0]) @ v(o[1]), v(t["a"])),
+                          _fro_rel(torch, v(o[0]).mT @ v(o[0]), eye(v(t["a"])))), False),
+        ("svd", lambda L, t: L.svd(t["a"]),
+         lambda t, o: _fro_rel(torch, (v(o[0]) * v(o[1])[..., None, :]) @ v(o[2]), v(t["a"])),
+         False),
+        ("eigh", lambda L, t: L.eigh(t["s"]),
+         lambda t, o: _fro_rel(torch, v(t["s"]) @ v(o[1]), v(o[1]) * v(o[0])[..., None, :]),
+         False),
+        ("eigvalsh", lambda L, t: L.eigvalsh(t["s"]),
+         lambda t, o: _rel(torch, v(o[0]), torch.linalg.eigvalsh(v(t["s"]).double())), True),
+        ("eig", lambda L, t: L.eig(t["e"]),
+         lambda t, o: _fro_rel(torch, v(t["e"]).to(v(o[1]).dtype) @ v(o[1]),
+                               v(o[1]) * v(o[0])[..., None, :]), False),
+        ("eigvals", lambda L, t: L.eigvals(t["e"]),
+         lambda t, o: _rel(torch, v(o[0]).sum(-1), torch.diagonal(v(t["e"]), dim1=-2,
+                                                                  dim2=-1).sum(-1)), False),
+        ("cond", lambda L, t: L.cond(t["a"]),
+         lambda t, o: _rel(torch, v(o[0]), torch.linalg.cond(v(t["a"]).double())), True),
+        ("cov", lambda L, t: L.cov(t["a"]),
+         lambda t, o: _fro_rel(torch, v(o[0]), torch.cov(v(t["a"]).double())), True),
+        ("corrcoef", lambda L, t: L.corrcoef(t["a"]),
+         lambda t, o: _fro_rel(torch, v(o[0]), torch.corrcoef(v(t["a"]).double())), True),
+        ("histogram", lambda L, t: L.histogram(t["a"], bins=100),
+         lambda t, o: abs(float(v(o[0]).sum()) - v(t["a"]).numel()), True),
+        ("multi_dot", lambda L, t: L.multi_dot([t["a"], t["s"], t["b"]]),
+         lambda t, o: _fro_rel(torch, v(o[0]), v(t["a"]) @ (v(t["s"]) @ v(t["b"]))), True),
+        ("matmul", lambda L, t: L.matmul(t["a"], t["s"]), None, True),
+        ("mm", lambda L, t: L.mm(t["a"], t["b"]), None, True),
+        ("bmm", lambda L, t: L.bmm(t["a"].reshape([-1, *t["a"].shape[-2:]]),
+                                   t["b"].reshape([-1, *t["b"].shape[-2:]])), None, True),
+        ("mv", lambda L, t: L.mv(t["a"], t["b"][:, 0]), None, True),
+        ("dot", lambda L, t: L.dot(t["a"], t["s"]), None, True),
+        ("norm", lambda L, t: L.norm(t["a"]), None, True),
+        ("dist", lambda L, t: L.dist(t["a"], t["s"]), None, True),
+        ("cross", lambda L, t: L.cross(t["a"][:, :3], t["s"][:, :3]), None, True),
+        ("t", lambda L, t: L.t(t["a"]), None, True),
+        ("trace", lambda L, t: L.trace(t["a"]), None, True),
+    ]
+
+
+def _compare(torch, got, want):
+    """The largest relative difference of the floating outputs ``got`` (on
+    the card) from ``want`` (on the CPU); integer outputs must be equal."""
+    err = 0.0
+    for o, w in zip(got, want):
+        o, w = o._value, w._value
+        if o.is_floating_point() or o.is_complex():
+            err = max(err, _rel(torch, o.cpu(), w))
+        else:
+            check(torch.equal(o.cpu(), w), "integer outputs differ between the card and the CPU")
+    return err
+
+
+def svd_drivers(torch, a):
+    """torch's cuSOLVER SVD drivers on ``a``: the residual of U S Vh, the
+    orthogonality of U and V, ms (host clock, synchronised, one run)."""
+    for driver in (None, "gesvdj", "gesvd", "gesvda"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, s, vh = torch.linalg.svd(a, full_matrices=False, driver=driver)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        eye = torch.eye(a.shape[-1], device=a.device)
+        print(f"  svd driver {driver}: {ms:.1f} ms; residual "
+              f"{_fro_rel(torch, (u * s[..., None, :]) @ vh, a):.2e}, U^T U "
+              f"{_fro_rel(torch, u.mT @ u, eye):.2e}, V V^T {_fro_rel(torch, vh @ vh.mT, eye):.2e}")
+
+
+def linalg_on_card(torch, pt, dev):
+    """14c: every ``paddle.linalg`` function on a LINALG_N-square f32 matrix
+    (SPD where it needs one; ``eig`` and ``eigvals`` at LINALG_EIG_N) and
+    on a LINALG_BATCH batch: residuals within TOL_LINALG_RESIDUAL, the
+    batch (and the big matrix where the host's LAPACK takes it in a second
+    or two) against the port on the CPU within TOL_LINALG_CPU, ms by CUDA
+    events, the host synchronisations each call makes; then the Jacobian and
+    Hessian of a 2-layer MLP loss (``paddle.autograd``) against the CPU
+    port."""
+    n = LINALG_N
+    print(f"[14c] paddle.linalg on the card: f32 {n} x {n} (SPD where needed; eig and eigvals "
+          f"at {LINALG_EIG_N}) and a {LINALG_BATCH} batch, against residuals and the CPU port")
+    t0 = time.perf_counter()
+    raw = _linalg_inputs(torch, dev, n, LINALG_BATCH, LINALG_EIG_N)
+    big = {k: pt.to_tensor(raw[k]) for k in ("a", "s", "b", "tall", "y", "e")}
+    batch = {"a": pt.to_tensor(raw["ab"]), "s": pt.to_tensor(raw["sb"]),
+             "b": pt.to_tensor(raw["bb"]), "e": pt.to_tensor(raw["ab"])}
+    on_cpu = {name: {k: pt.to_tensor(t._value.cpu(), place="cpu") for k, t in d.items()}
+              for name, d in (("big", big), ("batch", batch))}
+    svd_drivers(torch, raw["a"])
+    cpu_big = {"cholesky", "inv", "slogdet", "matrix_power", "solve", "triangular_solve",
+               "cholesky_solve", "multi_dot", "matmul", "mm", "mv", "dot", "norm", "dist",
+               "cross", "t", "trace", "histogram", "bmm"}
+    big_only = {"lstsq", "cov", "corrcoef", "histogram", "multi_dot", "mv", "cross", "t",
+                "trace", "matmul", "mm", "dot", "norm", "dist", "matrix_rank"}
+    L = pt.linalg
+    rows = {}
+
+    def listed(out):
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    for name, run, residual, exact in linalg_cases(torch, pt):
+        t1 = time.perf_counter()
+        holder = []
+        syncs = host_syncs(torch, lambda: holder.append(listed(run(L, big))))
+        outs = holder[0]
+        first_s = time.perf_counter() - t1
+        res = residual(big, outs) if residual else None
+        if res is not None:
+            check(res <= TOL_LINALG_RESIDUAL, f"linalg {name}: residual {res:.3e} over "
+                                              f"{TOL_LINALG_RESIDUAL:g}")
+        cpu_err = (_compare(torch, outs, listed(run(L, on_cpu["big"])))
+                   if name in cpu_big else None)
+        if cpu_err is not None:
+            check(cpu_err <= TOL_LINALG_CPU, f"linalg {name}: {cpu_err:.3e} from the CPU port")
+        ms = time_ms(lambda: run(L, big), reps=1 if first_s > 0.5 else 3, warmup=0)
+        batch_res = batch_err = None
+        if name not in big_only:
+            got = listed(run(L, batch))
+            if residual:
+                batch_res = residual(batch, got)
+                check(batch_res <= TOL_LINALG_RESIDUAL, f"linalg {name} (batch): residual "
+                                                        f"{batch_res:.3e}")
+            if exact:
+                batch_err = _compare(torch, got, listed(run(L, on_cpu["batch"])))
+                check(batch_err <= TOL_LINALG_CPU, f"linalg {name} (batch): {batch_err:.3e} "
+                                                   f"from the CPU port")
+        rows[name] = {"ms": ms, "residual": res, "cpu": cpu_err, "batch_residual": batch_res,
+                      "batch_cpu": batch_err, "syncs": syncs}
+        fmt = lambda x: "-" if x is None else f"{x:.2e}"  # noqa: E731
+        print(f"  {name}: {ms:.3f} ms; residual {fmt(res)} (batch {fmt(batch_res)}); card "
+              f"against the CPU port {fmt(cpu_err)} (batch {fmt(batch_err)}); host "
+              f"synchronisations {len(syncs)}{' ' + syncs[0] if syncs else ''}")
+    print("  calls that synchronise with the host: "
+          + ", ".join(k for k, r in rows.items() if r["syncs"]))
+    hess = mlp_hessian_on_card(torch, pt, dev)
+    print(f"  phase 14c in {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "hessian": hess}
+
+
+def mlp_hessian_on_card(torch, pt, dev):
+    """The Jacobian and Hessian of a 2-layer MLP's mean squared error over
+    its four weights (``paddle.autograd.jacobian`` / ``hessian``), on the
+    card against the CPU port on the same numpy inputs."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    x, y = rng.standard_normal((64, 16)).astype(np.float32), rng.standard_normal((64, 4)).astype(
+        np.float32)
+    ws = [rng.standard_normal(s).astype(np.float32) * 0.5 for s in [(16, 8), (8,), (8, 4), (4,)]]
+    out = {}
+    for place in ("gpu:0", "cpu"):
+        def loss(w1, b1, w2, b2, place=place):
+            h = pt.tanh(pt.matmul(pt.to_tensor(x, place=place), w1) + b1)
+            return ((pt.matmul(h, w2) + b2 - pt.to_tensor(y, place=place)) ** 2).mean()
+
+        args = [pt.to_tensor(w, place=place) for w in ws]
+        t0 = time.perf_counter()
+        jac, hes = pt.autograd.jacobian(loss, args), pt.autograd.hessian(loss, args)
+        out[place] = (jac.numpy(), hes.numpy(), (time.perf_counter() - t0) * 1e3)
+    (jg, hg, ms), (jc, hc, cpu_ms) = out["gpu:0"], out["cpu"]
+    jerr = float(np.abs(jg - jc).max() / np.abs(jc).max())
+    herr = float(np.abs(hg - hc).max() / np.abs(hc).max())
+    print(f"  the MLP loss's Jacobian {jg.shape} and Hessian {hg.shape} on the card: "
+          f"{ms:.1f} ms (host clock; {cpu_ms:.1f} on the CPU), against the CPU port "
+          f"{jerr:.2e} and {herr:.2e} of the largest entry (tolerance {TOL_HESSIAN_CPU:g})")
+    check(jerr <= TOL_HESSIAN_CPU and herr <= TOL_HESSIAN_CPU,
+          "the MLP's Jacobian or Hessian on the card differs from the CPU port")
+    return {"ms": ms, "jac_err": jerr, "hess_err": herr}
+
+
+def serve_probe_on_card():
+    """14d: ``python -m paddle_tpu_torch.tools.serve_probe`` in a process of
+    its own on the card: exit 0 and ``ALL SCENARIOS PASSED``."""
+    print("[14d] the serve-probe CLI on the card (python -m paddle_tpu_torch.tools.serve_probe)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "paddle_tpu_torch.tools.serve_probe"],
+                          cwd=root, capture_output=True, text=True, timeout=SERVE_PROBE_TIMEOUT_S,
+                          env=dict(os.environ, PYTHONPATH=root))
+    dt = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print("  " + line)
+    check(proc.returncode == 0 and "ALL SCENARIOS PASSED" in proc.stdout,
+          f"the serve probe exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"  exit 0 in {dt:.1f} s")
+    return {"s": dt}
+
+
+def slice16(torch, pt, fa, fu, dev, unfrozen=None):
+    """Phase 14: 14a-14d. Returns the launches of each kernel on 14a's path
+    (the wrappers' counts, set to 0 before and read after it)."""
+    t0 = time.perf_counter()
+    for wrapper in (*(getattr(fa, a) for a in FLASH_WRAPPERS.values()), fu.fused_adam,
+                    fu.fused_sgd, fu.fused_momentum):  # phase 14's counts start here
+        wrapper.launches = 0
+    reset_flash_counts(fa)
+    frozen = frozen_finetune_345m(torch, pt, fa, fu, dev, unfrozen)
+    launches = kernel_counts(fa, fu)  # ... and end here
+    o1 = o1_casts_on_card(torch, pt, dev)
+    la = linalg_on_card(torch, pt, dev)
+    probe = serve_probe_on_card()
+    print(f"  phase 14 in {time.perf_counter() - t0:.1f} s; launches on 14a's path (a graph's "
+          f"counted once, when it was captured) {launches}")
+    return {"frozen": frozen, "o1": o1, "linalg": la, "probe": probe, "launches": launches}
+
+
+def slice16_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase14``: phase 14 alone, after building the
+    libraries its paths launch (the tf32x3 flash kernels and the fused
+    updates)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_update as fu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME, fu.KERNEL_NAME]
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    torch.zeros(1, device="cuda")  # a context before reset_peak_memory_stats
+    out = slice16(torch, pt, fa, fu, torch.device("cuda", 0))
+    print(json.dumps({"frozen": out["frozen"], "o1": out["o1"], "launches": out["launches"]},
+                     default=str))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4686,6 +5253,8 @@ def main() -> int:
         return trace_child(sys.argv[sys.argv.index("--trace") + 1])
     if "--eager-dispatch" in sys.argv:
         return eager_dispatch_alone(torch)
+    if "--phase14" in sys.argv:
+        return slice16_alone(torch)
     if "--host-cost-child" in sys.argv:
         return host_cost_child(sys.argv[sys.argv.index("--host-cost-child") + 1])
     if "--host-cost-vs" in sys.argv:
@@ -4902,12 +5471,16 @@ def main() -> int:
     # 13. eager lazy dispatch and whole-step capture
     p13 = eager_dispatch(torch, pt, fa, fu, dev)
     l13 = p13["launches"]
+    # 14. frozen parameters, O1 casts, linalg and autograd.functional, the
+    # serve-probe CLI
+    p14 = slice16(torch, pt, fa, fu, dev, p13["345m"])
+    l14 = p14["launches"]
 
-    # 14. per-kernel numbers, then the result
+    # 15. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[14] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[15] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -4976,6 +5549,11 @@ def main() -> int:
           + f"; the 345M captured step (13b) {p13['345m']['step_ms']['captured']:.2f} ms "
           f"against {p13['345m']['step_ms']['per_op']:.2f} per-op; the PTB LM (13c) "
           + " / ".join(f"{p13['ptb'][r]['ms']:.3f}" for r in REGIMES) + " ms a step")
+    f14, o14, la14 = p14["frozen"], p14["o1"], p14["linalg"]["rows"]
+    print(f"    the half-frozen 345M fine-tune (14a): captured "
+          f"{f14['step_ms']['captured']:.2f} ms, per-op {f14['step_ms']['per_op']:.2f} ms a step, peak {f14['peak_gb']:.2f} GB; the O1 "
+          f"product (14b) {o14['o1_ms']:.3f} ms against {o14['f32_ms']:.3f} in f32; paddle.linalg "
+          f"at {LINALG_N} (14c), ms: " + ", ".join(f"{k} {r['ms']:.2f}" for k, r in la14.items()))
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -5004,7 +5582,7 @@ def main() -> int:
             + enc["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
             inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"]
-            + enc["fwd_tf32x3"] + l13["fwd_tf32x3"], fwd32),
+            + enc["fwd_tf32x3"] + l13["fwd_tf32x3"] + l14["fwd_tf32x3"], fwd32),
         # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
@@ -5012,14 +5590,16 @@ def main() -> int:
             train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
             + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"], bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
-            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"] + l13["dkv_tf32x3"], bwd32["dkv"]),
+            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"] + l13["dkv_tf32x3"] + l14["dkv_tf32x3"],
+            bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
             + o1["launches"]["dq_sm90"] + enc["dq_sm90"], bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
-            f32_train["dq_tf32x3"] + sf["dq_tf32x3"] + l13["dq_tf32x3"], bwd32["dq"]),
+            f32_train["dq_tf32x3"] + sf["dq_tf32x3"] + l13["dq_tf32x3"] + l14["dq_tf32x3"],
+            bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
             simt_path["dq_simt"], bwd32["dq_simt"]),
     ]
@@ -5052,7 +5632,7 @@ def main() -> int:
             "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
             "launches": launches_f32[kind] + (o1["adam"] + surface["adam"] if kind == "adam"
                                               else 0)
-            + (f32r["launches"] if kind == "momentum" else 0) + l13[kind],
+            + (f32r["launches"] if kind == "momentum" else 0) + l13[kind] + l14[kind],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -5060,7 +5640,7 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    print(f"[14] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
+    print(f"[15] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
           f"check")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

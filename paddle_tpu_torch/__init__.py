@@ -47,8 +47,8 @@ from .tensor_api import *  # noqa: F401,F403
 from . import tensor_api as _tensor_api
 
 from . import (  # noqa: F401,E402
-    amp, autograd, device, distributed, framework, incubate, inference, io, jit, models, nn,
-    optimizer, profiler, regularizer, resilience, serving,
+    amp, autograd, device, distributed, framework, incubate, inference, io, jit, linalg, models,
+    nn, optimizer, profiler, regularizer, resilience, serving,
 )
 from .autograd import grad  # noqa: F401,E402
 from .batch import batch  # noqa: F401,E402

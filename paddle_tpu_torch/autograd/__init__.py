@@ -1,8 +1,8 @@
 """``paddle.autograd`` of the port: ``grad``, ``backward``, ``PyLayer`` over
 torch's autograd (the counterpart of ``paddle_tpu/autograd/__init__.py``).
 
-``autograd.functional`` (jacobian, hessian, vjp, jvp) is not ported yet
-(ROADMAP, queue 1).
+``autograd.functional`` (``vjp``, ``jvp``, ``Jacobian``, ``Hessian``,
+``jacobian``, ``hessian``) is exported here too, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -11,8 +11,10 @@ import torch
 from ..core import dispatch
 from ..core.dispatch import enable_grad, is_grad_enabled, no_grad  # noqa: F401
 from ..core.tensor import Tensor, _wrap
+from .functional import Hessian, Jacobian, hessian, jacobian, jvp, vjp  # noqa: F401
 
-__all__ = ["grad", "backward", "PyLayer", "PyLayerContext", "no_grad", "enable_grad"]
+__all__ = ["grad", "backward", "PyLayer", "PyLayerContext", "no_grad", "enable_grad",
+           "vjp", "jvp", "Jacobian", "Hessian", "jacobian", "hessian"]
 
 
 def _as_list(x):

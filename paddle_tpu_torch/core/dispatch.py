@@ -63,6 +63,16 @@ def _count_op():
     c["programs"] += 1
 
 
+_amp_mod: list = []  # the amp module, imported at the first apply
+
+
+def _load_amp():
+    from .. import amp
+
+    _amp_mod.append(amp)
+    return amp
+
+
 _tensor_api: tuple = ()  # (Tensor, _wrap) of core/tensor.py, which imports this module
 
 
@@ -78,11 +88,14 @@ def _tensor_cls():
     return (_tensor_api or _load_tensor_api())[0]
 
 
-def apply(fn: Callable, *args, differentiable: bool = True, **kwargs):
+def apply(fn: Callable, *args, op_name: Optional[str] = None, differentiable: bool = True,
+          **kwargs):
     """Run ``fn`` on the torch values of Tensor ``args`` (other arguments as
     they are) and wrap its torch results as Tensors; a tuple or list of
     results comes back as a list. ``differentiable=False`` runs it without
-    recording."""
+    recording. Inside ``amp.auto_cast(level="O1")`` the positional values
+    are cast by the O1 lists under ``op_name`` (default ``fn.__name__``), as
+    the JAX dispatcher casts every op (lazy dispatch falls back there)."""
     Tensor, _wrap = _tensor_api or _load_tensor_api()
     depth = getattr(_tls, "depth", 0)
     if not depth:
@@ -97,6 +110,9 @@ def apply(fn: Callable, *args, differentiable: bool = True, **kwargs):
     try:
         vals = [(a._v if type(a._v) is not LazyRef else a._value) if isinstance(a, Tensor)
                 else a for a in args]
+        amp = _amp_mod[0] if _amp_mod else _load_amp()
+        if getattr(amp._state, "level", "O0") == "O1":
+            vals = amp.maybe_cast_inputs(op_name or getattr(fn, "__name__", "op"), vals)
         if differentiable:
             out = fn(*vals, **kwargs)
         else:

@@ -1,7 +1,9 @@
 """Global flags: the port's own copy of the registry in ``paddle_tpu/core/flags.py``.
 
-It holds only the flags that the port reads. Each keeps the JAX package's
-name and default, can be overridden from the environment as ``FLAGS_<name>``
+It holds the flags that the port reads, the ones whose feature is not
+ported yet (``later=``: only the default is accepted), and the seven core
+flags the JAX package defines and reads nowhere (accepted, no effect). Each
+keeps the JAX package's name and default, can be overridden from the environment as ``FLAGS_<name>``
 when this module is imported, and is read and set at run time through
 ``get_flags`` / ``set_flags``.
 """
@@ -446,3 +448,20 @@ define_flag(
     "occurrence runs the plain path; the port's build of a program is a "
     "tuple of plan ops made on the calling thread, so it has no effect",
 )
+# The core flags the JAX package defines and reads nowhere (its
+# ``core/flags.py:223,703-716``): accepted with their defaults and read
+# nowhere here either; ``cudnn_deterministic`` does not switch cuDNN.
+define_flag("use_standalone_executor", True,
+            "compat: the compiled whole-program executor path; read nowhere")
+define_flag("max_inplace_grad_add", 0, "compat: grad accumulation chunking; read nowhere")
+define_flag("init_allocated_mem", False, "compat: poison fresh allocations; read nowhere")
+define_flag("allocator_strategy", "auto_growth",
+            "compat: allocator strategy name (torch's caching allocator owns the card's "
+            "memory); read nowhere")
+define_flag("fraction_of_gpu_memory_to_use", 0.92,
+            "compat: preallocation fraction (torch's caching allocator grows on demand); "
+            "read nowhere")
+define_flag("cudnn_deterministic", False,
+            "compat: deterministic kernels; read nowhere (set "
+            "torch.backends.cudnn.deterministic for cuDNN's choice)")
+define_flag("embedding_deterministic", 0, "compat: deterministic embedding grad; read nowhere")

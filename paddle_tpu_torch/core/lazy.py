@@ -1462,7 +1462,8 @@ def _capture_graph(entry: _CaptureEntry, opt, ext, lr, leaves, params, seg_sig=N
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     for p in params:
-        opt._state_of(p)  # states made inside a capture would be zeroed every replay
+        if p.requires_grad:  # a frozen parameter gets no state, as in the eager step
+            opt._state_of(p)  # states made inside a capture would be zeroed every replay
     entry.static = [t if (t.requires_grad and t.grad_fn is None) else t.detach().clone()
                     for t in ext]
     entry.lr = None if lr is None else torch.full((), lr, dtype=torch.float32, device=device)

@@ -413,14 +413,80 @@ class Tensor:
         return out
 
 
+class _Shape(tuple):
+    """A parameter's shape: a tuple of ints, as ``torch.Size`` is (which
+    cannot be subclassed), that also equals the list of the same sizes, as a
+    Paddle shape does."""
+
+    __slots__ = ()
+
+    def __eq__(self, other):
+        if isinstance(other, list):
+            return list(self) == other
+        return tuple.__eq__(self, other)
+
+    def __ne__(self, other):
+        eq = self.__eq__(other)
+        return eq if eq is NotImplemented else not eq
+
+    __hash__ = tuple.__hash__
+
+
+_param_count = [0]  # the process-wide counter of Paddle parameter names
+
+
+def _next_param_name() -> str:
+    _param_count[0] += 1
+    return f"param_{_param_count[0]}"
+
+
 class Parameter(torch.nn.Parameter):
-    """The port's ``paddle.nn.Parameter``: a ``torch.nn.Parameter`` whose
-    ``grad`` the whole-step capture controller sees. While a training step
-    is deferred between ``backward()`` and ``optimizer.step()``, reading
-    the grad of one of its leaves resolves the step on the 3-program path
-    first, and writing one is remembered and honoured by ``step()``, as the
-    JAX package's placeholder grads are. Autograd itself writes the grad in
-    C++ and is not slowed down."""
+    """The port's ``paddle.nn.Parameter`` (``paddle_tpu/nn/layer_base.py:38``):
+    a ``torch.nn.Parameter``, so torch modules register it and autograd and
+    the optimizers use it as they use any leaf, with Paddle's surface over
+    it.
+
+    ``Parameter(value, requires_grad=True, name=None, trainable=None)``
+    takes a torch tensor, a Paddle Tensor or anything numpy takes (on the
+    current device); ``trainable``, where given, sets ``requires_grad``, as
+    the JAX ``Parameter(value, trainable, name)``'s does. It names itself
+    ``param_<n>`` unless ``name`` is given. ``stop_gradient`` and
+    ``trainable`` read and set ``requires_grad``: a frozen parameter gets no
+    gradient, the optimizers skip it, and the lazy layer keys and captured
+    steps see the change. ``name`` is the Paddle name (also ``param_name``);
+    ``shape`` a tuple that equals the list of its sizes; ``numpy()``,
+    ``set_value()`` (in place, so a captured graph stays valid), ``astype()``
+    (a Paddle Tensor on the tape), ``place`` and ``gradient`` as a Tensor
+    has them.
+
+    ``grad`` stays torch's tensor (torch's clips and the port's optimizers
+    read it); the capture controller sees it: while a training step is
+    deferred between ``backward()`` and ``optimizer.step()``, reading the
+    grad of one of its leaves resolves the step on the 3-program path first,
+    and writing one is remembered and honoured by ``step()``, as the JAX
+    package's placeholder grads are. Autograd itself writes the grad in C++
+    and is not slowed down."""
+
+    def __new__(cls, data=None, requires_grad=True, name=None, trainable=None):
+        if isinstance(data, Tensor):
+            data = data._value.detach()
+        elif data is not None and not isinstance(data, torch.Tensor):
+            data = _from_numpy(np.asarray(data), None, torch_device(None))
+        elif data is not None and type(data) is not torch.Tensor:
+            data = data.detach()
+        if trainable is not None:
+            requires_grad = bool(trainable)
+        param = super().__new__(cls, data, requires_grad)
+        param.param_name = name or _next_param_name()
+        return param
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        out = type(self)(self.data.clone(memory_format=torch.preserve_format),
+                         self.requires_grad, self.name)
+        memo[id(self)] = out
+        return out
 
     @property
     def grad(self):
@@ -430,9 +496,69 @@ class Parameter(torch.nn.Parameter):
 
     @grad.setter
     def grad(self, value):
+        value = _unwrap(value)
         if _lazy.deferred_step[0] is not None and _lazy.on_grad_access(self, value, True):
             return
         _lazy._set_raw_grad(self, value)
+
+    @property
+    def stop_gradient(self) -> bool:
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, flag):
+        self.requires_grad_(not flag)
+
+    @property
+    def trainable(self) -> bool:
+        return self.requires_grad
+
+    @trainable.setter
+    def trainable(self, flag):
+        self.requires_grad_(bool(flag))
+
+    @property
+    def name(self):
+        return self.__dict__.get("param_name")
+
+    @name.setter
+    def name(self, value):
+        self.param_name = value
+
+    @property
+    def shape(self) -> _Shape:
+        return _Shape(self.size())
+
+    @property
+    def place(self) -> Place:
+        return place_of(self.device)
+
+    @property
+    def gradient(self):
+        g = _lazy._raw_grad(self)
+        return None if g is None else _to_numpy(g)
+
+    def numpy(self):
+        return _to_numpy(self)
+
+    def set_value(self, value):
+        """Copy ``value`` (a Tensor, a torch tensor or anything numpy takes)
+        into this parameter in place, cast to its dtype and device; another
+        shape raises ValueError."""
+        src = _unwrap(value)
+        if not isinstance(src, torch.Tensor):
+            src = _from_numpy(np.asarray(src), self.dtype, self.device)
+        if tuple(src.shape) != tuple(self.size()):
+            raise ValueError(f"set_value shape mismatch: {list(src.shape)} vs {list(self.size())}")
+        with torch.no_grad():
+            self.copy_(src)
+        return self
+
+    def astype(self, dtype):
+        tdt = to_torch_dtype(dtype)
+        return dispatch.apply(lambda v: v.to(tdt), self, op_name="cast")
+
+    cast = astype
 
 
 def _wrap(value: torch.Tensor) -> Tensor:

@@ -1,4 +1,4 @@
-"""Data helpers of the PyTorch port: the padding policy the serving engine uses."""
+"""Data helpers of the PyTorch port: the shape-bucketing policy (``BucketSpec``)."""
 from .bucketing import BucketSpec  # noqa: F401
 
 __all__ = ["BucketSpec"]

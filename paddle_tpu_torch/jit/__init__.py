@@ -109,11 +109,20 @@ class CompiledTrainStep:
             batch[i] = batch[i].detach().requires_grad_()
         diff = [batch[i] for i in self._grad_input_idx]
         ins = [dispatch.wrap(b) for b in batch] if as_tensors else batch
-        with torch.enable_grad():
-            out = model(*ins[:-1]) if len(ins) > 1 else model(ins[0])
-            loss = self.loss_fn(out, ins[-1]) if self.loss_fn is not None else out
-            loss = dispatch.unwrap(loss)
-            grads = torch.autograd.grad(loss, self._params + diff, allow_unused=True)
+        # the parameter list is fixed when the step is built, as in the JAX
+        # package: a parameter frozen since keeps being differentiated
+        frozen = [p for p in self._params if not p.requires_grad]
+        try:
+            for p in frozen:
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                out = model(*ins[:-1]) if len(ins) > 1 else model(ins[0])
+                loss = self.loss_fn(out, ins[-1]) if self.loss_fn is not None else out
+                loss = dispatch.unwrap(loss)
+                grads = torch.autograd.grad(loss, self._params + diff, allow_unused=True)
+        finally:
+            for p in frozen:
+                p.requires_grad_(False)
         grads, in_grads = list(grads[:len(self._params)]), grads[len(self._params):]
         clip = self.optimizer._grad_clip
         if clip is not None:

@@ -29,20 +29,14 @@ from ..layer_base import Layer
 from ..param_attr import ParamAttr
 
 
-_param_count = [0]
-
-
 def create_parameter(shape, initializer, device=None, dtype=torch.float32):
     """A parameter of ``shape`` on ``device``, filled by ``initializer``.
 
     It carries its Paddle name, ``param_<n>`` from one process-wide counter
-    as in the JAX package, as ``param_name`` (torch reserves ``Tensor.name``);
-    the optimizer keys its state by it."""
+    as in the JAX package (``name``, also ``param_name``); the optimizer
+    keys its state by it."""
     t = torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=torch_device(device))
-    param = Parameter(initializer(t))
-    _param_count[0] += 1
-    param.param_name = f"param_{_param_count[0]}"
-    return param
+    return Parameter(initializer(t))
 
 
 def param_of(shape, attr, default=None, device=None, dtype=torch.float32, is_bias=False):

@@ -133,8 +133,9 @@ def histogram(x, *, bins=100, min=0, max=0):
     lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5, hi)
     steps = torch.linspace(0, 1, bins + 1, dtype=xf.dtype, device=x.device)
     edges = lo + (hi - lo) * steps
-    which = torch.searchsorted(edges, xf, right=True) - 1
-    which = torch.where(xf == edges[-1], bins - 1, which)
-    inside = (which >= 0) & (which < bins)
-    counts = torch.zeros(bins, dtype=xf.dtype, device=x.device)
-    return counts.index_add_(0, which[inside], torch.ones_like(xf[inside]))
+    # bin i + 1 of bins + 2: the two outer ones take what lies outside the
+    # range, so the count reads nothing back from the card
+    which = torch.searchsorted(edges, xf, right=True)
+    which = torch.where(xf == edges[-1], bins, which)
+    counts = torch.zeros(bins + 2, dtype=xf.dtype, device=x.device)
+    return counts.index_add_(0, which, torch.ones_like(xf))[1:bins + 1]

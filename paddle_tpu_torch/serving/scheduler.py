@@ -260,7 +260,9 @@ class ServingBuckets:
                     f"FLAGS_serving_block_size={self.block_size}"
                 )
         # BucketSpec gives the rounding rule (each distinct padded shape is
-        # one captured prefill)
+        # one captured prefill); its recompile-budget warning fires where it
+        # records shapes (apply, collate), which prompt padding does not call,
+        # as in the JAX scheduler
         self.prompt_spec = BucketSpec(boundaries=pb, axis=-1, pad_value=0)
         db = (_validate_buckets([int(b) for b in decode_batch_buckets],
                                 decode_batch_buckets)

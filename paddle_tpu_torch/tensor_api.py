@@ -223,7 +223,7 @@ def multinomial(x, num_samples=1, replacement=False, name=None):
 # ---------------------------------------------------------------------------
 def _binary(fn, op_name):
     def wrapper(x, y, name=None):
-        return apply(fn, x, y)
+        return apply(fn, x, y, op_name=op_name)
 
     wrapper.__name__ = op_name
     return wrapper
@@ -231,7 +231,7 @@ def _binary(fn, op_name):
 
 def _unary(fn, op_name):
     def wrapper(x, name=None):
-        return apply(fn, x)
+        return apply(fn, x, op_name=op_name)
 
     wrapper.__name__ = op_name
     return wrapper
@@ -410,10 +410,10 @@ def _reduction(fn, op_name, has_dtype=False):
     if has_dtype:
         def wrapper(x, axis=None, dtype=None, keepdim=False, name=None):
             return apply(fn, x, axis=axis, keepdim=keepdim,
-                         dtype=None if dtype is None else to_torch_dtype(dtype))
+                         dtype=None if dtype is None else to_torch_dtype(dtype), op_name=op_name)
     else:
         def wrapper(x, axis=None, keepdim=False, name=None):
-            return apply(fn, x, axis=axis, keepdim=keepdim)
+            return apply(fn, x, axis=axis, keepdim=keepdim, op_name=op_name)
     wrapper.__name__ = op_name
     return wrapper
 
@@ -816,28 +816,29 @@ def bincount(x, weights=None, minlength=0, name=None):
 # linalg — python/paddle/tensor/linalg.py
 # ---------------------------------------------------------------------------
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
-    return apply(_la.matmul, x, y, transpose_x=transpose_x, transpose_y=transpose_y)
+    return apply(_la.matmul, x, y, transpose_x=transpose_x, transpose_y=transpose_y,
+                 op_name="matmul")
 
 
 def dot(x, y, name=None):
-    return apply(_la.dot, x, y)
+    return apply(_la.dot, x, y, op_name="dot")
 
 
 def einsum(equation, *operands):
     """paddle.einsum (reference: python/paddle/tensor/einsum.py)."""
-    return apply(_la.einsum, *operands, equation=equation)
+    return apply(_la.einsum, *operands, equation=equation, op_name="einsum")
 
 
 def mm(input, mat2, name=None):
-    return apply(_la.mm, input, mat2)
+    return apply(_la.mm, input, mat2, op_name="mm")
 
 
 def bmm(x, y, name=None):
-    return apply(_la.bmm, x, y)
+    return apply(_la.bmm, x, y, op_name="bmm")
 
 
 def mv(x, vec, name=None):
-    return apply(_la.mv, x, vec)
+    return apply(_la.mv, x, vec, op_name="mv")
 
 
 def t(input, name=None):
@@ -1133,7 +1134,7 @@ _INPLACE_BASES = ("ceil", "exp", "floor", "round", "rsqrt", "sqrt", "reciprocal"
 
 def _bind_remaining_tensor_methods():
     """Bind the rest of the reference Tensor-method surface: module functions
-    as methods and generated in-place variants (also exported, as
+    as methods, the ``paddle.linalg`` family and generated in-place variants (also exported, as
     ``paddle.sqrt_`` and friends)."""
     mod = globals()
     for name in ("add_n", "broadcast_shape", "broadcast_tensors", "concat", "floor_mod",
@@ -1143,6 +1144,16 @@ def _bind_remaining_tensor_methods():
                  "strided_slice", "tanh_", "unbind", "unsqueeze_"):
         if not hasattr(Tensor, name):
             setattr(Tensor, name, mod[name])
+    from . import linalg as _l
+
+    for name, target in (
+            ("cholesky", "cholesky"), ("cholesky_solve", "cholesky_solve"), ("cond", "cond"),
+            ("cov", "cov"), ("eig", "eig"), ("eigvals", "eigvals"), ("eigvalsh", "eigvalsh"),
+            ("inverse", "inv"), ("lstsq", "lstsq"), ("lu", "lu"), ("lu_unpack", "lu_unpack"),
+            ("matrix_power", "matrix_power"), ("multi_dot", "multi_dot"), ("qr", "qr"),
+            ("solve", "solve"), ("triangular_solve", "triangular_solve")):
+        if not hasattr(Tensor, name):
+            setattr(Tensor, name, getattr(_l, target))
     for base in _INPLACE_BASES:
         nm = base + "_"
         if not hasattr(Tensor, nm):

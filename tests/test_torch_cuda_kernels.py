@@ -34,7 +34,9 @@ captured step as one graph holding the fused Adam launches, both bitwise
 the per-op steps; a parameter rebound after a capture invalidates it (and
 a segment's graphs under lazy dispatch), and
 a layer put into eval mode, swapped or given a new attribute between steps
-is captured anew, bitwise the per-op steps.
+is captured anew, bitwise the per-op steps. A frozen layer keeps its bits
+through eager steps and captured ones (``compile_train_step`` and the lazy
+whole-step capture), frozen before the first step or between steps.
 """
 import copy
 
@@ -1289,3 +1291,100 @@ def test_segment_graphs_rebuild_after_a_parameter_is_rebound():
         pt.set_flags({"FLAGS_eager_lazy_dispatch": False, "FLAGS_eager_step_capture": True})
         lazy.reset_lazy_state()
         pt.set_device(was)
+
+
+def _frozen_steps(card, regime, freeze_at):
+    """An MLP's Adam steps on the card in ``regime`` (``per_op``, ``captured``
+    under lazy dispatch, or ``compiled`` through ``compile_train_step``) with
+    its first layer frozen before step ``freeze_at``: the first layer's
+    weights before and after, every parameter, the counters."""
+    from paddle_tpu_torch.core import lazy
+
+    lazy.reset_lazy_state()
+    pt.set_flags({"FLAGS_eager_lazy_dispatch": regime == "captured",
+                  "FLAGS_eager_step_capture": True, "FLAGS_pallas_fused_update": True})
+    pt.profiler.reset_dispatch_counters()
+    pt.seed(0)
+    model = pt.nn.Sequential(pt.nn.Linear(8, 16), pt.nn.Tanh(), pt.nn.Linear(16, 4))
+    opt = pt.optimizer.Adam(learning_rate=1e-2, parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    x = pt.to_tensor(rng.standard_normal((4, 8)).astype(np.float32))
+    y = pt.to_tensor(rng.standard_normal((4, 4)).astype(np.float32))
+    if freeze_at == 0:
+        model[0].weight.stop_gradient = True
+        model[0].bias.trainable = False
+    compiled = (pt.jit.compile_train_step(model, pt.nn.functional.mse_loss, opt)
+                if regime == "compiled" else None)
+    frozen = None
+    for i in range(8):
+        if i == freeze_at:
+            if i:
+                model[0].weight.stop_gradient = True
+                model[0].bias.trainable = False
+            frozen = [model[0].weight.detach().clone(), model[0].bias.detach().clone()]
+        if compiled is not None:
+            compiled(x, y)
+            continue
+        loss = pt.nn.functional.mse_loss(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    torch.cuda.synchronize()
+    after = [model[0].weight.detach().clone(), model[0].bias.detach().clone()]
+    # parameters, then the optimizer's states (a frozen parameter has none)
+    state = [p.detach().clone() for p in model.parameters()]
+    state += [(i, k, v.clone()) for i, p in enumerate(model.parameters())
+              for k, v in sorted(opt._accumulators.get(id(p), {}).items())]
+    return frozen, after, state, dict(pt.profiler.dispatch_counters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze_at", [0, 4])
+def test_a_frozen_layer_keeps_its_bits_through_eager_and_captured_steps(freeze_at):
+    from paddle_tpu_torch.core import lazy
+
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    try:
+        ref = _frozen_steps(card, "per_op", freeze_at)
+        cap = _frozen_steps(card, "captured", freeze_at)
+        for frozen, after, _, _ in (ref, cap):
+            assert all(torch.equal(a, b) for a, b in zip(frozen, after))
+        assert len(cap[2]) == len(ref[2])
+        for a, b in zip(cap[2], ref[2]):
+            if isinstance(a, tuple):
+                assert a[:2] == b[:2] and torch.equal(a[2], b[2])
+            else:
+                assert torch.equal(a, b)
+        assert cap[3]["capture_replays"] >= 2, cap[3]
+        if freeze_at == 0:  # frozen before the step is built: left out of it
+            frozen, after, _, _ = _frozen_steps(card, "compiled", 0)
+            assert all(torch.equal(a, b) for a, b in zip(frozen, after))
+    finally:
+        pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_eager_lazy_dispatch": False,
+                      "FLAGS_eager_step_capture": True})
+        lazy.reset_lazy_state()
+        pt.set_device(was)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(96, 40), (40, 96), (3, 70, 50)])
+def test_svd_based_linalg_on_the_card_matches_the_cpu(shape):
+    """The SVD-based ``paddle.linalg`` functions run cuSOLVER's ``gesvd`` on
+    the card (wide matrices through their transpose): within 1e-4 of the
+    port on the CPU, and U S Vh gives the matrix back."""
+    card = _card()
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal(shape).astype(np.float32)
+    L = pt.linalg
+    got = {}
+    for place in (f"gpu:{card.index or 0}", "cpu"):
+        x = pt.to_tensor(a, place=place)
+        u, s, vh = L.svd(x)
+        recon = (u.numpy() * s.numpy()[..., None, :]) @ vh.numpy()
+        np.testing.assert_allclose(recon, a, atol=1e-4 * np.abs(a).max())
+        got[place] = [s.numpy(), L.pinv(x).numpy(), L.cond(x).numpy(),
+                      L.matrix_rank(x).numpy()]
+    for c, g in zip(got["cpu"], got[f"gpu:{card.index or 0}"]):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4 * np.abs(c).max())

@@ -605,3 +605,18 @@ def test_eager_dispatch_rnn_and_device_paths_load_neither_jax_nor_paddle_tpu():
         "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
     )
     assert out.strip() == "[]"
+
+
+def test_api_spec_surface_of_linalg_autograd_and_io():
+    """Every ``paddle.linalg`` and ``paddle.autograd`` name of API.spec and
+    ``paddle.io.BucketSpec`` resolve; the coverage reaches 775 of 1208."""
+    names = _api_names()
+    scoped = [n for n in names if n.startswith(("paddle.linalg.", "paddle.autograd."))]
+    assert len([n for n in scoped if n.startswith("paddle.linalg.")]) == 37
+    assert [n for n in scoped if _resolve(n) is None] == []
+    assert _resolve("paddle.io.BucketSpec") is pt.io.bucketing.BucketSpec
+    assert _resolve("paddle.autograd.Hessian") is pt.autograd.functional.Hessian
+    assert _resolve("paddle.linalg.lstsq") is pt.linalg.lstsq
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 775
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names")
