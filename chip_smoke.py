@@ -232,7 +232,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      MLP loss against the CPU port; (14d) ``python -m
      paddle_tpu_torch.tools.serve_probe`` in a process of its own on the
      card: exit 0 and ``ALL SCENARIOS PASSED``;
- 15. one JSON line of per-kernel numbers, the script's time, then the
+ 15. the parameter-server tables and BASELINE.json config 5, the ERNIE CTR
+     loop, and ``paddle.io``: (15a) the tf32x3 flash forward and backward at
+     config 5's attention shape (32, 128, 8, 32), f32, non-causal: against
+     their plain versions, a second launch bitwise equal, timed beside SDPA
+     f32 and the 3xTF32 bound; (15b) bench.py ``bench_ernie_ctr`` on the
+     port's ``examples/ernie_ctr.py`` (``ErnieCtrConfig()``: hidden 256, 4
+     layers, 8 heads, seq 128, 16 slots of dim 64, batch 32, Adam 1e-3 dense,
+     a ``MemorySparseTable`` with AdaGrad 0.05 in 16 shards): one sync
+     ``train_step``, then ``train_pipelined`` over 8 batches, best of 3
+     windows, printed as ``ernie_ctr_sparse_ps_tokens_per_sec_per_chip``
+     beside the sync loop's tokens/s (the sync loop, the pipelined loop and
+     the pipelined loop at a 0.1 ms switch interval of the interpreter lock
+     timed in turns) and a sync step split into pull, upload, replay (CUDA
+     events), read-back and push; the step is one
+     captured graph holding 4 tf32x3 launches of each flash kernel, never
+     captured again and launching nothing through a wrapper on a replay;
+     every push lands by ``flush()`` and ``len(table)`` is the distinct slot
+     ids; the replays' row gradients against eager autograd's; 10 sync steps
+     on one batch bring the loss under 0.9 of its first; an SSD-overflow
+     table (``ram_budget=64``) spills; a ``torch.profiler`` trace of one
+     replay in a process of its own (by kind, 4 launches of each tf32x3
+     kernel and none of another route); (15c) ``bench_ps_table`` and
+     ``bench_ps_wire`` (65536 keys x 64, 2 local servers over framed TCP,
+     the wire's rows equal a local table's of the same seed) under their
+     bench.py names with the host's CPU model, and ``SparseEmbedding`` in an
+     eager card loop: its block on the card, its pushed rows equal the CPU
+     port's, lazy dispatch equal to per-op; (15d) ``bench_dataloader`` (1024
+     synthetic 224^2 uint8 images, batch 64, 4 forked workers after CUDA is
+     up, ``return_numpy=True``) as ``dataloader_mp_imgs_per_sec``, the same
+     loader's card Tensors equal to the single-process loader's, and a
+     worker's exception reaching the parent with its traceback. The PS
+     libraries are built by g++ in threads while nvcc builds the kernels;
+ 16. one JSON line of per-kernel numbers, the script's time, then the
      result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -252,6 +284,10 @@ runs only phase 13, after building the libraries its paths launch.
     python3 chip_smoke.py --phase14
 
 runs only phase 14, after building the libraries its paths launch.
+
+    python3 chip_smoke.py --phase15
+
+runs only phase 15, after building the libraries its paths launch.
 
     python3 chip_smoke.py --host-cost-vs DIR
 
@@ -2853,22 +2889,24 @@ def print_trace(label, n_ops, window, busy, wall_ms, by_name, kinds=None):
 
 
 def profile_replay(torch, step, batch, n_layers, title="[8] torch.profiler trace of one "
-                                                      "replayed step"):
-    """Phase 8 (and 8b, BERT's): a torch.profiler trace of one replayed step."""
+                                                      "replayed step", route="sm90"):
+    """Phase 8 (and 8b, BERT's; 15b's, ERNIE's): a torch.profiler trace of one
+    replayed step."""
     print(title)
     n_ops, window, busy, wall_ms, by_name = device_trace(torch, lambda: step(*batch))
     print_trace("", n_ops, window, busy, wall_ms, by_name)
-    # the bf16 step runs the sm90 forward, dK/dV and dQ kernels, each once per
-    # layer, and no SIMT or tf32x3 flash kernel
-    for label, pattern, want in (("fwd_sm90", r"::fwd_sm90_kernel<", n_layers),
-                                 ("dkv_sm90", r"::dkv_sm90_kernel<", n_layers),
-                                 ("dq_sm90", r"::dq_sm90_kernel<", n_layers),
-                                 ("fwd (SIMT)", r"::fwd_kernel<", 0),
-                                 ("fwd (tf32x3)", r"::fwd_tf32_kernel<", 0),
-                                 ("dkv (SIMT)", r"::dkv_kernel<", 0),
-                                 ("dq (SIMT)", r"::dq_kernel<", 0),
-                                 ("dkv (tf32x3)", r"::dkv_tf32_kernel<", 0),
-                                 ("dq (tf32x3)", r"::dq_tf32_kernel<", 0)):
+    # the step runs the forward, dK/dV and dQ kernels of ``route``, each once
+    # per layer, and no flash kernel of another route
+    for label, pattern, kernel_route in (("fwd_sm90", r"::fwd_sm90_kernel<", "sm90"),
+                                         ("dkv_sm90", r"::dkv_sm90_kernel<", "sm90"),
+                                         ("dq_sm90", r"::dq_sm90_kernel<", "sm90"),
+                                         ("fwd (SIMT)", r"::fwd_kernel<", "simt"),
+                                         ("fwd (tf32x3)", r"::fwd_tf32_kernel<", "tf32x3"),
+                                         ("dkv (SIMT)", r"::dkv_kernel<", "simt"),
+                                         ("dq (SIMT)", r"::dq_kernel<", "simt"),
+                                         ("dkv (tf32x3)", r"::dkv_tf32_kernel<", "tf32x3"),
+                                         ("dq (tf32x3)", r"::dq_tf32_kernel<", "tf32x3")):
+        want = n_layers if kernel_route == route else 0
         hits = [(total, n) for name, (total, n) in by_name.items() if re.search(pattern, name)]
         total = sum(t for t, _ in hits)
         count = sum(n for _, n in hits)
@@ -4062,11 +4100,28 @@ def resnet_trace_step(torch, pt, dev):
 # operations loses some of its records (a BERT replay traced with 6139-6144
 # of its 6159 operations late in this script, one of them a flash launch;
 # ResNet-50's with 3736 of 3778), where a fresh process keeps them all.
-TRACE_STEPS = {"gpt": gpt_trace_step, "bert": bert_trace_step, "resnet": resnet_trace_step}
+def ernie_trace_step(torch, pt, dev):
+    """Phase 15b's dense step: ``ErnieCtrConfig()`` at batch 32, f32, Adam, on
+    one batch of rows pulled from its table."""
+    import numpy as np
+
+    from paddle_tpu_torch.examples import ernie_ctr as ec
+
+    cfg = ec.ErnieCtrConfig()
+    table, _, step = ec.build(cfg)
+    slot_ids, tokens, labels = ec.synthetic_batch(cfg, ERNIE_BATCH, np.random.default_rng(0))
+    rows = table.pull(slot_ids.reshape(-1)).reshape(ERNIE_BATCH, cfg.slots, cfg.sparse_dim)
+    return step, (pt.to_tensor(rows), pt.to_tensor(tokens), pt.to_tensor(labels)), cfg.layers
+
+
+TRACE_STEPS = {"gpt": gpt_trace_step, "bert": bert_trace_step, "resnet": resnet_trace_step,
+               "ernie": ernie_trace_step}
 TRACE_TITLES = {"gpt": "[8] torch.profiler trace of one replayed step (phase 7's, in a "
                        "process of its own)",
                 "bert": "[8b] torch.profiler trace of one replayed BERT-base step (phase "
-                        "7d's AdamW step, in a process of its own)"}
+                        "7d's AdamW step, in a process of its own)",
+                "ernie": "[15b] torch.profiler trace of one replayed ERNIE CTR dense step "
+                         "(config 5, f32, in a process of its own)"}
 TRACE_CHILD_TIMEOUT_S = 300
 
 
@@ -4090,7 +4145,8 @@ def trace_child(kind: str) -> int:
     if kind == "resnet":
         resnet50_trace(torch, step, batch)
     else:
-        profile_replay(torch, step, batch, n_layers, TRACE_TITLES[kind])
+        profile_replay(torch, step, batch, n_layers, TRACE_TITLES[kind],
+                       "tf32x3" if kind == "ernie" else "sm90")
     return 0
 
 
@@ -5241,6 +5297,591 @@ def slice16_alone(torch) -> int:
     return 0
 
 
+# Phase 15: the parameter-server tables and BASELINE config 5's ERNIE CTR loop
+# (bench.py bench_ernie_ctr through the port's examples/ernie_ctr.py), the PS
+# host rows (bench_ps_table, bench_ps_wire), SparseEmbedding on the card, and
+# paddle.io's multi-process DataLoader (bench_dataloader).
+ERNIE_SHAPE = (32, 128, 8, 32)  # config 5's attention: 32 x 128 tokens, 8 heads of 32 (hidden 256)
+ERNIE_BATCH = 32    # bench_ernie_ctr's bsz ...
+ERNIE_STEPS = 8     # ... and its steps per timed window
+ERNIE_WINDOWS = 3   # bench's _best_window: the best of BENCH_REPS (3) windows
+ERNIE_LOSS_STEPS = 10  # tests/test_ernie_ctr.py:17-27: 10 sync steps on one fixed batch ...
+ERNIE_LOSS_RATIO = 0.9  # ... bring the loss under 0.9 of its first value
+ERNIE_SSD_STEPS, ERNIE_SSD_RAM = 6, 64  # tests/test_ernie_ctr.py's SSD-overflow table
+PS_ITERS, PS_KEYS, PS_DIM = 10, 65536, 64  # bench_ps_table / bench_ps_wire
+PS_WINDOWS = 3
+# SparseEmbedding's rows pushed from the card against the CPU port's: the
+# same f32 arithmetic but for the head's matmul, whose summation order may
+# differ between cuBLAS and the CPU's BLAS (~1e-8 on rows of ~0.05)
+TOL_PS_ROWS = 1e-6
+EMB_STEPS = 4
+LOADER_N, LOADER_BATCH, LOADER_WORKERS = 1024, 64, 4  # bench_dataloader
+
+
+def host_cpu() -> str:
+    """The host's CPU (the host rows measure it): /proc/cpuinfo's model name
+    with its vendor, family and model numbers (a virtualised kernel may
+    report the name as "unknown"), else the machine's architecture."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "vendor_id", "cpu family", "model") and key not in fields:
+                    fields[key] = value.strip()
+    except OSError:
+        pass
+    if not fields:
+        import platform
+
+        return platform.machine() or "unknown"
+    return (f"{fields.get('model name', 'unknown')} ({fields.get('vendor_id', '?')} family "
+            f"{fields.get('cpu family', '?')} model {fields.get('model', '?')})")
+
+
+def start_ps_build():
+    """Build the three PS libraries (g++, csrc/*.cc of distributed/ps) in
+    threads, beside the nvcc builds. Returns a function that waits for them
+    and raises if one failed."""
+    import threading
+
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.ps import service
+
+    errors, t0 = [], time.perf_counter()
+
+    def one(fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — raised again by wait()
+            errors.append(e)
+
+    threads = [threading.Thread(target=one, args=(fn,))
+               for fn in (ps._load_lib, service._load_server_lib, service._load_client_lib)]
+    for t in threads:
+        t.start()
+
+    def wait():
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        print(f"  the PS libraries (ps_table, ps_server, ps_client) built by g++ in "
+              f"{time.perf_counter() - t0:.1f} s, beside the nvcc builds")
+
+    return wait
+
+
+def ernie_kernels(torch, fa, gen, dev):
+    """15a: the tf32x3 kernels at config 5's shape (head dim 32), f32,
+    non-causal: against their plain versions, a second launch bitwise equal,
+    timed beside SDPA f32 and the 3xTF32 bound. Returns {kernel: numbers}."""
+    b, s, h, d = ERNIE_SHAPE
+    print(f"[15a] the tf32x3 flash kernels at config 5's shape {ERNIE_SHAPE}, f32, non-causal "
+          f"(launch_fwd<32> and the backward's head-dim-32 instantiation)")
+    q, k, v = qkv_on_card(ERNIE_SHAPE, torch.float32, "separate", gen, dev)
+    do = torch.randn(ERNIE_SHAPE, generator=gen, device=dev)
+    check(route_of(fa, (q, k, v)) == route_of(fa, (q, k, v, do)) == "tf32x3",
+          "config 5's f32 attention does not take the tf32x3 route")
+    scale = d ** -0.5
+    with flash_launch_log(fa) as log:
+        o, lse = fa.flash_attention_fwd(q, k, v, scale, False)
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, scale, False)
+        delta = fa.bwd_delta(o, do)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
+    check(len(log) == 6 and all(r == "tf32x3" and not c for _, r, c in log),
+          f"config 5's kernels launched {log}")
+    o_p, lse_p = fa.fwd_plain(q, k, v, scale, False)
+    ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, False)
+    torch.cuda.synchronize()
+    err_fwd = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
+    err_dq = (dq - ref[0]).abs().max().item()
+    err_dkv = max((g - r).abs().max().item() for g, r in zip((dk, dv), ref[1:]))
+    bitwise = (torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(dk, dk2)
+               and torch.equal(dv, dv2) and torch.equal(dq, dq2))
+    print(f"  max|d O, lse|={err_fwd:.3e} tol={TOL['float32']:g}; max|d dK, dV|={err_dkv:.3e} "
+          f"max|d dQ|={err_dq:.3e} tol={GRAD_TOL['float32']:g}; second launches bitwise "
+          f"equal: {bitwise}")
+    check(err_fwd <= TOL["float32"] and max(err_dkv, err_dq) <= GRAD_TOL["float32"],
+          "config 5's kernels disagree with their plain versions")
+    check(bitwise, "config 5's kernels are not bitwise equal on a second launch")
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    do_t = do.transpose(1, 2)
+    fwd = dict(max_abs_err=err_fwd, route="tf32x3",
+               ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, False)),
+               plain_ms=time_ms(lambda: fa.fwd_plain(q, k, v, scale, False), reps=10),
+               library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, scale=scale)))
+    fwd.update(attention_bound_ms(b, s, h, d, "float32", False))
+    plain_bwd = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, False), reps=10)
+    library_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                                      retain_graph=True))
+    dkv = dict(max_abs_err=err_dkv, route="tf32x3", plain_ms=plain_bwd, library_ms=library_bwd,
+               ms=time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                                             False)))
+    dkv.update(bwd_bound_ms("dkv", b, s, h, d, "float32", False))
+    dq_t = dict(max_abs_err=err_dq, route="tf32x3", plain_ms=plain_bwd, library_ms=None,
+                ms=time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                                             False)))
+    dq_t.update(bwd_bound_ms("dq", b, s, h, d, "float32", False))
+    pair_ms = time_ms(lambda: (fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False),
+                               fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)))
+    for name, t in (("fwd", fwd), ("dkv", dkv), ("dq", dq_t)):
+        print(f"  {name}: kernel_ms={t['ms']:.4f} (tf32x3) plain_ms={t['plain_ms']:.4f} "
+              f"{bound_text(t)}; kernel at {t['bound_ms'] / t['ms']:.1%} of bound")
+        check_share(f"config 5 {name}", t["bound_ms"], t["ms"])
+    print(f"  SDPA f32 forward {fwd['library_ms']:.4f} ms, tf32x3 / SDPA "
+          f"{fwd['ms'] / fwd['library_ms']:.2f}x; the tf32x3 pair dK/dV + dQ {pair_ms:.4f} ms "
+          f"against SDPA's f32 backward (all three gradients) {library_bwd:.4f} ms, "
+          f"{pair_ms / library_bwd:.2f}x")
+    del qt, kt, vt, o_lib
+    return {"fwd": fwd, "dkv": dkv, "dq": dq_t, "pair_ms": pair_ms}
+
+
+class CountingTable:
+    """A table that counts the pushes that reached it (the communicator
+    thread's included) and forwards everything to ``table``."""
+
+    def __init__(self, table):
+        self.table = table
+        self.pushes = 0
+
+    def pull(self, keys, create=True):
+        return self.table.pull(keys, create)
+
+    def push(self, keys, grads):
+        self.table.push(keys, grads)
+        self.pushes += 1
+
+    def __len__(self):
+        return len(self.table)
+
+
+class CountingStep:
+    """A compiled step that records the flash launches made through the
+    wrappers during each call."""
+
+    def __init__(self, step, fa):
+        self.step, self.fa, self.calls = step, fa, []
+
+    def __call__(self, *batch):
+        before = flash_counts(self.fa)
+        out = self.step(*batch)
+        self.calls.append({k: v - before[k] for k, v in flash_counts(self.fa).items()})
+        return out
+
+
+def ernie_sync_breakdown(torch, pt, table, step, cfg, batches):
+    """Median ms of each part of a sync step over ``batches``: the pull, the
+    upload of rows, tokens and labels (synchronized), the step (CUDA events
+    and the host clock: a replay, with its input copies and output clones),
+    the row gradients' read-back and the push."""
+    parts = {k: [] for k in ("pull", "upload", "step_device", "step_host", "readback", "push")}
+    for slot_ids, tokens, labels in batches:
+        flat = slot_ids.reshape(-1)
+        t0 = time.perf_counter()
+        rows = table.pull(flat).reshape(slot_ids.shape[0], cfg.slots, cfg.sparse_dim)
+        t1 = time.perf_counter()
+        ins = (pt.to_tensor(rows), pt.to_tensor(tokens), pt.to_tensor(labels))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, (row_grads,) = step(*ins)
+        end.record()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        grads = row_grads.numpy().reshape(-1, cfg.sparse_dim)
+        t4 = time.perf_counter()
+        table.push(flat, grads)
+        t5 = time.perf_counter()
+        for key, ms in (("pull", t1 - t0), ("upload", t2 - t1), ("step_host", t3 - t2),
+                        ("readback", t4 - t3), ("push", t5 - t4)):
+            parts[key].append(ms * 1e3)
+        parts["step_device"].append(start.elapsed_time(end))
+        check(math.isfinite(float(loss)), "non-finite ERNIE CTR loss")
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def ernie_ctr_loop(torch, pt, fa, dev):
+    """15b: bench_ernie_ctr as bench.py writes it, on the port. Returns its
+    numbers and the flash launches of its path."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.core import cuda_graphs
+    from paddle_tpu_torch.examples import ernie_ctr as ec
+
+    cfg = ec.ErnieCtrConfig()
+    check((ERNIE_BATCH, cfg.seq_len, cfg.heads, cfg.hidden // cfg.heads) == ERNIE_SHAPE,
+          "ErnieCtrConfig's defaults are not config 5's shape")
+    print(f"[15b] bench_ernie_ctr: ErnieCtrConfig() (hidden {cfg.hidden}, {cfg.layers} layers, "
+          f"{cfg.heads} heads, seq {cfg.seq_len}, {cfg.slots} slots of dim {cfg.sparse_dim}), "
+          f"batch {ERNIE_BATCH}, f32, Adam 1e-3 dense, MemorySparseTable AdaGrad 0.05 x 16 "
+          f"shards; one sync train_step, then train_pipelined over {ERNIE_STEPS} batches, best "
+          f"of {ERNIE_WINDOWS} windows")
+    captures = [0]
+    real_capture = cuda_graphs.Graph.capture
+
+    def counting_capture(self, *args, **kwargs):
+        captures[0] += 1
+        return real_capture(self, *args, **kwargs)
+
+    cuda_graphs.Graph.capture = counting_capture
+    try:
+        reset_flash_counts(fa)  # the ERNIE path's count starts here
+        table, model, step = ec.build(cfg)
+        counted, cstep = CountingTable(table), CountingStep(step, fa)
+        rng = np.random.default_rng(0)
+        batches = [ec.synthetic_batch(cfg, ERNIE_BATCH, rng) for _ in range(ERNIE_STEPS)]
+        ec.train_step(counted, cstep, cfg, *batches[0])  # bench's warm step
+        windows, losses = [], None
+        for _ in range(ERNIE_WINDOWS):
+            pushes = counted.pushes
+            t0 = time.perf_counter()
+            losses = ec.train_pipelined(counted, cstep, cfg, batches)
+            windows.append(time.perf_counter() - t0)
+            check(counted.pushes - pushes == ERNIE_STEPS, f"{counted.pushes - pushes} pushes "
+                  f"landed in a window of {ERNIE_STEPS} steps after flush()")
+        launches = flash_counts(fa)  # ... and ends here (the sync loops below replay)
+        n = cfg.layers
+        warm = pt.jit.WARMUP_STEPS
+        want_call = dict.fromkeys(launches, 0)
+        want_call.update(fwd_tf32x3=n, dkv_tf32x3=n, dq_tf32x3=n)
+        none = dict.fromkeys(launches, 0)
+        for i, got in enumerate(cstep.calls):
+            check(got == (want_call if i <= warm else none),
+                  f"ERNIE step {i}: flash launches through the wrappers {got}")
+        check(captures[0] == 1 and len(step._captured) == 1
+              and next(iter(step._captured.values())).graph is not None,
+              f"{captures[0]} captures of the ERNIE step; want 1, then replays")
+        distinct = len(np.unique(np.concatenate([b[0].reshape(-1) for b in batches])))
+        check(len(table) == distinct, f"len(table) {len(table)}, distinct slot ids {distinct}")
+        check(all(math.isfinite(v) for v in losses), "non-finite pipelined losses")
+        best = min(windows)
+        tokens = ERNIE_BATCH * cfg.seq_len * ERNIE_STEPS
+        pipelined_tps = tokens / best
+        # in turns: the sync loop, the pipelined loop again, and the pipelined
+        # loop with a 0.1 ms switch interval of the interpreter lock (its
+        # threads hand the lock back and forth with the main thread's step)
+        turns = {"sync": [], "pipelined": [], "pipelined_switch_0.1ms": []}
+        interval = sys.getswitchinterval()
+        for _ in range(ERNIE_WINDOWS):
+            for key, windows_of in turns.items():
+                t0 = time.perf_counter()
+                if key == "sync":
+                    for b in batches:
+                        ec.train_step(counted, cstep, cfg, *b)
+                else:
+                    sys.setswitchinterval(1e-4 if key == "pipelined_switch_0.1ms" else interval)
+                    try:
+                        ec.train_pipelined(counted, cstep, cfg, batches)
+                    finally:
+                        sys.setswitchinterval(interval)
+                windows_of.append(time.perf_counter() - t0)
+        sync_windows = turns["sync"]
+        sync_tps = tokens / min(sync_windows)
+        split = ernie_sync_breakdown(torch, pt, table, step, cfg, batches)
+        check(captures[0] == 1, f"the ERNIE step was captured again: {captures[0]} captures")
+        bench_captures = captures[0]
+        replay_launches = {k: v - launches[k] for k, v in flash_counts(fa).items()}
+        check(sum(replay_launches.values()) == 0,
+              f"the sync replays launched through a wrapper: {replay_launches}")
+        print(f"  calls of the step: {len(cstep.calls)} ({warm} eager, 1 capture, the rest "
+              f"replays); flash launches through the wrappers per call {want_call} for the eager "
+              f"and capturing calls, none on a replay; captures {captures[0]}; len(table) "
+              f"{len(table)} = the {distinct} distinct slot ids; {ERNIE_STEPS} pushes landed per "
+              f"window")
+        print(f"  ernie_ctr_sparse_ps_tokens_per_sec_per_chip {pipelined_tps:.1f} (pipelined, "
+              f"windows " + ", ".join(f"{w * 1e3:.2f}" for w in windows) + " ms); the sync "
+              f"loop {sync_tps:.1f} tokens/s (windows "
+              + ", ".join(f"{w * 1e3:.2f}" for w in sync_windows) + " ms); pipelined / sync "
+              f"{pipelined_tps / sync_tps:.2f}x")
+        print("  in turns, windows of 8 steps, ms: " + "; ".join(
+            f"{k} " + ", ".join(f"{w * 1e3:.2f}" for w in v) for k, v in turns.items()))
+        print("  a sync step, median ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + " (step_device: CUDA events around the replay, its input copies and output "
+                "clones; step_host: the host clock around it, synchronized)")
+        print(f"  pipelined losses " + " ".join(f"{v:.4f}" for v in losses))
+        del table, model, step, counted, cstep
+
+        # the compiled step's row gradients against eager autograd's
+        table, model, step = ec.build(cfg)
+        eager = copy.deepcopy(model)
+        opt_e = pt.optimizer.Adam(learning_rate=1e-3, parameters=eager.parameters())
+        bce = pt.nn.BCEWithLogitsLoss()
+        errs = []
+        for i in range(warm + 1 + 3):
+            slot_ids, tokens, labels = batches[i % len(batches)]
+            flat = slot_ids.reshape(-1)
+            rows = table.pull(flat).reshape(ERNIE_BATCH, cfg.slots, cfg.sparse_dim)
+            tok, lab = pt.to_tensor(tokens), pt.to_tensor(labels)
+            loss, (g,) = step(pt.to_tensor(rows), tok, lab)
+            x = pt.to_tensor(rows, stop_gradient=False)
+            ref = bce(eager(x, tok), lab)
+            ref.backward()
+            opt_e.step()
+            opt_e.clear_grad()
+            gv, xv = g._value, x.grad._value
+            if i > warm:  # the replays after the capture
+                errs.append(((gv - xv).abs().max().item(), xv.abs().max().item(),
+                             abs(float(loss) - float(ref))))
+            table.push(flat, g.numpy().reshape(-1, cfg.sparse_dim))
+        print("  row gradients, replays against eager autograd: "
+              + "; ".join(f"max|d grad|={e:.3e} (largest {s:.3e}), |d loss|={d:.3e}"
+                          for e, s, d in errs))
+        check(all(e <= TOL_INPUT_GRAD * s and d <= 1e-5 for e, s, d in errs),
+              "the ERNIE step's row gradients disagree with eager autograd's")
+        del table, model, step, eager, opt_e
+
+        # the loss falls on one fixed batch
+        table, model, step = ec.build(cfg)
+        fixed = ec.synthetic_batch(cfg, ERNIE_BATCH, np.random.default_rng(0))
+        fixed_losses = [ec.train_step(table, step, cfg, *fixed) for _ in range(ERNIE_LOSS_STEPS)]
+        print(f"  {ERNIE_LOSS_STEPS} sync steps on one batch: losses "
+              + " ".join(f"{v:.4f}" for v in fixed_losses))
+        check(fixed_losses[-1] < ERNIE_LOSS_RATIO * fixed_losses[0],
+              "the ERNIE CTR loss did not fall on a fixed batch")
+        del table, model, step
+
+        # the SSD-overflow table
+        with tempfile.TemporaryDirectory() as tmp:
+            table, model, step = ec.build(cfg, ssd_path=os.path.join(tmp, "slots.bin"),
+                                          ram_budget=ERNIE_SSD_RAM)
+            rng = np.random.default_rng(0)
+            for _ in range(ERNIE_SSD_STEPS):
+                ec.train_step(table, step, cfg, *ec.synthetic_batch(cfg, ERNIE_BATCH, rng))
+            print(f"  SSD overflow (ram_budget={ERNIE_SSD_RAM}): {ERNIE_SSD_STEPS} steps, "
+                  f"ram_size {table.ram_size()}, disk_size {table.disk_size()}, len {len(table)}")
+            check(table.disk_size() > 0 and table.ram_size() <= 2 * ERNIE_SSD_RAM,
+                  "the SSD-overflow table did not spill")
+            del table, model, step
+    finally:
+        cuda_graphs.Graph.capture = real_capture
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": pipelined_tps, "sync_tokens_per_s": sync_tps,
+            "windows_ms": [w * 1e3 for w in windows],
+            "sync_windows_ms": [w * 1e3 for w in sync_windows], "split_ms": split,
+            "turns_ms": {k: [w * 1e3 for w in v] for k, v in turns.items()},
+            "launches": launches, "captures": bench_captures}
+
+
+def best_window(fn, reps):
+    """The least host-clock seconds of ``reps`` runs of ``fn``."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def sparse_embedding_loop(pt, device, lazy):
+    """EMB_STEPS eager steps of a SparseEmbedding (AdaGrad, padding_idx 0)
+    and a Linear head (SGD) on ``device``, lazy dispatch on or off. Returns
+    the table's rows, the losses and the pulled blocks' devices."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.ps import MemorySparseTable, SparseEmbedding
+
+    previous = pt.get_device()
+    pt.set_device(device)
+    pt.set_flags({"FLAGS_eager_lazy_dispatch": lazy})
+    try:
+        table = MemorySparseTable(16, shard_num=4, optimizer="adagrad", learning_rate=0.05,
+                                  init_range=0.05, seed=3)
+        emb = SparseEmbedding([1000, 16], table=table, padding_idx=0)
+        head = pt.nn.Linear(16, 1)
+        rng = np.random.default_rng(5)
+        head.weight.set_value(rng.standard_normal((16, 1)).astype(np.float32))
+        head.bias.set_value(np.zeros(1, np.float32))
+        opt = pt.optimizer.SGD(learning_rate=0.1, parameters=head.parameters())
+        losses, devices = [], set()
+        for _ in range(EMB_STEPS):
+            ids = pt.to_tensor(rng.integers(0, 50, (8, 4)))
+            y = pt.to_tensor(rng.integers(0, 2, 8).astype(np.float32))
+            rows = emb(ids)
+            devices.add(rows._value.device.type)
+            loss = pt.nn.functional.binary_cross_entropy_with_logits(
+                head(rows.mean(axis=1)).squeeze(-1), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        return table.pull(np.arange(50), create=False), losses, devices
+    finally:
+        pt.set_flags({"FLAGS_eager_lazy_dispatch": False})
+        pt.set_device(previous)
+
+
+def ps_host_rows(torch, pt):
+    """15c: bench_ps_table and bench_ps_wire as bench.py writes them, and
+    SparseEmbedding in an eager card loop. Returns the rows."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.ps import (
+        DistributedSparseTable, MemorySparseTable, PsClient, PsServer,
+    )
+
+    print(f"[15c] the PS host rows on {host_cpu()} ({os.cpu_count()} CPUs): {PS_KEYS} keys x "
+          f"dim {PS_DIM}, {PS_ITERS} pull + push per window, best of {PS_WINDOWS}")
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, 10_000_000, PS_KEYS)
+    grads = rng.standard_normal((PS_KEYS, PS_DIM)).astype(np.float32)
+
+    def window(t):
+        for _ in range(PS_ITERS):
+            t.pull(keys)
+            t.push(keys, grads)
+
+    local = MemorySparseTable(PS_DIM, shard_num=32, init_range=0.01)
+    local.pull(keys)  # warm (creates entries)
+    table_rate = PS_KEYS * PS_ITERS * 2 / best_window(lambda: window(local), PS_WINDOWS) / 1e6
+    del local
+    s0 = PsServer(port=0, server_id=0, n_servers=2, n_trainers=1)
+    s1 = PsServer(port=0, server_id=1, n_servers=2, n_trainers=1)
+    client = PsClient([f"127.0.0.1:{s0.port}", f"127.0.0.1:{s1.port}"], trainer_id=0)
+    try:
+        wire = DistributedSparseTable(client, 1, emb_dim=PS_DIM, shard_num=32, init_range=0.01)
+        fresh = MemorySparseTable(PS_DIM, shard_num=32, init_range=0.01)
+        same = bool(np.array_equal(wire.pull(keys), fresh.pull(keys)))  # also the warm pull
+        del fresh
+        check(same, "the wire pull does not return the local table's rows of the same seed")
+        wire_rate = PS_KEYS * PS_ITERS * 2 / best_window(lambda: window(wire), PS_WINDOWS) / 1e6
+    finally:
+        client.stop_servers()
+    print(f"  ps_sparse_pull_push_m_lookups_per_sec {table_rate:.2f}; "
+          f"ps_wire_pull_push_m_lookups_per_sec {wire_rate:.2f} (2 local servers over framed "
+          f"TCP); the wire pull equals a local table's rows of the same seed: {same}")
+    card_rows, card_losses, devices = sparse_embedding_loop(pt, "gpu:0", False)
+    cpu_rows, cpu_losses, _ = sparse_embedding_loop(pt, "cpu", False)
+    lazy_rows, lazy_losses, lazy_devices = sparse_embedding_loop(pt, "gpu:0", True)
+    err_cpu = float(np.abs(card_rows - cpu_rows).max())
+    err_lazy = float(np.abs(card_rows - lazy_rows).max())
+    print(f"  SparseEmbedding, {EMB_STEPS} eager steps: pulled blocks on {sorted(devices)}; "
+          f"pushed rows on the card against the CPU port max|d|={err_cpu:.3e}, lazy dispatch "
+          f"against per-op max|d|={err_lazy:.3e} (tol {TOL_PS_ROWS:g}); losses card "
+          + " ".join(f"{v:.6f}" for v in card_losses) + ", CPU "
+          + " ".join(f"{v:.6f}" for v in cpu_losses))
+    check(devices == {"cuda"} and lazy_devices == {"cuda"},
+          "SparseEmbedding's pulled block is not on the card")
+    check(err_cpu <= TOL_PS_ROWS and err_lazy <= TOL_PS_ROWS,
+          "SparseEmbedding's pushed rows on the card disagree")
+    check(max(abs(a - b) for a, b in zip(card_losses, lazy_losses)) <= TOL_PS_ROWS,
+          "SparseEmbedding's lazy losses differ from the per-op ones")
+    return {"table_m_lookups_per_s": table_rate, "wire_m_lookups_per_s": wire_rate,
+            "emb_err_cpu": err_cpu, "emb_err_lazy": err_lazy, "cpu": host_cpu()}
+
+
+def dataloader_rows(torch, pt, dev):
+    """15d: bench_dataloader as written, the same loader giving card Tensors
+    against the single-process loader, and a worker's exception."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader, Dataset
+
+    class SynthImages(Dataset):  # bench.py bench_dataloader's dataset
+        def __len__(self):
+            return LOADER_N
+
+        def __getitem__(self, i):
+            base = np.empty((240, 240, 3), np.uint8)
+            base[...] = (i * 37) % 251
+            base[::7, :, 0] ^= np.uint8(i % 17)
+            off = i % 16
+            img = base[off:off + 224, off:off + 224]
+            return np.ascontiguousarray(img), np.int64(i % 1000)
+
+    class Broken(Dataset):
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            if i == 5:
+                raise ValueError("sample 5 is broken")
+            return np.zeros(3, np.float32)
+
+    print(f"[15d] bench_dataloader: {LOADER_N} synthetic 224^2 uint8 images, batch "
+          f"{LOADER_BATCH}, {LOADER_WORKERS} forked workers, on {host_cpu()}, after CUDA is up")
+    check(torch.cuda.is_initialized(), "CUDA is not initialised before the forked loader")
+    loader = DataLoader(SynthImages(), batch_size=LOADER_BATCH, num_workers=LOADER_WORKERS,
+                        return_numpy=True)
+    it = iter(loader)
+    next(it)  # pool warm-up
+    t0 = time.perf_counter()
+    cnt = 0
+    for xb, yb in it:
+        cnt += int(xb.shape[0])
+    rate = cnt / (time.perf_counter() - t0)
+    multi = list(DataLoader(SynthImages(), batch_size=LOADER_BATCH, num_workers=LOADER_WORKERS))
+    single = list(DataLoader(SynthImages(), batch_size=LOADER_BATCH))
+    check(len(multi) == len(single) == LOADER_N // LOADER_BATCH, "loader batch counts")
+    on_card = all(x._value.device.type == "cuda" and y._value.device.type == "cuda"
+                  for x, y in multi)
+    equal = all(torch.equal(a._value, b._value) for m, s in zip(multi, single)
+                for a, b in zip(m, s))
+    try:
+        list(DataLoader(Broken(), batch_size=2, num_workers=2))
+        message = ""
+    except RuntimeError as e:
+        message = str(e)
+    relayed = "Traceback" in message and "sample 5 is broken" in message
+    print(f"  dataloader_mp_imgs_per_sec {rate:.1f}; {LOADER_WORKERS}-worker Tensors on the card "
+          f"{on_card}, equal to the single-process loader's {equal}; a worker's exception "
+          f"reached the parent with its traceback {relayed}")
+    check(on_card and equal, "the multi-process loader's card batches differ")
+    check(relayed, f"the worker's exception did not reach the parent: {message[:500]}")
+    del multi, single
+    torch.cuda.empty_cache()
+    return {"imgs_per_s": rate}
+
+
+def slice17(torch, pt, fa, dev, ps_built):
+    """Phase 15: 15a-15d. Returns their numbers."""
+    t0 = time.perf_counter()
+    ps_built()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    kernels = ernie_kernels(torch, fa, gen, dev)
+    loop = ernie_ctr_loop(torch, pt, fa, dev)
+    run_trace_child("ernie")
+    host = ps_host_rows(torch, pt)
+    loader = dataloader_rows(torch, pt, dev)
+    print(f"  phase 15 in {time.perf_counter() - t0:.1f} s; flash launches on 15b's path "
+          f"{loop['launches']}")
+    return {"kernels": kernels, "loop": loop, "host": host, "loader": loader}
+
+
+def slice17_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase15``: phase 15 alone, after building the
+    libraries its paths launch (the tf32x3 flash kernels, the PS libraries)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    ps_built = start_ps_build()
+    sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME]
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    out = slice17(torch, pt, fa, torch.device("cuda", 0), ps_built)
+    print(json.dumps({"loop": {k: v for k, v in out["loop"].items()},
+                      "host": out["host"], "loader": out["loader"]}, default=str))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5255,6 +5896,8 @@ def main() -> int:
         return eager_dispatch_alone(torch)
     if "--phase14" in sys.argv:
         return slice16_alone(torch)
+    if "--phase15" in sys.argv:
+        return slice17_alone(torch)
     if "--host-cost-child" in sys.argv:
         return host_cost_child(sys.argv[sys.argv.index("--host-cost-child") + 1])
     if "--host-cost-vs" in sys.argv:
@@ -5296,6 +5939,7 @@ def main() -> int:
     sm90_sources = [fa.SM90_FWD_KERNEL_NAME, fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME]
     tf32_sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME]
     sources = [fa.KERNEL_NAME, fa.BWD_KERNEL_NAME, *sm90_sources, *tf32_sources, fu.KERNEL_NAME]
+    ps_built = start_ps_build()  # g++ builds phase 15's host libraries meanwhile
     logs = _build.build(sources)
     print(f"[2] built {sources} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
@@ -5475,12 +6119,15 @@ def main() -> int:
     # serve-probe CLI
     p14 = slice16(torch, pt, fa, fu, dev, p13["345m"])
     l14 = p14["launches"]
+    # 15. the PS tables and config 5's ERNIE CTR loop, the PS host rows, the
+    # multi-process DataLoader
+    p15 = slice17(torch, pt, fa, dev, ps_built)
 
-    # 15. per-kernel numbers, then the result
+    # 16. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[15] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[16] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -5554,6 +6201,15 @@ def main() -> int:
           f"{f14['step_ms']['captured']:.2f} ms, per-op {f14['step_ms']['per_op']:.2f} ms a step, peak {f14['peak_gb']:.2f} GB; the O1 "
           f"product (14b) {o14['o1_ms']:.3f} ms against {o14['f32_ms']:.3f} in f32; paddle.linalg "
           f"at {LINALG_N} (14c), ms: " + ", ".join(f"{k} {r['ms']:.2f}" for k, r in la14.items()))
+    k15, loop15, host15 = p15["kernels"], p15["loop"], p15["host"]
+    print(f"    config 5 (15a-15d): tf32x3 at {ERNIE_SHAPE} forward {k15['fwd']['ms']:.4f} ms "
+          f"(SDPA {k15['fwd']['library_ms']:.4f}), dK/dV {k15['dkv']['ms']:.4f}, dQ "
+          f"{k15['dq']['ms']:.4f}, the pair {k15['pair_ms']:.4f} (SDPA's backward "
+          f"{k15['dkv']['library_ms']:.4f}); ernie_ctr_sparse_ps_tokens_per_sec_per_chip "
+          f"{loop15['tokens_per_s']:.1f} (sync {loop15['sync_tokens_per_s']:.1f}); "
+          f"ps_sparse_pull_push_m_lookups_per_sec {host15['table_m_lookups_per_s']:.2f}, "
+          f"ps_wire_pull_push_m_lookups_per_sec {host15['wire_m_lookups_per_s']:.2f}, "
+          f"dataloader_mp_imgs_per_sec {p15['loader']['imgs_per_s']:.1f} on {host15['cpu']}")
     print(f"forward f32 at {FWD_MAIN_SHAPE}: " + json.dumps(fwd32))
     print(f"backward f32 at {BWD_MAIN_SHAPE}: " + json.dumps(bwd32))
 
@@ -5621,6 +6277,16 @@ def main() -> int:
             row(f"flash_attention_bwd_dq{suffix}_noncausal_bert", source[2], 197,
                 bl[f"dq_{route}"], k["dq"]),
         ]
+    # the tf32x3 kernels at config 5's shape (head dim 32), launched on 15b's path
+    l15 = loop15["launches"]
+    rows += [
+        row("flash_attention_fwd_tf32_ernie_ctr", "flash_attention_fwd_tf32.cu", 69,
+            l15["fwd_tf32x3"], k15["fwd"]),
+        row("flash_attention_bwd_dkv_tf32_ernie_ctr", "flash_attention_bwd_tf32.cu", 151,
+            l15["dkv_tf32x3"], k15["dkv"]),
+        row("flash_attention_bwd_dq_tf32_ernie_ctr", "flash_attention_bwd_tf32.cu", 197,
+            l15["dq_tf32x3"], k15["dq"]),
+    ]
     for r in rows:
         check(r["launches"] > 0, f"the {r['name']} kernel was launched no time on its path")
     for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):
@@ -5640,7 +6306,7 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    print(f"[15] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
+    print(f"[16] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
           f"check")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

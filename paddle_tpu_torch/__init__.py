@@ -48,7 +48,7 @@ from . import tensor_api as _tensor_api
 
 from . import (  # noqa: F401,E402
     amp, autograd, device, distributed, framework, incubate, inference, io, jit, linalg, models,
-    nn, optimizer, profiler, regularizer, resilience, serving,
+    nn, optimizer, profiler, regularizer, resilience, serving, utils,
 )
 from .autograd import grad  # noqa: F401,E402
 from .batch import batch  # noqa: F401,E402
@@ -56,6 +56,7 @@ from .framework.io_utils import load, save  # noqa: F401,E402
 from .nn.param_attr import ParamAttr  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
 
+__version__ = "0.1.0"  # the JAX package's full_version
 bool = bool_  # noqa: A001 — paddle.bool is the dtype
 dtype = DType
 # the card's generator state is the one get_rng_state returns
@@ -74,5 +75,5 @@ __all__ = sorted(set(_tensor_api.__all__) | {
     "load", "models", "nn", "no_grad", "optimizer", "profiler", "regularizer",
     "resilience", "save", "seed", "serving", "set_cuda_rng_state", "set_default_dtype",
     "set_device", "set_flags", "set_grad_enabled", "set_rng_state", "to_np_dtype",
-    "to_tensor", "uint8",
+    "to_tensor", "uint8", "utils",
 })

@@ -39,6 +39,16 @@ _scope = None  # the _Segments of a jit step in progress, if any
 
 _M64 = (1 << 64) - 1
 
+# The host sampling stream of ``paddle.io``'s samplers: [seed, draws].
+# The JAX package seeds RandomSampler, SubsetRandomSampler and
+# WeightedRandomSampler with numpy from its generator's (seed, key counter);
+# the port's generators are torch's and count no keys, so the samplers count
+# their own draws here. ``seed()`` restarts the stream at (value, 0), where the
+# JAX generator's counter restarts, so a fresh seed gives both packages the
+# same first draw; each iteration of such a sampler is one draw (the JAX
+# samplers reuse a counter until some random op advances it).
+_host_stream = [_DEFAULT_SEED, 0]
+
 
 def seed(value: int) -> "Generator":
     """``paddle.seed``: reseed every device's default Generator from ``value``
@@ -48,9 +58,26 @@ def seed(value: int) -> "Generator":
     draw from the new seed at their next replay."""
     global _seed
     _seed = int(value)
+    _host_stream[:] = [_seed, 0]
     for gen in _generators.values():
         gen.manual_seed(_seed)
     return default_generator()
+
+
+def host_stream_state() -> tuple:
+    """(seed, draws) of the host sampling stream."""
+    return tuple(_host_stream)
+
+
+def set_host_stream_state(state) -> None:
+    _host_stream[:] = [int(state[0]), int(state[1])]
+
+
+def host_draw() -> tuple:
+    """The stream's (seed, draws) for one draw, then one more draw counted."""
+    state = tuple(_host_stream)
+    _host_stream[1] += 1
+    return state
 
 
 class Generator:

@@ -14,9 +14,8 @@ past its budget of shapes is warned about instead of capturing forever.
     # every emitted ids array has seq len in {32, 64, 128}: at most 3
     # captures of the train step instead of one per length
 
-The serving scheduler rounds prompts with it (``serving/scheduler.py``).
-``DataLoader(bucket_spec=...)`` waits for the port's DataLoader (ROADMAP
-queue 1 item 18).
+The serving scheduler rounds prompts with it (``serving/scheduler.py``),
+and ``DataLoader(bucket_spec=spec)`` pads each batch with it during collate.
 """
 from __future__ import annotations
 

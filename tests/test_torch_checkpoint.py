@@ -33,6 +33,7 @@ from paddle_tpu_torch.distributed.checkpoint import (
     train_step_range,
     training_state,
 )
+from paddle_tpu_torch.io import GlobalStepSampler
 from paddle_tpu_torch.resilience import Preempted, PreemptionGuard
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -491,43 +492,70 @@ def test_train_epoch_range_guard(tmp_path):
     assert resumed == [2, 3, 4]
 
 
-class _Sampler:
-    """A data iterator with Paddle's state methods: a cursor and a seed."""
-
-    def __init__(self):
-        self.cursor, self.seed = 0, 0
-
-    def state_dict(self):
-        return {"cursor": self.cursor, "seed": self.seed}
-
-    def load_state_dict(self, doc):
-        self.cursor, self.seed = doc["cursor"], doc["seed"]
-
-
 def test_data_state_rides_the_snapshot(tmp_path):
     """data= packs the iterator's state into the fixed-size __data__.blob of
-    every snapshot; the resume pushes it back, so each batch is read once."""
+    every snapshot; the resume pushes it back, so each batch is read once.
+    The iterator is the port's ``io.GlobalStepSampler``: the resumed stream
+    goes on at the step the snapshot was cut at."""
     net, opt = _make()
-    sampler = _Sampler()
-    sampler.seed = 42
+    sampler = GlobalStepSampler(64, global_batch_size=4, seed=42)
+    batches = iter(sampler)
     ck = AsyncCheckpointer(str(tmp_path / "ck"), max_to_keep=2)
     with pytest.raises(RuntimeError):
         for step in train_step_range(6, ck, training_state(net, opt), save_freq=1,
                                      data=sampler):
-            sampler.cursor += 1
+            next(batches)
             if step == 3:
                 raise RuntimeError("crash in step 3")
     ck.wait()
     assert training_state(net, opt)[ckmod._DATA_KEY].shape == (ckmod._DATA_BLOB_BYTES,)
     net2, opt2 = _make(seed=5)
-    sampler2 = _Sampler()
+    sampler2 = GlobalStepSampler(64, global_batch_size=4, seed=0)
     steps = iter(train_step_range(6, AsyncCheckpointer(str(tmp_path / "ck")),
                                   training_state(net2, opt2), data=sampler2))
     assert next(steps) == 3
-    assert sampler2.state_dict() == {"cursor": 3, "seed": 42}
+    assert sampler2.state_dict() == {"seed": 42, "cursor": 3, "global_batch_size": 4,
+                                     "microbatch_size": 4, "shuffle": True}
+    assert next(iter(sampler2)) == sampler.local_ids(3)
     steps.close()
     with pytest.raises(ValueError, match="does not fit"):
         ckmod._pack_data_state({"data": b"x" * ckmod._DATA_BLOB_BYTES})
+
+
+def test_loader_state_over_a_distributed_sampler_rides_the_snapshot(tmp_path):
+    """A ``DataLoader`` over the port's ``DistributedBatchSampler`` as data=:
+    its sampler's (epoch, cursor) and the host sampling stream come back in
+    a relaunch, and the resumed epoch yields only the batches not consumed."""
+    from paddle_tpu_torch.io import DataLoader, DistributedBatchSampler
+
+    data = np.arange(40, dtype=np.float32)
+
+    def loader():
+        sampler = DistributedBatchSampler(data, 4, num_replicas=2, rank=1, shuffle=True)
+        sampler.set_epoch(2)
+        return DataLoader(data, batch_sampler=sampler, return_numpy=True)
+
+    net, opt = _make()
+    first = loader()
+    seen = []
+    batches = iter(first)
+    ck = AsyncCheckpointer(str(tmp_path / "ck"), max_to_keep=2)
+    with pytest.raises(RuntimeError):
+        for step in train_step_range(5, ck, training_state(net, opt), save_freq=1, data=first):
+            seen.append(next(batches).tolist())
+            if step == 2:
+                raise RuntimeError("crash in step 2")
+    ck.wait()
+    net2, opt2 = _make(seed=5)
+    second = loader()
+    steps = iter(train_step_range(5, AsyncCheckpointer(str(tmp_path / "ck")),
+                                  training_state(net2, opt2), data=second))
+    assert next(steps) == 2
+    assert second.batch_sampler.state_dict() == {"epoch": 2, "cursor": 2}
+    rest = [b.tolist() for b in second]
+    steps.close()
+    whole = [b.tolist() for b in loader()]
+    assert seen[:2] + rest == whole and len(whole) == 5
 
 
 _CHILD_PRELUDE = """

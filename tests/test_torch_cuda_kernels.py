@@ -254,6 +254,7 @@ TF32_CASES = [
     ((1, 600, 2, 24), True, True),
     ((1, 512, 2, 128), True, False),
     ((1, 128, 2, 32), False, False),
+    ((32, 128, 8, 32), False, False),  # BASELINE config 5's ERNIE CTR attention
 ]
 
 
@@ -298,6 +299,7 @@ TF32_FWD_CASES = [
     ((1, 600, 2, 24), True, True),
     ((1, 128, 2, 32), False, False),
     ((1, 512, 2, 128), True, False),
+    ((32, 128, 8, 32), False, False),  # BASELINE config 5's ERNIE CTR attention
 ]
 
 
@@ -1388,3 +1390,93 @@ def test_svd_based_linalg_on_the_card_matches_the_cpu(shape):
                       L.matrix_rank(x).numpy()]
     for c, g in zip(got["cpu"], got[f"gpu:{card.index or 0}"]):
         np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4 * np.abs(c).max())
+
+
+# BASELINE config 5 at a small width: the ERNIE CTR step (head dim 32, f32)
+# as one captured graph holding the tf32x3 kernels, its row gradients
+# against eager autograd's, and the host parts of the parameter-server path
+# on a card: SparseEmbedding's block, and forked DataLoader workers after
+# CUDA is up.
+ERNIE_SMALL = dict(vocab_size=300, hidden=64, layers=2, heads=2, seq_len=64, slots=4,
+                   sparse_dim=8)
+
+
+@pytest.mark.cuda
+def test_ernie_ctr_step_is_one_graph_of_tf32x3_launches_with_eager_row_grads():
+    _card()
+    from paddle_tpu_torch.examples import ernie_ctr as ec
+
+    cfg = ec.ErnieCtrConfig(**ERNIE_SMALL)
+    table, model, step = ec.build(cfg)
+    eager = copy.deepcopy(model)
+    opt_e = pt.optimizer.Adam(learning_rate=1e-3, parameters=eager.parameters())
+    bce = pt.nn.BCEWithLogitsLoss()
+    rng = np.random.default_rng(0)
+    for i in range(pt.jit.WARMUP_STEPS + 3):
+        slot_ids, tokens, labels = ec.synthetic_batch(cfg, 8, rng)
+        flat = slot_ids.reshape(-1)
+        rows = table.pull(flat).reshape(8, cfg.slots, cfg.sparse_dim)
+        tok, lab = pt.to_tensor(tokens), pt.to_tensor(labels)
+        before = tfa.flash_attention_fwd.launches_by_route["tf32x3"]
+        loss, (g,) = step(pt.to_tensor(rows), tok, lab)
+        launched = tfa.flash_attention_fwd.launches_by_route["tf32x3"] - before
+        assert launched == (cfg.layers if i <= pt.jit.WARMUP_STEPS else 0)
+        x = pt.to_tensor(rows, stop_gradient=False)
+        ref = bce(eager(x, tok), lab)
+        ref.backward()
+        opt_e.step()
+        opt_e.clear_grad()
+        size = x.grad._value.abs().max().item()
+        assert (g._value - x.grad._value).abs().max().item() <= 1e-6 * size
+        assert abs(float(loss) - float(ref)) <= 1e-5
+        table.push(flat, g.numpy().reshape(-1, cfg.sparse_dim))
+    (entry,) = step._captured.values()
+    assert entry.graph is not None
+
+
+@pytest.mark.cuda
+def test_sparse_embedding_uploads_to_the_card_and_pushes_as_on_the_cpu():
+    _card()
+    from paddle_tpu_torch.distributed.ps import MemorySparseTable, SparseEmbedding
+
+    def run(device):
+        previous = pt.get_device()
+        pt.set_device(device)
+        try:
+            table = MemorySparseTable(8, shard_num=2, optimizer="adagrad", learning_rate=0.05,
+                                      init_range=0.05, seed=1)
+            emb = SparseEmbedding([100, 8], table=table)
+            ids = pt.to_tensor(np.array([[1, 2, 2], [3, 1, 4]]))
+            rows = emb(ids)
+            ((rows * rows).sum()).backward()
+            return rows._value.device.type, table.pull(np.arange(1, 5), create=False)
+        finally:
+            pt.set_device(previous)
+
+    dev_card, card = run("gpu:0")
+    dev_cpu, cpu = run("cpu")
+    assert (dev_card, dev_cpu) == ("cuda", "cpu")
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_dataloader_workers_fork_after_cuda_is_up():
+    card = _card()
+    from paddle_tpu_torch.io import DataLoader, Dataset
+
+    torch.zeros(1, device=card)  # CUDA initialised in the parent
+
+    class Images(Dataset):
+        def __len__(self):
+            return 64
+
+        def __getitem__(self, i):
+            return np.full((32, 32, 3), i % 251, np.uint8), np.int64(i)
+
+    multi = list(DataLoader(Images(), batch_size=8, num_workers=4))
+    single = list(DataLoader(Images(), batch_size=8))
+    assert len(multi) == len(single) == 8
+    for m, s in zip(multi, single):
+        for a, b in zip(m, s):
+            assert a._value.device.type == "cuda" and torch.equal(a._value, b._value)
+

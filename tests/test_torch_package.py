@@ -620,3 +620,65 @@ def test_api_spec_surface_of_linalg_autograd_and_io():
     covered = sum(_resolve(n) is not None for n in names)
     assert covered >= 775
     print(f"API.spec coverage of the port: {covered} of {len(names)} names")
+
+
+def test_api_spec_surface_of_io_and_utils():
+    """Every ``paddle.io`` and ``paddle.utils`` name of API.spec resolves in
+    the port; the coverage reaches 798 of 1208."""
+    names = _api_names()
+    scoped = [n for n in names if n.startswith(("paddle.io.", "paddle.utils."))]
+    assert len(scoped) == 24
+    assert [n for n in scoped if _resolve(n) is None] == []
+    assert _resolve("paddle.io.DataLoader") is pt.io.dataloader.DataLoader
+    assert _resolve("paddle.utils.run_check") is pt.utils.run_check
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 798
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names")
+
+
+def test_ps_io_utils_and_ernie_paths_load_neither_jax_nor_paddle_tpu(tmp_path):
+    # the PS tables over the wire, SparseEmbedding, the ERNIE CTR sync and
+    # pipelined loops, a forked DataLoader, paddle.utils
+    out = _run(
+        "import sys, numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "paddle.set_device('cpu')\n"
+        "from paddle_tpu_torch.distributed import ps\n"
+        "from paddle_tpu_torch.examples import ernie_ctr as ec\n"
+        "s = ps.PsServer(port=0)\n"
+        "c = ps.PsClient([f'127.0.0.1:{s.port}'])\n"
+        "t = ps.DistributedSparseTable(c, 1, 4)\n"
+        "assert t.pull(np.arange(3)).shape == (3, 4)\n"
+        "c.stop_servers()\n"
+        "emb = ps.SparseEmbedding([10, 4])\n"
+        "emb(paddle.to_tensor(np.array([[1, 2]]))).sum().backward()\n"
+        "cfg = ec.ErnieCtrConfig(vocab_size=50, hidden=16, layers=1, heads=2, seq_len=8,\n"
+        "                        slots=2, sparse_dim=4)\n"
+        "table, model, step = ec.build(cfg)\n"
+        "b = ec.synthetic_batch(cfg, 4, np.random.default_rng(0))\n"
+        "assert np.isfinite(ec.train_step(table, step, cfg, *b))\n"
+        "assert all(np.isfinite(ec.train_pipelined(table, step, cfg, [b, b])))\n"
+        "loader = paddle.io.DataLoader(np.arange(8, dtype=np.float32), batch_size=4,\n"
+        "                              num_workers=2, timeout=60)\n"
+        "assert [x.shape for x in loader] == [[4], [4]]\n"
+        "paddle.utils.require_version('0.1.0')\n"
+        "paddle.utils.run_check()\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip().splitlines()[-1] == "[]"
+
+
+def test_utils_surface():
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        pt.utils.cpp_extension.load("x", [], ops=["relu"])
+    with pytest.raises(RuntimeError, match="required"):
+        pt.utils.require_version("99.0")
+    assert pt.utils.try_import("no_such_module_here") is None
+    assert pt.utils.try_import("json") is not None
+
+    @pt.utils.deprecated(update_to="paddle.new", since="2.0")
+    def old(x):
+        return x + 1
+
+    with pytest.warns(DeprecationWarning, match="paddle.new"):
+        assert old(1) == 2
