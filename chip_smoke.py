@@ -264,7 +264,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      loader's card Tensors equal to the single-process loader's, and a
      worker's exception reaching the parent with its traceback. The PS
      libraries are built by g++ in threads while nvcc builds the kernels;
- 16. one JSON line of per-kernel numbers, the script's time, then the
+ 16. the profiler and the ops plane: (16a) the fused updates' telemetry
+     variants against the kernels (updates bitwise, rows within 1e-5 of
+     float64 sums and bitwise on a second launch) at every size, gate and
+     decay, timed at the embedding's size beside the kernel, the bound, the
+     plain version and the library call, and Momentum and SGD with
+     FLAGS_telemetry through 2-layer 345M-width steps; (16b) phase 13b's
+     Paddle-style 345M f32 step captured whole, twin models with
+     FLAGS_telemetry on and off in turns: bitwise, one program a step, 292
+     telemetry-variant Adam and 24 tf32x3 launches of each flash kernel in
+     the graph, the telemetry against float64, the captured program's static
+     profile (top op a matmul, matmul FLOPs within 2% of the analytic count,
+     the flash kernels counted) and the planner's peak within 0.5-2x of the
+     measured one; (16c, a process of its own) phase 7's O2 bench step with
+     telemetry on against off, a Profiler session over it (RecordEvent
+     spans, flight events, a counter lane for the captured key, 48 launches
+     of each sm90 kernel in the device trace) and its costs; (16d) the
+     serving engine on bench_serving's mix with the diagnostics server
+     scraped at 10 Hz and the sentinel on, then a slowed decode that trips
+     the sentinel once; (16e) ``tools/obs_probe.py`` on the card;
+ 17. one JSON line of per-kernel numbers, the script's time, then the
      result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -289,6 +308,10 @@ runs only phase 14, after building the libraries its paths launch.
 
 runs only phase 15, after building the libraries its paths launch.
 
+    python3 chip_smoke.py --phase16
+
+runs only phase 16, after building the libraries its paths launch.
+
     python3 chip_smoke.py --host-cost-vs DIR
 
 times the per-op path's host cost (phase 5a's four ops and 13a's per-op
@@ -300,6 +323,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -307,6 +331,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16/f16
@@ -5882,6 +5907,944 @@ def slice17_alone(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the profiler and the ops plane (profiler/{__init__,metrics,
+# statistic,attribution,sentinel,diag}.py, analysis/, tools/obs_probe.py),
+# driven by the 345M training and serving paths
+# ---------------------------------------------------------------------------
+# the telemetry variant's rows against float64 sums: f32 partial sums per
+# thread and block and one sum over the blocks, ~1e-6 relative at 51M
+# elements; 1e-5 is the CPU tests' tolerance against the JAX package's sums
+TOL_TELEMETRY = 1e-5
+# per element, the telemetry sums' extra operations (three squares, three
+# adds, one subtraction), beside UPDATE_FLOPS
+TELEMETRY_FLOPS = 7
+# the captured 345M step's recorded matmul FLOPs against the analytic count
+TOL_MATMUL_FLOPS = 0.02
+# the planner's peak estimate against the step's measured peak
+MEMORY_RATIO = (0.5, 2.0)
+# 16d: the sentinel's settings and the slowed decode ticks
+SENTINEL_16D = {"FLAGS_sentinel_pct": 30.0, "FLAGS_sentinel_warmup_steps": 10,
+                "FLAGS_sentinel_sustain_steps": 3}
+SLOW_TICKS = (24, 32)  # [first, last) engine ticks whose decode step sleeps
+SLOW_REQUESTS, SLOW_PROMPT, SLOW_NEW = 4, 32, 96
+PROBE_TIMEOUT_S = 600
+
+
+def telemetry_update_kernels(torch, pt, fu, gen, dev):
+    """16a: the three telemetry variants against the kernels (bitwise),
+    their rows against float64 sums and against themselves (a second
+    launch), timed at the embedding's size; then Momentum and SGD with
+    FLAGS_telemetry through 2-layer GPT-2 345M-width f32 steps, the path
+    that launches their variants."""
+    print("[16a] the fused updates' telemetry variants: updates bitwise the kernels', "
+          f"rows within {TOL_TELEMETRY:g} of float64 sums, repeats bitwise")
+    lr = torch.full((), 3e-4, device=dev)
+    gates = {"off": None, "clear": torch.tensor(False, device=dev),
+             "set": torch.tensor(True, device=dev)}
+    blocks = fu.telemetry_blocks(dev)
+    cases = [("sgd", None), ("momentum", False), ("momentum", True), ("adam", None)]
+
+    def launch(kind, nesterov, bufs, wd, bad, tele):
+        p, g, m, v = bufs
+        if kind == "sgd":
+            fu.fused_sgd(p, g, lr, wd=wd, bad=bad, tele=tele)
+            return (p,)
+        if kind == "momentum":
+            fu.fused_momentum(p, g, m, lr, mu=0.9, nesterov=nesterov, wd=wd, bad=bad,
+                              tele=tele)
+            return p, m
+        fu.fused_adam(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=wd, bad=bad, tele=tele)
+        return p, m, v
+
+    worst = 0.0
+    checked = 0
+    for n in UPDATE_SIZES:
+        bufs = [torch.randn(n, generator=gen, device=dev) for _ in range(3)]
+        bufs.append(torch.rand(n, generator=gen, device=dev))
+        p64, g64 = bufs[0].double(), bufs[1].double()
+        for kind, nesterov in cases:
+            for wd in (0.0, 0.01):
+                for gate, bad in gates.items():
+                    t1 = torch.zeros((blocks, 3), device=dev)
+                    t2 = torch.zeros((blocks, 3), device=dev)
+                    got = launch(kind, nesterov, [b.clone() for b in bufs], wd, bad, t1)
+                    again = launch(kind, nesterov, [b.clone() for b in bufs], wd, bad, t2)
+                    want = launch(kind, nesterov, [b.clone() for b in bufs], wd, bad, None)
+                    rows, rows2 = t1.sum(0), t2.sum(0)
+                    ref = torch.stack([(g64 * g64).sum(), (p64 * p64).sum(),
+                                       ((got[0].double() - p64) ** 2).sum()])
+                    rel = ((rows.double() - ref).abs() / ref.abs().clamp_min(1e-300)).max().item()
+                    worst = max(worst, rel)
+                    ok = (all(torch.equal(a, b) for a, b in zip(got, want))
+                          and all(torch.equal(a, b) for a, b in zip(again, want))
+                          and torch.equal(rows, rows2) and rel <= TOL_TELEMETRY)
+                    if gate == "set":
+                        ok = ok and rows[2].item() == 0.0 and torch.equal(got[0], bufs[0])
+                    check(ok, f"telemetry {kind} nesterov={nesterov} n={n} wd={wd} gate={gate}: "
+                              f"update or rows off (rows {rows.tolist()}, float64 "
+                              f"{ref.tolist()}, rel {rel:.2e})")
+                    checked += 1
+        del bufs, p64, g64
+    print(f"  {checked} cases over sizes {UPDATE_SIZES}, {blocks} blocks of partial sums: "
+          f"updates bitwise the kernels', rows repeat bitwise, worst relative error of a row "
+          f"{worst:.2e}")
+
+    n = EMBED_NUMEL
+    p, g, m = (torch.randn(n, generator=gen, device=dev) for _ in range(3))
+    v = torch.rand(n, generator=gen, device=dev)
+    bad = gates["clear"]
+    tele = torch.zeros((blocks, 3), device=dev)
+    step = torch.ones((), device=dev)
+
+    def variant(kind):
+        def run():
+            tele.zero_()
+            launch(kind, True, (p, g, m, v), 0.01, bad, tele)
+            return tele.sum(0)
+        return run
+
+    def plain(kind):
+        def run():
+            old = p.clone()
+            if kind == "sgd":
+                new = (fu.sgd_plain(p, g, lr, wd=0.01, bad=bad),)
+            elif kind == "momentum":
+                new = fu.momentum_plain(p, g, m, lr, mu=0.9, nesterov=True, wd=0.01, bad=bad)
+            else:
+                new = fu.adam_plain(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.01,
+                                    bad=bad)
+            return fu.telemetry_plain(g, old, new[0])
+        return run
+
+    library = {
+        "adam": lambda: torch._fused_adam_(
+            [p], [g], [m], [v], [], [step], lr=3e-4, beta1=0.9, beta2=0.999,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+        "momentum": lambda: torch._fused_sgd_(
+            [p], [g], [m], weight_decay=0.01, momentum=0.9, lr=3e-4, dampening=0.0,
+            nesterov=True, maximize=False, is_first_step=False),
+        "sgd": lambda: torch._fused_sgd_(
+            [p], [g], [], weight_decay=0.01, momentum=0.0, lr=3e-4, dampening=0.0,
+            nesterov=False, maximize=False, is_first_step=False),
+    }
+    out = {}
+    for kind in ("adam", "momentum", "sgd"):
+        ms = time_ms(variant(kind))
+        kernel_ms = time_ms(lambda: launch(kind, True, (p, g, m, v), 0.01, bad, None))
+        plain_ms = time_ms(plain(kind), reps=10)
+        library_ms = time_ms(library[kind])
+        t_bytes = ((UPDATE_BYTES[kind] * n + 5 + blocks * 3 * 4) / PEAK_BYTES_PER_S * 1e3)
+        t_ops = (UPDATE_FLOPS[kind] + TELEMETRY_FLOPS) * n / PEAK_FLOPS["float32"] * 1e3
+        bound_ms, bound_by = max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+        out[kind] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0,
+                         rows_rel_err=worst)
+        print(f"  {kind} n={n}: telemetry variant {ms:.4f} ms, the kernel {kernel_ms:.4f} ms "
+              f"({ms / kernel_ms:.3f}x), plain version with its rows {plain_ms:.4f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); variant "
+              f"at {bound_ms / ms:.1%} of bound")
+    del p, g, m, v
+
+    # Momentum and SGD steps with telemetry: the path of their variants
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    cfg = dataclasses.replace(gpt2_345m(dropout=0.0, attn_dropout=0.0), num_layers=2)
+    ids = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1), generator=gen, device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+    pt.set_flags({"FLAGS_pallas_fused_update": True, "FLAGS_telemetry": True})
+    try:
+        for kind, make in (("momentum", lambda ps: pt.optimizer.Momentum(
+                learning_rate=1e-3, momentum=0.9, use_nesterov=True, parameters=ps)),
+                           ("sgd", lambda ps: pt.optimizer.SGD(learning_rate=1e-3,
+                                                               parameters=ps))):
+            pt.seed(SEED)
+            model = GPTForPretraining(cfg, device=dev)
+            opt = make(model.parameters())
+            crit = GPTPretrainingCriterion(cfg)
+            pt.profiler.attribution.reset()
+            fu.KERNELS[kind].telemetry_launches = 0  # this path's count starts here
+            for _ in range(2):
+                loss = crit(model(x), y)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            launches = fu.KERNELS[kind].telemetry_launches  # ... and ends here
+            st = pt.profiler.attribution.telemetry_state()
+            n_params = len(list(model.parameters()))
+            print(f"  {kind} at 2 layers, 8 x 1024, f32: {launches} telemetry-variant launches "
+                  f"over 2 steps, {st['steps']} telemetry records of {len(st['groups'])} groups")
+            check(launches == 2 * n_params and st["steps"] == 2,
+                  f"{kind}: {launches} variant launches and {st['steps']} records, expected "
+                  f"{2 * n_params} and 2")
+            out[kind]["launches"] = launches
+            del model, opt
+    finally:
+        pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_telemetry": False})
+        pt.profiler.attribution.reset()
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Worker:
+    """One thread that runs every call given to it: a model's steps keep
+    their own lazy-dispatch state (it is per thread) while two models step
+    in turns."""
+
+    def __init__(self):
+        import concurrent.futures
+
+        self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def __call__(self, fn, *args):
+        return self.pool.submit(fn, *args).result()
+
+    def close(self):
+        self.pool.shutdown()
+
+
+def gpt_matmul_flops(cfg, tokens):
+    """The 345M step's matrix-product FLOPs: per layer the qkv, output and
+    two MLP projections (24 T H^2), the tied head (2 T H V), forward; the
+    backward twice that (the input's and the weight's gradients)."""
+    h = cfg.hidden_size
+    forward = cfg.num_layers * 24 * tokens * h * h + 2 * tokens * h * cfg.vocab_size
+    return 3 * forward
+
+
+def telemetry_345m(torch, pt, fa, fu, dev):
+    """16b: phase 13b's Paddle-style 345M f32 step under lazy dispatch with
+    capture, twin models from one seed, FLAGS_telemetry on for one: bitwise,
+    one program a step, the graph's launches, the telemetry against float64,
+    step ms in turns, the captured program's static profile and the
+    planner's peak against the measured one."""
+    import numpy as np
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+    from paddle_tpu_torch.profiler import attribution
+
+    batch = 8
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    tokens = batch * cfg.max_seq_len
+    print(f"[16b] the 345M f32 step captured whole ({batch} x {cfg.max_seq_len}, Adam through "
+          f"the fused kernel), FLAGS_telemetry on against off, twin models in turns")
+    data = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1))
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    lazy.reset_lazy_state()
+    attribution.reset()
+    pt.profiler.reset_dispatch_counters()
+    models, opts, workers = [], [], [_Worker(), _Worker()]
+    for _ in range(2):
+        pt.seed(SEED)
+        models.append(GPTForPretraining(cfg))
+        opts.append(pt.optimizer.Adam(learning_rate=1e-4, parameters=models[-1].parameters()))
+    n_params = len(list(models[0].parameters()))
+    crit = GPTPretrainingCriterion(cfg)
+    ids = pt.to_tensor(data[:, :-1], dtype="int64")
+    labels = pt.to_tensor(data[:, 1:], dtype="int64")
+
+    def stepper(i):
+        def step(clear=True):
+            set_regime(pt, "captured")
+            pt.set_flags({"FLAGS_telemetry": i == 1})
+            loss = crit(models[i](ids), labels)
+            loss.backward()
+            opts[i].step()
+            if clear:
+                opts[i].clear_grad()
+            return float(loss)
+        return step
+
+    off, on = stepper(0), stepper(1)
+    warm = pt.get_flags("FLAGS_eager_capture_warmup")["FLAGS_eager_capture_warmup"]
+    losses = {"off": [], "on": []}
+    built = None
+    peaks = {}
+    fu.fused_adam.telemetry_launches = 0  # this path's count starts here
+    for i in range(warm + CAPTURE_345M_STEPS):
+        last = i == warm + CAPTURE_345M_STEPS - 1
+        for name, w, step in (("off", 0, off), ("on", 1, on)):
+            if last and name == "on":  # the parameters before the last step
+                before_params = [p.detach().clone() for p in models[1].parameters()]
+            before = kernel_counts(fa, fu)
+            tele0 = fu.fused_adam.telemetry_launches
+            progs0 = pt.profiler.dispatch_counters()["programs"]
+            if i == warm:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            losses[name].append(workers[w](step, not last))
+            if i == warm:  # the capture: what it launched is what each replay holds
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated(dev)
+                if name == "on":
+                    got = counts_since(fa, fu, before)
+                    built = {"flash": {k: v for k, v in got.items() if k.endswith(
+                        ("tf32x3", "sm90", "simt"))}, "adam": got.get("adam", 0),
+                        "adam_telemetry": fu.fused_adam.telemetry_launches - tele0}
+            if i > warm:
+                check(pt.profiler.dispatch_counters()["programs"] - progs0 == 1,
+                      f"a captured step ({name}) ran more than one program")
+    launches = fu.fused_adam.telemetry_launches  # ... and ends here
+    c = pt.profiler.dispatch_counters()
+    same = losses["on"] == losses["off"] and bitwise_same(torch, models[1], models[0], opts[1],
+                                                          opts[0])
+    print(f"  losses off {losses['off']}; on {losses['on']}; bitwise (losses, parameters, "
+          f"moments) {same}; {c['capture_builds']} builds, {c['capture_replays']} replays, "
+          f"fallbacks {dict(c['capture_fallback_reasons'])}; the telemetry graph holds "
+          f"{built['flash']} flash and {built['adam_telemetry']} telemetry-variant Adam launches")
+    check(same, "telemetry on changed the captured 345M step")
+    check(c["capture_replays"] == 2 * CAPTURE_345M_STEPS and c["capture_fallbacks"] == 0,
+          f"the 345M steps did not replay once a step without a fallback "
+          f"({lazy.last_capture_error[0]})")
+    want = {"fwd_tf32x3": cfg.num_layers, "dkv_tf32x3": cfg.num_layers,
+            "dq_tf32x3": cfg.num_layers}
+    check(built["flash"] == want and built["adam"] == n_params == built["adam_telemetry"],
+          f"the telemetry graph holds {built}, expected {want} and {n_params} Adam launches, "
+          f"every one the telemetry variant")
+
+    # the telemetry of the last step against float64 on the card
+    attribution.flush_telemetry()
+    st = attribution.telemetry_state()
+    names = attribution.group_names(list(models[1].parameters()))
+    worst = 0.0
+    for name, p, old in zip(names, models[1].parameters(), before_params):
+        g2 = float((p.grad.double() ** 2).sum())
+        p2 = float((old.double() ** 2).sum())
+        d2 = float(((p.detach().double() - old.double()) ** 2).sum())
+        ref = {"grad_norm": math.sqrt(g2), "param_norm": math.sqrt(p2),
+               "update_ratio": math.sqrt(d2) / math.sqrt(p2) if p2 > 0 else 0.0}
+        got = st["groups"][name]
+        for k, r in ref.items():
+            worst = max(worst, abs(got[k] - r) / max(abs(r), 1e-30))
+    steps = pt.profiler.dispatch_counters()["telemetry_steps"]
+    print(f"  telemetry: {st['steps']} steps recorded ({steps} counted), {len(st['groups'])} "
+          f"groups; per-group grad norm, param norm and update ratio of the last step against "
+          f"float64 on the card: worst relative difference {worst:.2e}")
+    check(steps == warm + CAPTURE_345M_STEPS, f"telemetry_steps {steps}, expected "
+                                               f"{warm + CAPTURE_345M_STEPS}")
+    check(worst <= TOL_TELEMETRY, f"the telemetry is {worst:.2e} off float64")
+    del before_params
+    for o in opts:
+        o.clear_grad()
+
+    # step ms in turns, telemetry on and off
+    times = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        workers[0 if name == "off" else 1](off if name == "off" else on)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    check(bitwise_same(torch, models[1], models[0], opts[1], opts[0]),
+          "the timed steps left the twin models apart")
+    record_ms = attribution.measure_record_cost_ms(names, n=50)
+    print(f"  step (host clock, synchronised, median of {len(times['on'])} in turns): "
+          f"telemetry on {step_ms['on']:.2f} ms, off {step_ms['off']:.2f} ms "
+          f"({(step_ms['on'] / step_ms['off'] - 1) * 100:+.2f}%); the host record of "
+          f"{len(names)} groups {record_ms:.3f} ms a step, {record_ms / step_ms['on'] * 100:.3f}% "
+          f"of the step (budget 1%)")
+    check(record_ms / step_ms["on"] < 0.01, "the telemetry record costs over 1% of the step")
+
+    # the telemetry graph's static profile
+    program = workers[1](lazy.captured_step_ir)
+    key = workers[1](lambda: lazy._tls.last_captured().akey)
+    row = attribution.program_costs(top_k=3)[key]
+    mm = analysis.matmul_flops(program)
+    want_mm = gpt_matmul_flops(cfg, tokens)
+    flash = {op.name for op in program.ops if op.kernel and op.name.startswith("flash")}
+    flash_flops = sum(op.flops for op in program.ops if op.name.startswith("flash"))
+    print(f"  static profile of {key}: {row['eqns']} ops recorded in {program.record_ms:.0f} ms "
+          f"(the capture's own run), flops_est {row['flops_est']:.4e}, "
+          f"bytes_est {row['bytes_est']:.4e}, top ops {row['top_ops']}; matmul FLOPs {mm:.4e} "
+          f"against the analytic {want_mm:.4e} ({mm / want_mm - 1:+.3%}); flash kernels "
+          f"{sorted(flash)} {flash_flops:.4e} FLOPs; est_peak_hbm_mb {row['est_peak_hbm_mb']}")
+    check(row["top_ops"][0]["op"] in ("mm", "addmm", "bmm"),
+          f"the captured step's top op is {row['top_ops'][0]}, not a matmul")
+    check(abs(mm / want_mm - 1) <= TOL_MATMUL_FLOPS,
+          f"matmul FLOPs {mm} vs the analytic {want_mm}")
+    check(flash == {"flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq"}
+          and flash_flops > 0, f"the flash kernels are not counted: {flash}")
+
+    # the planner's peak against the measured ones
+    m = workers[1](lambda: pt.profiler.measure_programs(on, warmup=0))
+    mem = m["_memory"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    workers[1](on)
+    torch.cuda.synchronize()
+    replay_peak = torch.cuda.max_memory_allocated(dev)
+    est = mem["estimated_captured_peak_bytes"]
+    ratio = est / peaks["on"]
+    print(f"  memory: the planner's estimate of the captured step {est / 2**30:.2f} GiB "
+          f"(boundary {mem['estimated_captured_boundary_bytes'] / 2**30:.2f} GiB, in-place "
+          f"credit {mem['estimated_donation_credit_bytes'] / 2**30:.2f} GiB); measured "
+          f"max_memory_allocated over the capture (the run that allocates the step's buffers; "
+          f"both twins resident) {peaks['on'] / 2**30:.2f} GiB, ratio {ratio:.3f}; over one "
+          f"replay {replay_peak / 2**30:.2f} GiB (a replay allocates nothing: its buffers are "
+          f"the graph's pool), ratio {est / replay_peak:.3f}; the telemetry capture's peak "
+          f"above the telemetry-off capture's {(peaks['on'] - peaks['off']) / 2**20:+.1f} MiB")
+    check(MEMORY_RATIO[0] <= ratio <= MEMORY_RATIO[1],
+          f"the planner's peak {est} is {ratio:.3f}x the measured {peaks['on']}")
+    for w in workers:
+        w(lazy.reset_lazy_state)
+        w.close()
+    set_regime(pt, "per_op")
+    pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_telemetry": False})
+    del models, opts
+    attribution.reset()
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "launches_adam_telemetry": launches, "record_ms": record_ms,
+            "matmul_flops": mm, "analytic_matmul_flops": want_mm, "memory_ratio": ratio}
+
+
+def profiler_child() -> int:
+    """``chip_smoke.py --profile16``, 16c in a process of its own: phase 7's
+    O2 bf16 AdamW bench step (``compile_train_step``, one graph a step) with
+    FLAGS_telemetry on against off (bitwise over 3 replays, the rule path's
+    extra peak memory), the replay with a closed Profiler against none in
+    turns and RecordEvent's cost, then a Profiler session (CPU and GPU
+    targets, closed 1, ready 1, record 2) with RecordEvent spans around the
+    data and the step, exported and read back."""
+    import glob
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    batch = 8
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    print(f"[16c] the Profiler over phase 7's step (GPT-2 345M, {batch} x {cfg.max_seq_len}, "
+          f"AMP O2 bf16, AdamW, one CUDA graph a step), FLAGS_telemetry on")
+    criterion = GPTPretrainingCriterion(cfg)
+
+    def loss_fn(logits, labels):
+        return criterion(logits.float(), labels)
+
+    steps, models = {}, {}
+    for name in ("off", "on"):
+        pt.seed(SEED)
+        model = pt.amp.decorate(GPTForPretraining(cfg, device=dev), level="O2",
+                                dtype="bfloat16")
+        opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                                 weight_decay=0.01)
+        models[name] = (model, opt)
+        steps[name] = pt.jit.compile_train_step(model, loss_fn, opt)
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
+                        device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def run(name):
+        pt.set_flags({"FLAGS_telemetry": name == "on"})
+        return steps[name](x, y)
+
+    losses = {"off": [], "on": []}
+    peaks = {}
+    for i in range(pt.jit.WARMUP_STEPS + 1 + 3):  # eager steps, the capture, 3 replays
+        for name in ("off", "on"):
+            if i == pt.jit.WARMUP_STEPS:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+            losses[name].append(float(run(name)))
+            if i == pt.jit.WARMUP_STEPS:
+                torch.cuda.synchronize()
+                peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+    same = losses["on"] == losses["off"] and all(
+        torch.equal(a, b) for a, b in zip(models["on"][0].parameters(),
+                                          models["off"][0].parameters()))
+    profiler.attribution.flush_telemetry()
+    tele = profiler.attribution.telemetry_state()
+    print(f"  losses off {losses['off']}; on {losses['on']}; bitwise (losses, parameters) "
+          f"{same}; {tele['steps']} telemetry records of {len(tele['groups'])} groups; the "
+          f"capture's peak above what was allocated: telemetry on "
+          f"{peaks['on'] / 2**20:.1f} MiB, off {peaks['off'] / 2**20:.1f} MiB, the rule path's "
+          f"copies {(peaks['on'] - peaks['off']) / 2**20:+.1f} MiB")
+    check(same, "telemetry on changed the O2 bench step")
+    check(tele["steps"] == len(losses["on"]), "a telemetry record is missing")
+
+    # the replay with a closed profiler against none, in turns; RecordEvent
+    closed = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU,
+                                        profiler.ProfilerTarget.GPU],
+                               scheduler=lambda step: profiler.ProfilerState.CLOSED)
+    closed.start()
+    times = {"none": [], "closed": [], "telemetry_off": []}
+    for kind in ("none", "closed", "telemetry_off", "telemetry_off", "closed", "none") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run("off" if kind == "telemetry_off" else "on")
+        if kind == "closed":
+            closed.step()
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    closed.stop()
+    replay_ms = {k: statistics.median(v) for k, v in times.items()}
+    names = profiler.attribution.group_names(list(models["on"][0].parameters()))
+    record_ms = profiler.attribution.measure_record_cost_ms(names, n=50)
+    tele_pct = record_ms / replay_ms["none"] * 100
+    n_spans = 20000
+    t0 = time.perf_counter()
+    for _ in range(n_spans):
+        with profiler.RecordEvent("span"):
+            pass
+    span_us = (time.perf_counter() - t0) / n_spans * 1e6
+    profiler._host_events.clear()  # the session's export holds its own spans only
+    print(f"  replay with telemetry on (host clock, synchronised, median of "
+          f"{len(times['none'])} in turns): a closed Profiler {replay_ms['closed']:.3f} ms, none "
+          f"{replay_ms['none']:.3f} ms; telemetry off {replay_ms['telemetry_off']:.3f} ms; "
+          f"RecordEvent {span_us:.3f} us a span outside a session; the telemetry's host record "
+          f"of {len(names)} groups {record_ms:.3f} ms a step, {tele_pct:.3f}% of the step "
+          f"(budget 1%)")
+    check(tele_pct < 1.0, f"the telemetry record costs {tele_pct:.3f}% of the O2 step")
+
+    # the session
+    out_dir = tempfile.mkdtemp(prefix="profile16_")
+    os.environ["PADDLE_PROFILER_DIR"] = os.path.join(out_dir, "device")
+    sess = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+                             scheduler=profiler.make_scheduler(closed=1, ready=1, record=2,
+                                                               repeat=1),
+                             on_trace_ready=profiler.export_chrome_tracing(out_dir))
+    t0 = time.perf_counter()
+    sess.start()
+    for _ in range(5):
+        with profiler.RecordEvent("data"):
+            xb, yb = x.clone(), y.clone()
+        with profiler.RecordEvent("step"):
+            run("on")
+        torch.cuda.synchronize()
+        sess.step()
+    sess.stop()
+    session_s = time.perf_counter() - t0
+    (path,) = glob.glob(os.path.join(out_dir, "*.paddle_trace.json"))
+    doc = profiler.load_profiler_result(path)
+    evs = doc["traceEvents"]
+    spans = [e for e in evs if e.get("cat") == "host" and e["name"] in ("data", "step")]
+    flight = [e for e in evs if e.get("cat") == "flight"]
+    lanes = sorted({e["name"] for e in evs if e.get("ph") == "C"})
+    device_path = os.path.join(doc["metadata"]["device_trace_dir"], "device.pt.trace.json")
+    with open(device_path) as f:
+        device = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in device if e.get("cat") == "kernel"]
+
+    def n_of(tag):
+        return sum(tag in k for k in kernels)
+
+    got = {k: n_of(k) for k in ("fwd_sm90_kernel", "dkv_sm90_kernel", "dq_sm90_kernel",
+                                "fwd_tf32_kernel", "dkv_tf32_kernel", "dq_tf32_kernel",
+                                "fwd_kernel<", "dkv_kernel<", "dq_kernel<")}
+    print(f"  session of 5 steps in {session_s:.1f} s; the export {path} ("
+          f"{os.path.getsize(path) / 2**20:.1f} MiB): {len(spans)} RecordEvent spans, "
+          f"{len(flight)} flight events, counter lanes {lanes}; the device trace "
+          f"({os.path.getsize(device_path) / 2**20:.1f} MiB) holds {len(kernels)} kernels, "
+          f"flash by name {got}")
+    # the window closes at the 4th step(): its export holds 4 steps' spans
+    check(len(spans) == 8, f"the export holds {len(spans)} RecordEvent spans, expected 8")
+    check(flight, "the export lacks the flight recorder's events")
+    check(any(l.startswith("program_ms:captured:") for l in lanes),
+          f"no counter lane for the captured step's key: {lanes}")
+    want = cfg.num_layers * 2
+    check(all(got[k] == want for k in ("fwd_sm90_kernel", "dkv_sm90_kernel", "dq_sm90_kernel"))
+          and not any(got[k] for k in got if "sm90" not in k),
+          f"the device trace holds {got}, expected {want} of each sm90 kernel and none else")
+    table = sess.summary()
+    check("step" in table and "data" in table, "summary() lacks the spans")
+    print(json.dumps({"profile16": {"replay_ms": replay_ms, "span_us": span_us,
+                                    "step_ms": replay_ms["none"], "telemetry_pct": tele_pct,
+                                    "extra_peak_mib": (peaks["on"] - peaks["off"]) / 2**20,
+                                    "flash_in_trace": got}}))
+    return 0
+
+
+def run_profiler_child():
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile16"],
+                          capture_output=True, text=True, timeout=TRACE_CHILD_TIMEOUT_S)
+    print(proc.stdout.rstrip())
+    print(f"  (its process: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+    check(proc.returncode == 0, "16c failed")
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"profile16"')][-1]
+    return json.loads(line)["profile16"]
+
+
+def _http(addr, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://{addr}{path}", timeout=10) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+class _Scraper:
+    """A thread that scrapes the diagnostics server's endpoints at ~10 Hz and
+    keeps every (path, status) it got and every scrape's ms by path."""
+
+    PATHS = ("/metrics", "/healthz", "/readyz", "/statusz", "/flight?last=16", "/programz?static=0")
+
+    def __init__(self, addr):
+        self.addr, self.got, self.errors, self.ms = addr, [], [], {}
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.run, daemon=True)
+
+    def run(self):
+        i = 0
+        while not self.stop.is_set():
+            path = self.PATHS[i % len(self.PATHS)]
+            t0 = time.perf_counter()
+            try:
+                code, body = _http(self.addr, path)
+                self.ms.setdefault(path, []).append((time.perf_counter() - t0) * 1e3)
+                self.got.append((path, code if code == 200 else (code, body[:200])))
+            except Exception as e:  # noqa: BLE001 — counted as an unanswered scrape
+                self.errors.append(f"{path}: {e!r}")
+            i += 1
+            self.stop.wait(0.1)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=10)
+
+
+class _GcPauses:
+    """Records the length of every garbage collection from now until
+    ``close()``, in ms."""
+
+    def __init__(self):
+        self.ms, self._t0 = [], None
+        gc.callbacks.append(self._note)
+
+    def _note(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.ms.append((time.perf_counter() - self._t0) * 1e3)
+
+    def close(self):
+        if self._note in gc.callbacks:
+            gc.callbacks.remove(self._note)
+
+
+def serving_ops_plane(torch, pt, card):
+    """16d: phase 5b's engine on bench_serving's mix with the diagnostics
+    server and the sentinel on: every scrape answers during a serve, the
+    tokens equal the clean serve's, the decode step's device ms with and
+    without scraping in turns; then a slowed decode trips the sentinel
+    once, /healthz degrades, a postmortem names the key, recovery greens
+    it."""
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch import profiler, serving
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt2_345m
+    from paddle_tpu_torch.profiler import diag, sentinel
+
+    print(f"[16d] serving.Engine (GPT-2 345M f32, max_seq_len 2048) under the ops plane: "
+          f"FLAGS_diag_port=0, the sentinel at {SENTINEL_16D}; {card}")
+    pt.seed(0)
+    cfg = gpt2_345m(max_seq_len=2048, dropout=0.0, attn_dropout=0.0)
+    model = GPTForPretraining(cfg, device="gpu:0").eval()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, SERVE_PROMPT_LENS[i % len(SERVE_PROMPT_LENS)])
+               for i in range(SERVE_REQUESTS)]
+    eng = serving.Engine(model, serving.ServingConfig(block_size=16, prompt_buckets=[32, 64, 128]))
+    pt.set_flags({"FLAGS_diag_port": 0})
+    addr = diag.start()
+    # every route's server-side ms, and every collection's, until the end
+    route, server_ms = diag._route, {}
+
+    def timed_route(path, qs):
+        t0 = time.perf_counter()
+        try:
+            return route(path, qs)
+        finally:
+            server_ms.setdefault(path, []).append((time.perf_counter() - t0) * 1e3)
+
+    diag._route = timed_route
+    pauses = _GcPauses()
+    try:
+        # the clean serve builds the engine's programs, scraped from its
+        # start: the first scrape that overlaps a serve in a process costs
+        # that serve ~100 ms of host time once (the line below prints it), a
+        # warm-up cost, kept out of the timed serves as the captures are
+        t_serve = time.perf_counter()
+        with _Scraper(addr) as warm:
+            clean = [r.tokens for r in eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)]
+        warm_ms = (time.perf_counter() - t_serve) * 1e3
+        # then collect what the builds and the earlier phases left, and
+        # freeze the survivors out of the collector's reach, as a server does
+        # after its warm-up captures: a collection of this process's heap
+        # inside a timed serve is a host pause of hundreds of ms (the line
+        # below prints what the collection here took), and a pause in the
+        # middle of a serve's admissions delays every request behind it,
+        # which the serve_queue_wait key rightly reads as a sustained rise
+        t_gc = time.perf_counter()
+        heap = len(gc.get_objects())
+        gc.collect()
+        gc.freeze()
+        gc_ms = (time.perf_counter() - t_gc) * 1e3
+        n_warm_gc = len(pauses.ms)
+        pmdir = tempfile.mkdtemp(prefix="pm16d_")
+        # over the mix the sentinel's baselines freeze after a whole serve's
+        # worth of observations: a serve's queue waits rise request by
+        # request and its ticks alternate prefill and decode, so a baseline
+        # frozen mid-serve reads the serve's own shape as drift
+        pt.set_flags(dict(SENTINEL_16D, FLAGS_sentinel_warmup_steps=SERVE_REQUESTS,
+                          FLAGS_postmortem_dir=pmdir))
+        sentinel.reset()
+        qw_key = f"serve_queue_wait[{eng._uid}]"
+        threads = sorted(t.name for t in threading.enumerate())
+        for path in server_ms:
+            server_ms[path] = []
+        decode_ms = {"plain": [], "scraped": []}
+        scrapes, errors, scrape_ms, serves = [], [], {}, []
+        prof0 = profiler.dispatch_counters()
+        sites0 = dict(prof0["perf_regression_sites"])
+        for kind in ("plain", "scraped", "scraped", "plain") * 3:
+            eng.reset_stats()
+            t_serve = time.perf_counter()
+            if kind == "scraped":
+                with _Scraper(addr) as s:
+                    resps = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+                scrapes += s.got
+                errors += s.errors
+                for path, ms in s.ms.items():
+                    scrape_ms.setdefault(path, []).extend(ms)
+            else:
+                resps = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+            wall_ms = (time.perf_counter() - t_serve) * 1e3
+            check([r.tokens for r in resps] == clean,
+                  f"the tokens of a {kind} serve differ from the clean serve's")
+            steps = eng.step_timings()
+            decode_ms[kind].append(statistics.median(
+                t.device_ms for t in steps if t.kind == "decode"))
+            waits = [w for _, w in list(eng._admission._recent_waits)[-SERVE_REQUESTS:]]
+            st = sentinel.state()["keys"].get(qw_key, {})
+            serves.append(f"{kind[0]} {wall_ms:.1f}/"
+                          f"{sum(t.feed_ms + t.launch_ms + t.wait_ms for t in steps):.1f}/"
+                          f"{max(waits):.1f}/{st.get('ema_ms')}/{st.get('trips')}")
+        pauses.close()
+        gaps = [b - a for a, b in zip(decode_ms["plain"], decode_ms["scraped"])]
+        gap = statistics.median(gaps)
+        bad = [(p, c) for p, c in scrapes if c != 200]
+        loop_trips = {k: v - sites0.get(k, 0)
+                      for k, v in profiler.dispatch_counters()["perf_regression_sites"].items()
+                      if v != sites0.get(k, 0)}
+        qw = sentinel.state()["keys"].get(qw_key, {})
+        loop_gc = pauses.ms[n_warm_gc:]
+
+        def by_path(ms):
+            return "; ".join(f"{p} {statistics.median(v):.2f} {max(v):.2f}"
+                             for p, v in sorted(ms.items()) if v)
+
+        print(f"  the clean serve, scraped from its start: {warm_ms:.1f} ms, scrape ms by path "
+              f"(median, max) {by_path(warm.ms)}")
+        print(f"  before the timed serves: {heap} objects collected and frozen in {gc_ms:.1f} ms; "
+              f"during them {len(loop_gc)} collections, the longest "
+              f"{max(loop_gc, default=0.0):.3f} ms; sentinel trips {loop_trips or 'none'}, "
+              f"the queue-wait key's baseline {qw.get('baseline_ms')} ms, ema {qw.get('ema_ms')} "
+              f"ms; threads {threads}")
+        print("  serves (plain or scraped: wall ms / its steps' host ms / the last admission's "
+              "wait ms / the queue-wait key's ema after it / its trips): " + "; ".join(serves))
+        print(f"  scrape ms by path (median, max): at the scraper {by_path(scrape_ms)}; in the "
+              f"server {by_path(server_ms)}")
+        code, body = _http(addr, "/metrics")
+        parsed = profiler.metrics.parse_prometheus_text(body.decode())
+        cost_keys = [k for k in parsed if k.startswith("paddle_program_cost_measured_ms{")
+                     and "serve:decode" in k]
+        print(f"  {len(scrapes)} scrapes over {sum(p == '/metrics' for p, _ in scrapes)} "
+              f"/metrics, {len(errors)} unanswered, non-200 {bad[:4]}; /metrics parses, "
+              f"{len(parsed)} samples, {len(cost_keys)} serve:decode program-cost series; decode "
+              f"device ms medians plain {decode_ms['plain']}, scraped {decode_ms['scraped']}, "
+              f"the median gap {gap:+.4f} ms (bound {FAST_PATH_STEP_MS} ms); tokens equal the "
+              f"clean serve's")
+        check(not errors and not bad and scrapes, f"scrapes failed: {errors[:2]} {bad[:4]}")
+        check(code == 200 and cost_keys, "/metrics lacks the serve:decode program costs")
+        check(abs(gap) <= FAST_PATH_STEP_MS, f"scraping moved the decode step by {gap:.4f} ms")
+
+        # the slowed decode: the same bucket tick after tick, its programs
+        # captured by a first serve (a capture inside the warm-up would
+        # inflate the baseline) with the sentinel off (the captures hold the
+        # queue, which the queue-wait key would page), then fresh baselines
+        slow = rng.integers(1, cfg.vocab_size, (SLOW_REQUESTS, SLOW_PROMPT))
+        pt.set_flags({"FLAGS_sentinel_pct": 0.0})
+        eng.serve(list(slow), max_new_tokens=SLOW_NEW)
+        sentinel.reset()
+        pt.set_flags(SENTINEL_16D)
+        eng.reset_stats()
+        prof0 = profiler.dispatch_counters()
+        sites0 = dict(prof0["perf_regression_sites"])
+        trips0 = prof0["perf_regressions"]
+        for p in slow:
+            eng.submit(p, max_new_tokens=SLOW_NEW)
+        real = eng._run_tiered
+        tick = [0]
+        sleep_s = [0.0]
+
+        def slowed(key, fn, args):
+            # between the step's two CUDA events: a host sleep, and a sleep
+            # kernel of the same length on the stream (CUDA may hold the
+            # start event's submission until the replay's, so a host gap
+            # alone need not show in the events)
+            if key[0] == "decode" and SLOW_TICKS[0] <= tick[0] < SLOW_TICKS[1]:
+                time.sleep(sleep_s[0])
+                torch.cuda._sleep(int(sleep_s[0] * 1e3 * QUEUE_SLEEP_CYCLES / 50))
+            return real(key, fn, args)
+
+        eng._run_tiered = slowed
+        health = []
+        try:
+            while eng.pending:
+                if tick[0] == SLOW_TICKS[0]:
+                    base = [t.device_ms for t in eng.step_timings() if t.kind == "decode"]
+                    sleep_s[0] = 2 * statistics.median(base[-8:]) / 1e3
+                eng.step()
+                tick[0] += 1
+                if tick[0] in (SLOW_TICKS[1] - 1, SLOW_TICKS[1] + 30):
+                    code, body = _http(addr, "/healthz")
+                    health.append((tick[0], code, json.loads(body)))
+        finally:
+            eng._run_tiered = real
+        c = profiler.dispatch_counters()
+        sites = {k: v - sites0.get(k, 0) for k, v in c["perf_regression_sites"].items()
+                 if v != sites0.get(k, 0)}
+        keys = sentinel.state()["keys"]
+        slow_ms = [round(t.device_ms, 3) for t in eng.step_timings() if t.kind == "decode"]
+        print(f"  decode device ms by decode step around the slowdown: "
+              f"{slow_ms[SLOW_TICKS[0] - 4:SLOW_TICKS[1] + 4]}; sentinel keys "
+              + "; ".join(f"{k} seen {v['seen']} baseline {v['baseline_ms']} ema {v['ema_ms']} "
+                          f"trips {v['trips']} suppressed {v['suppressed']} "
+                          f"({v['last_suppressed']})" for k, v in keys.items()))
+        decode_sites = [k for k in sites if k.startswith(f"serve_decode[{eng._uid}:")]
+        (_, code_slow, doc_slow), (_, code_after, doc_after) = health
+        pms = sorted(f for f in os.listdir(pmdir) if f.startswith("postmortem_perf_regression"))
+        named = []
+        for f in pms:
+            with open(os.path.join(pmdir, f)) as fh:
+                named += [t["key"] for t in json.load(fh)["attribution"]["programs"]["tripped"]]
+        print(f"  slowed decode ticks {SLOW_TICKS} by {sleep_s[0] * 1e3:.2f} ms each (host and "
+              f"stream): trips by "
+              f"key {sites} ({c['perf_regressions'] - trips0} in all); /healthz at the last slow "
+              f"tick {code_slow} {doc_slow['status']} {doc_slow['reasons']}, 30 ticks later "
+              f"{code_after} {doc_after['status']}; {len(pms)} perf_regression postmortems "
+              f"naming {named}")
+        check(len(decode_sites) == 1 and sites[decode_sites[0]] == 1,
+              f"the slowed decode key tripped {sites}, expected one serve_decode trip")
+        check(code_slow == 503 and doc_slow["status"] == "degraded"
+              and doc_slow["reasons"] == ["perf_regression"],
+              f"/healthz during the slowdown: {code_slow} {doc_slow}")
+        check(decode_sites[0] in named, "no postmortem's attribution names the slowed key")
+        check(code_after == 200 and not sentinel.tripped(),
+              f"/healthz after the slowdown: {code_after} {doc_after}")
+    finally:
+        pauses.close()
+        gc.unfreeze()
+        diag._route = route
+        diag.stop()
+        pt.set_flags({"FLAGS_sentinel_pct": 0.0, "FLAGS_sentinel_warmup_steps": 10,
+                      "FLAGS_diag_port": -1, "FLAGS_postmortem_dir": ""})
+        sentinel.reset()
+        eng.close()
+    del model
+    torch.cuda.empty_cache()
+    return {"decode_gap_ms": gap, "scrapes": len(scrapes), "gc_pauses": len(loop_gc),
+            "gc_longest_ms": max(loop_gc, default=0.0)}
+
+
+def obs_probe_on_card(gate_step_ms):
+    """16e: ``python -m paddle_tpu_torch.tools.obs_probe --batch 64`` in a
+    process of its own, the overhead figures gated against ``gate_step_ms``
+    (16c's O2 step) with the LeNet percentages beside them."""
+    print(f"[16e] obs_probe on the card, LeNet batch 64 (BASELINE.json config 1), overheads "
+          f"gated against the 345M O2 step ({gate_step_ms:.2f} ms)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "paddle_tpu_torch.tools.obs_probe", "--batch",
+                           "64", "--gate-step-ms", f"{gate_step_ms:.4f}"], cwd=root,
+                          capture_output=True, text=True, timeout=PROBE_TIMEOUT_S,
+                          env=dict(os.environ, PYTHONPATH=root))
+    rows = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    for r in rows:
+        print("  " + json.dumps(r))
+    print(f"  exit {proc.returncode} in {time.perf_counter() - t0:.1f} s: "
+          f"{proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ''}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:])
+    check(proc.returncode == 0 and "ALL SCENARIOS PASSED" in proc.stdout, "obs_probe failed")
+    by = {r["scenario"]: r for r in rows}
+    out = {"trace": (by["trace-overhead"]["overhead_pct"], by["trace-overhead"]["lenet_overhead_pct"],
+                     by["trace-overhead"]["step_ms"]),
+           "scrape": (by["diag-server"]["scrape_overhead_pct"],
+                      by["diag-server"]["lenet_scrape_overhead_pct"],
+                      by["diag-server"]["ab_step_ms_plain"]),
+           "telemetry": (by["triage"]["telemetry_overhead_pct"],
+                         by["triage"]["lenet_telemetry_overhead_pct"], by["triage"]["step_ms"])}
+    print("  overheads, % of the 345M O2 step (gated, 1%) and of the LeNet step: "
+          + "; ".join(f"{k} {g:.4f}% / {l:.4f}% (LeNet step {s:.3f} ms)"
+                      for k, (g, l, s) in out.items()))
+    return out
+
+
+def slice18(torch, pt, fa, fu, dev, card):
+    """Phase 16: 16a-16e. Returns their numbers."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    kernels = telemetry_update_kernels(torch, pt, fu, gen, dev)
+    f32 = telemetry_345m(torch, pt, fa, fu, dev)
+    serving = serving_ops_plane(torch, pt, card)
+    o2 = run_profiler_child()
+    probe = obs_probe_on_card(o2["step_ms"])
+    print(f"  phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kernels, "f32": f32, "o2": o2, "serving": serving, "probe": probe}
+
+
+def slice18_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase16``: phase 16 alone, after building the
+    libraries its paths launch (the tf32x3 and sm90 flash kernels, the fused
+    updates)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_update as fu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    print(card)
+    t0 = time.perf_counter()
+    sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME, fa.SM90_FWD_KERNEL_NAME,
+               fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME, fu.KERNEL_NAME]
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    out = slice18(torch, pt, fa, fu, torch.device("cuda", 0), card)
+    print(json.dumps({"phase16": out}, default=str))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5898,6 +6861,10 @@ def main() -> int:
         return slice16_alone(torch)
     if "--phase15" in sys.argv:
         return slice17_alone(torch)
+    if "--phase16" in sys.argv:
+        return slice18_alone(torch)
+    if "--profile16" in sys.argv:
+        return profiler_child()
     if "--host-cost-child" in sys.argv:
         return host_cost_child(sys.argv[sys.argv.index("--host-cost-child") + 1])
     if "--host-cost-vs" in sys.argv:
@@ -6122,12 +7089,17 @@ def main() -> int:
     # 15. the PS tables and config 5's ERNIE CTR loop, the PS host rows, the
     # multi-process DataLoader
     p15 = slice17(torch, pt, fa, dev, ps_built)
+    # 16. the profiler and the ops plane: the telemetry variants, the 345M
+    # f32 step with telemetry, serving under the diagnostics server and the
+    # sentinel, the Profiler over the O2 step and obs_probe in processes of
+    # their own
+    p16 = slice18(torch, pt, fa, fu, dev, card)
 
-    # 16. per-kernel numbers, then the result
+    # 17. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[16] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[17] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -6306,7 +7278,33 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    print(f"[16] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
+    k16, f16, o16, pr16 = p16["kernels"], p16["f32"], p16["o2"], p16["probe"]
+    print(f"    the ops plane (16a-16e): telemetry variants at {EMBED_NUMEL} elements, ms: "
+          + ", ".join(f"{k} {v['ms']:.4f} (kernel {v['kernel_ms']:.4f})" for k, v in k16.items())
+          + f"; the 345M f32 captured step with telemetry {f16['step_ms']['on']:.2f} ms, without "
+          f"{f16['step_ms']['off']:.2f} ms; the O2 replay with a closed Profiler "
+          f"{o16['replay_ms']['closed']:.3f} ms, without {o16['replay_ms']['none']:.3f} ms, "
+          f"RecordEvent {o16['span_us']:.3f} us a span; decode with 10 Hz scrapes "
+          f"{p16['serving']['decode_gap_ms']:+.4f} ms; obs_probe overheads (% of the O2 step / of "
+          f"LeNet's): " + ", ".join(f"{k} {g:.4f} / {l:.4f}" for k, (g, l, _) in pr16.items()))
+    for kind, line in (("adam", 145), ("momentum", 127), ("sgd", 116)):
+        t = k16[kind]
+        rows.append({
+            "name": f"fused_update_{kind}_telemetry",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_update.cu",
+            "replaces": f"paddle_tpu/ops/pallas/fused_update.py:{line}",
+            "launches": f16["launches_adam_telemetry"] if kind == "adam" else t["launches"],
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+        check(rows[-1]["launches"] > 0, f"the {kind} telemetry variant was launched no time "
+                                        f"on its path")
+    print(f"[17] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
           f"check")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -58,9 +59,27 @@ def _count_op():
         from .. import profiler
 
         _profiler.append(profiler)
-    c = _profiler[0]._counters
-    c["op_programs"] += 1
-    c["programs"] += 1
+    _profiler[0].count_program("op")
+
+
+_attribution: list = []  # profiler.attribution, imported at the first op program
+
+
+def _note_op_program(name: str, t0: float):
+    """One per-op program into the attribution registry under ``op:<name>``
+    (``paddle_tpu/core/dispatch.py:101``), on the host clock: the first
+    call of a name registers it (its build is not a measured run), later
+    calls feed its EMA."""
+    if not _attribution:
+        from ..profiler import attribution
+
+        _attribution.append(attribution)
+    a = _attribution[0]
+    key = "op:" + name
+    if not a.known(key):
+        a.register(key, "op")
+        return
+    a.note_run(key, "op", (time.perf_counter() - t0) * 1e3)
 
 
 _amp_mod: list = []  # the amp module, imported at the first apply
@@ -106,6 +125,7 @@ def apply(fn: Callable, *args, op_name: Optional[str] = None, differentiable: bo
                 return out
             _lazy.observe_op_program()
         _count_op()
+        t0 = time.perf_counter()
     _tls.depth = depth + 1
     try:
         vals = [(a._v if type(a._v) is not LazyRef else a._value) if isinstance(a, Tensor)
@@ -120,6 +140,8 @@ def apply(fn: Callable, *args, op_name: Optional[str] = None, differentiable: bo
                 out = fn(*vals, **kwargs)
     finally:
         _tls.depth = depth
+    if not depth:
+        _note_op_program(op_name or getattr(fn, "__name__", "op"), t0)
     if _NAN_CHECK["value"]:
         _check_nan_inf(getattr(fn, "__name__", "op"), out)
     if isinstance(out, torch.Tensor):
@@ -140,11 +162,16 @@ def tensor_call(key, fn, args, kwargs, module=None):
                 return out
             _lazy.observe_op_program()
         _count_op()
+        t0 = time.perf_counter()
     _tls.depth = depth + 1
     try:
-        return wrap(fn(*unwrap(args), **{k: unwrap(v) for k, v in kwargs.items()}))
+        out = wrap(fn(*unwrap(args), **{k: unwrap(v) for k, v in kwargs.items()}))
     finally:
         _tls.depth = depth
+    if not depth:
+        _note_op_program(type(module).__name__ if module is not None
+                         else getattr(fn, "__name__", "op"), t0)
+    return out
 
 
 def wrap(out):

@@ -368,6 +368,81 @@ define_flag(
     "directory without limit); pruned files are counted in "
     "dispatch_counters()['postmortems_pruned']. 0 = unbounded",
 )
+# ---------------------------------------------------------------------------
+# Attribution and the ops plane (profiler/attribution.py, sentinel.py,
+# diag.py): the JAX package's names, defaults and docs
+# ---------------------------------------------------------------------------
+define_flag(
+    "telemetry", False,
+    "fused numerics telemetry (paddle.profiler.attribution): the fused "
+    "optimizer update (and the captured whole-step program) computes one "
+    "extra stacked vector output, per-parameter grad, param and update "
+    "sums of squares, inside the SAME program (the fused-update kernels' "
+    "telemetry variant writes per-block partial sums; no extra program, and "
+    "step numerics are bitwise-identical to telemetry-off). The host "
+    "records the vector into per-group gauges (telemetry_* metric "
+    "families), a bounded history ring (FLAGS_telemetry_history) the "
+    "triage postmortems dump, and one 'telemetry' flight event per step. "
+    "With FLAGS_numeric_rescue set the vector is read with the sentinel "
+    "(one synchronisation); otherwise it is copied behind an event and "
+    "recorded at the next step boundary (one step late; flush() records "
+    "the last one)",
+)
+define_flag(
+    "telemetry_history", 64,
+    "per-step telemetry records kept in the attribution history ring: the "
+    "'last N telemetry vectors' a triage postmortem includes so an "
+    "out-of-trend parameter group is visible in context",
+)
+define_flag(
+    "telemetry_spike_factor", 10.0,
+    "a parameter group whose grad-norm exceeds this multiple of its own "
+    "EMA (or goes non-finite) is recorded as a telemetry spike: counted "
+    "(telemetry_spikes + the telemetry_spike_groups labeled family), named "
+    "in the per-step telemetry flight event, and listed first in the "
+    "postmortem triage section",
+)
+define_flag(
+    "diag_port", -1,
+    "per-process diagnostics HTTP server (paddle.profiler.diag): the port "
+    "diag.start() binds its stdlib ThreadingHTTPServer daemon to, serving "
+    "GET /metrics (Prometheus exposition incl. the adopted dispatch "
+    "counters), /healthz + /readyz (JSON liveness/readiness with HTTP "
+    "200/503), /flight?kind=&site=&last=N (flight-recorder tail), "
+    "/postmortems (list + fetch the FLAGS_postmortem_dir dumps), /programz "
+    "(attribution), /statusz (human-readable runtime state) and /clockz. "
+    "-1 (default) = off; 0 = ephemeral port; > 0 = fixed port. Every read "
+    "path is built on detached snapshots, so a scrape never blocks a step",
+)
+define_flag(
+    "diag_host", "127.0.0.1",
+    "bind address of the diagnostics server (FLAGS_diag_port); the "
+    "loopback interface by default",
+)
+define_flag(
+    "sentinel_pct", 0.0,
+    "perf-regression sentinel threshold (paddle.profiler.sentinel): when "
+    "> 0, per-(step-signature) step-time EMAs (and serving decode / "
+    "queue-wait latencies) are baselined after FLAGS_sentinel_warmup_steps "
+    "observations; sustained drift past this percent "
+    "(FLAGS_sentinel_sustain_steps consecutive breaches, with hysteresis: "
+    "a tripped key re-arms only after drifting back under half the "
+    "threshold) emits a 'perf_regression' flight event, increments "
+    "perf_regressions, dumps a postmortem and flips /healthz to 503 "
+    "'degraded'. Breaches are suppressed while the degradation ladder is "
+    "demoted or a checkpoint persist is in flight. 0 = off",
+)
+define_flag(
+    "sentinel_warmup_steps", 10,
+    "observations of a (step-signature) key before the perf-regression "
+    "sentinel freezes its baseline EMA and starts drift detection",
+)
+define_flag(
+    "sentinel_sustain_steps", 3,
+    "consecutive over-threshold observations before the perf-regression "
+    "sentinel trips (and, symmetrically, consecutive recovered "
+    "observations before a tripped key clears and re-baselines)",
+)
 define_flag(
     "serving_max_engine_restarts", 3,
     "restarts the serving Supervisor may attempt on a wedged or crashed "
@@ -436,11 +511,11 @@ define_flag("eager_capture_sharded", True,
 define_flag("check_programs", 0,
             "the JAX package's program verifier (0 off, 1 warn, 2 raise) over "
             "segments and captured steps, with the capture's equivalence "
-            "certificate; not ported: only 0 is accepted (ROADMAP queue 1 item 12)",
-            later="item 12")
+            "certificate; not ported: only 0 is accepted (ROADMAP queue 1 item 12b)",
+            later="item 12b")
 define_flag("memory_plan", "",
             "the JAX package's rematerialization plan of a captured step ('auto'); "
-            "not ported: only '' is accepted (ROADMAP queue 1 item 12)", later="item 12")
+            "not ported: only '' is accepted (ROADMAP queue 1 item 12b)", later="item 12b")
 define_flag(
     "eager_async_compile", True,
     "accepted for parity with the JAX package, where it compiles a new "

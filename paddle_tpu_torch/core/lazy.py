@@ -58,9 +58,19 @@ counters stay 0.
 
 Counters: ``profiler.dispatch_counters()`` (``programs`` by category,
 ``flush_reasons``, the segment and capture caches, ``capture_*``, the
-host-time split). Left to later items (ROADMAP queue 1):
-the memory plan of a capture, its equivalence certificate and the launch
-budget (item 12); mesh-aware and sharded capture (item 13).
+host-time split). Every program registers with the attribution cost
+registry (``profiler.attribution``: ``segment:<sig>``, ``captured:<sig>``,
+``accum:<sig>``, ``serve:<kind>:<uid>:...``) with its IR (``analysis``),
+recorded during a run that happens anyway (a segment's first run, the
+capture's own run of a step, a serving program's capture), and feeds its
+measured runs there: a segment on the host clock (the ``replay_time_ms``
+bracket), a captured program on the card by a CUDA event pair per entry,
+read at the entry's next run without a synchronisation (on the CPU the
+host clock). Under FLAGS_telemetry the captured step's update computes the
+fused telemetry inside the graph and hands it to the lagged reader after
+every replay. Left to later items (ROADMAP queue 1): the remat plan of a
+capture, its equivalence certificate and the launch budget (item 12b);
+mesh-aware and sharded capture (item 13).
 
 **Decode-mode capture** (``serve_program``, ``reset_serve_programs``,
 ``serve_capture_state``). A serving engine knows its step boundaries
@@ -88,7 +98,7 @@ replaces before each replay. ``row`` and ``nxt`` of a graph are its static
 outputs: the next replay overwrites them, so the caller reads them first.
 The first call of a key counts one ``serve_capture_builds``, each later
 call one ``serve_capture_replays``. Not ported: the equivalence
-certificate between the rungs (``_certify_rungs``, item 12).
+certificate between the rungs (``_certify_rungs``, item 12b).
 """
 from __future__ import annotations
 
@@ -107,7 +117,8 @@ from . import cuda_graphs
 from . import flags
 
 __all__ = [
-    "LazyRef", "captured_step_certificate", "captured_step_donation_verdicts",
+    "LazyRef", "captured_step_certificate", "captured_step_donation_verdicts", "captured_step_ir",
+    "drain_async",
     "captured_step_handle", "captured_step_program", "captured_step_shard_info",
     "flush_if_pending", "pending_op_count", "reset_lazy_state",
     "reset_serve_programs", "serve_capture_state", "serve_program", "stage_feeds",
@@ -138,6 +149,47 @@ def _counters():
 
 def _add_time(key: str, t0: float):
     _counters()[key] += (time.perf_counter() - t0) * 1e3
+
+
+def _emit(kind, site="", **attrs):
+    """A flight-recorder event (``profiler.trace``), at the JAX package's
+    sites: segment flushes, capture builds, replays and fallbacks, serving
+    program builds."""
+    from ..profiler import trace
+
+    trace.emit(kind, site=site, **attrs)
+
+
+def _sig_id(sig) -> str:
+    try:
+        return f"{hash(sig) & 0xFFFF:04x}"
+    except TypeError:
+        return "anon"
+
+
+def _note_program(key: str, category: str, dt_ms: float):
+    """One measured run of ``key`` into the attribution cost registry."""
+    try:
+        from ..profiler import attribution as _attribution
+
+        _attribution.note_run(key, category, dt_ms)
+    except Exception:
+        pass  # attribution must never break the program
+
+
+def _register_program(key: str, category: str, **kw):
+    try:
+        from ..profiler import attribution as _attribution
+
+        _attribution.register(key, category, **kw)
+    except Exception:
+        pass
+
+
+def _recording(source: str):
+    from .. import analysis
+
+    return analysis.recording(source)
 
 
 def _count_reason(family: str, reason: str):
@@ -933,6 +985,7 @@ def _flush(seg: _Segment, reason: str):
     live = _live_of(seg)
     t0 = time.perf_counter()
     timer = "replay_time_ms"
+    skey = f"segment:{_sig_id(sig)}"
     try:
         if program is None:
             c["segment_cache_misses"] += 1
@@ -943,16 +996,28 @@ def _flush(seg: _Segment, reason: str):
             while cap > 0 and len(_segment_cache) > cap:
                 _segment_cache.popitem(last=False)
                 c["segment_cache_evictions"] += 1
+            # the first run is recorded: the segment's IR for attribution
+            with _recording(skey) as rec:
+                results = _rrt.execute("segment", lambda: program.run(seg.ext, live),
+                                       retry_unsafe=True)
+            _register_program(skey, "segment", ir_thunk=lambda _p=rec.program: _p,
+                              ops=len(seg.ops))
         else:
             c["segment_cache_hits"] += 1
             _segment_cache.move_to_end(sig)
-        results = _rrt.execute("segment", lambda: program.run(seg.ext, live),
-                               retry_unsafe=True)
+            results = _rrt.execute("segment", lambda: program.run(seg.ext, live),
+                                   retry_unsafe=True)
     except BaseException as e:
         seg.error = e
         raise
     finally:
-        _add_time(timer, t0)
+        dt = (time.perf_counter() - t0) * 1e3
+        c[timer] += dt
+    if timer == "replay_time_ms":
+        _note_program(skey, "segment", dt)  # host clock: the enqueue on the card
+    _emit("flush", site="segment", reason=reason, ops=len(seg.ops),
+          cache="miss" if timer == "compile_time_ms" else "hit", fused=True,
+          bridged=program.runs == 1)
     from .. import profiler
 
     profiler.count_program("segment")
@@ -1034,6 +1099,7 @@ def observe_backward(key):
 def _capture_fallback(reason: str):
     _counters()["capture_fallbacks"] += 1
     _count_reason("capture_fallback_reasons", reason)
+    _emit("capture", site="captured", phase="fallback", reason=reason)
 
 
 # torch's own grad slot, past the Parameter.grad property that reports
@@ -1331,11 +1397,26 @@ class _CaptureEntry:
         self.ladder_key = None
         self.seg_sig = None
         self.out_rg = None        # requires_grad of the graph's outputs
+        self.akey = None          # the attribution key (captured:<sig> / accum:<sig>)
+        self.ir = None            # the program's recorded IR (analysis.Program)
+        self.timing = None        # (start, end) CUDA events of the last replay
+        self.tele = None          # (group names, the graph's telemetry vector)
 
     def release(self):
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.static = self.outs = self.grad_bufs = self.grad_in = None
+        self.tele = self.timing = None
+
+    def note_replay(self):
+        """The last replay's device ms into the attribution registry, when
+        its end event has completed: read at the next replay, so the step
+        path never waits for it."""
+        if self.timing is None:
+            return
+        start, end = self.timing
+        if end.query():
+            _note_program(self.akey, self.akey.split(":", 1)[0], start.elapsed_time(end))
 
     def hand_out(self, outs) -> list:
         """The outputs a run hands out: copies (a graph's static outputs are
@@ -1389,6 +1470,35 @@ def _step_fn(entry: _CaptureEntry, opt, ext, lr, leaves):
     return [results[ri][rj]] + [results[i][j] for i, j in entry.live]
 
 
+def _entry_ir(entry: _CaptureEntry):
+    """The registry's thunk of a captured program's IR: weak, so the
+    registry never outlives the capture cache."""
+    ref = weakref.ref(entry)
+
+    def thunk():
+        e = ref()
+        return None if e is None else e.ir
+
+    return thunk
+
+
+def _donated_count(program) -> int:
+    """Inputs the captured program writes in place: parameters and states,
+    which a CUDA graph updates in place (the donation of the JAX step)."""
+    if program is None:
+        return 0
+    return sum(1 for v in program.values.values() if v.written)
+
+
+def captured_step_ir():
+    """The recorded IR (``analysis.Program``) of the captured whole step this
+    thread replayed last, or None: what ``analysis.memory.captured_step_plans``
+    plans."""
+    ref = getattr(_tls, "last_captured", None)
+    entry = ref() if ref is not None else None
+    return None if entry is None else entry.ir
+
+
 def _state_ptrs(entry: "_CaptureEntry", opt, params, leaves) -> Tuple:
     """Where the graph's leaves, the layers' parameters and buffers, and the
     updated parameters and their optimizer states live."""
@@ -1432,7 +1542,16 @@ def _run_entry(entry: _CaptureEntry, opt, seg: _Segment, leaves) -> list:
     if entry.card is None:
         entry.card = _on_card(entry.plan, ext)
     if not entry.card:
-        return _step_fn(entry, opt, ext, None, leaves)
+        # the function itself, at the captured site (an injected fault is
+        # raised before it runs; a real one propagates)
+        if entry.ir is None:  # the first run is recorded: the program's IR
+            with _recording(entry.akey or "captured") as rec:
+                out = _rrt.execute("captured", lambda: _step_fn(entry, opt, ext, None, leaves),
+                                   retry_unsafe=True, ladder_key=entry.ladder_key)
+            entry.ir = rec.program
+            return out
+        return _rrt.execute("captured", lambda: _step_fn(entry, opt, ext, None, leaves),
+                            retry_unsafe=True, ladder_key=entry.ladder_key)
     lr = opt.get_lr() if entry.update else None
     params = list(opt._param_list()) if entry.update else []
     if entry.graph is None:
@@ -1445,7 +1564,17 @@ def _run_entry(entry: _CaptureEntry, opt, seg: _Segment, leaves) -> list:
     cuda_graphs.copy_in(entry.static, ext)
     if entry.lr is not None:
         entry.lr.fill_(lr)
+    entry.note_replay()
+    if entry.timing is None:
+        entry.timing = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+    entry.timing[0].record()
     _rrt.execute("captured", entry.graph.replay, retry_unsafe=True, ladder_key=entry.ladder_key)
+    entry.timing[1].record()
+    if entry.tele is not None:
+        from ..profiler import attribution as _attribution
+
+        _attribution.push_telemetry(*entry.tele)
     for t, g in zip(leaves, entry.grad_bufs):
         if g is not None:
             _set_raw_grad(t, g)
@@ -1470,8 +1599,11 @@ def _capture_graph(entry: _CaptureEntry, opt, ext, lr, leaves, params, seg_sig=N
     entry.grad_in = [_raw_grad(t) for t in leaves] if any(
         _raw_grad(t) is not None for t in leaves) else None
     graph = cuda_graphs.Graph(device)
-    with graph.capture():
+    # the capture's own run of the step is recorded: the program's IR
+    with _recording(entry.akey or "captured") as rec, graph.capture():
         outs = _step_fn(entry, opt, entry.static, entry.lr, leaves)
+    entry.ir = rec.program
+    entry.tele = opt.__dict__.pop("_captured_telemetry", None) if opt is not None else None
     entry.out_rg = [o.requires_grad for o in outs]
     entry.graph, entry.outs = graph, [o.detach() for o in outs]
     entry.grad_bufs = [_raw_grad(t) for t in leaves]
@@ -1512,26 +1644,34 @@ def _run_accum_microstep(seg, rv, seg_sig, bwd_key, leaves, pos, obs) -> bool:
     c = _counters()
     t0 = time.perf_counter()
     try:
-        if entry is None:
+        fresh = entry is None
+        if fresh:
             plan = tuple(_PlanOp(op) for op in seg.ops)
             entry = _CaptureEntry(plan, root, live, update=False)
             entry.seg_sig = seg_sig
+            entry.akey = f"accum:{_sig_id(seg_sig)}"
             _lru_capture(key, entry)
             c["capture_accum_builds"] += 1
         else:
             _capture_cache.move_to_end(key)
         outs = _run_entry(entry, None, seg, leaves)
+        if fresh:
+            _register_program(entry.akey, "accum", ir_thunk=_entry_ir(entry))
     except Exception as e:  # noqa: BLE001 — the normal path runs the microstep
         _capture_cache.pop(key, None)
         if not isinstance(e, _CaptureIneligible):
             last_capture_error[0] = repr(e)
         return _no_capture(obs, e.reason if isinstance(e, _CaptureIneligible)
                            else "accum_error")
-    _add_time("replay_time_ms", t0)
+    dt = (time.perf_counter() - t0) * 1e3
+    c["replay_time_ms"] += dt
+    if not fresh and not entry.card:
+        _note_program(entry.akey, "accum", dt)  # host clock (the card's: events)
     _tls.segment = None
     _resolve_outputs(seg, entry, outs)
     c["capture_accum_replays"] += 1
     profiler.count_program("captured")
+    _emit("capture", site="captured", phase="accum_replay", pos=pos)
     obs.pos = pos + 1
     obs.events, obs.dirty = [], False
     return True
@@ -1575,15 +1715,20 @@ def step_capture_step(optimizer) -> bool:
     seg = rec.segment
     root = (rec.root._op_index, rec.root._out_index)
     live = _live_besides(seg, root)
-    key = (rec.seg_sig, rec.bwd_key, opt_fp, rec.accumulate, live)
+    # the fused telemetry changes the captured program: it keys the cache
+    key = (rec.seg_sig, rec.bwd_key, opt_fp, rec.accumulate, live,
+           bool(flags.flag("telemetry")))
     c = _counters()
     t0 = time.perf_counter()
     try:
         entry = _capture_cache.get(key)
-        if entry is None:
+        fresh = entry is None
+        if fresh:
             entry = _build_captured_step(rec, optimizer, live)
             entry.ladder_key, entry.seg_sig = _ladder_key(rec.seg_sig), rec.seg_sig
+            entry.akey = f"captured:{_sig_id(rec.seg_sig)}"
             c["capture_builds"] += 1
+            _emit("capture", site="captured", phase="build", background=False, mesh=None)
             _lru_capture(key, entry)
         else:
             _capture_cache.move_to_end(key)
@@ -1591,6 +1736,9 @@ def step_capture_step(optimizer) -> bool:
         _tls.capture_deferred = None
         deferred_step[0] = None
         outs = _run_entry(entry, optimizer, seg, rec.leaves)
+        if fresh:
+            _register_program(entry.akey, "captured", ir_thunk=_entry_ir(entry),
+                              donated=_donated_count(entry.ir))
     except Exception as e:  # noqa: BLE001 — the step completes on the normal path
         _tls.capture_deferred = rec
         deferred_step[0] = rec
@@ -1605,7 +1753,12 @@ def step_capture_step(optimizer) -> bool:
             return fallback(e.reason)
         last_capture_error[0] = repr(e)
         return fallback("capture_error")
-    _add_time("replay_time_ms", t0)
+    dt = (time.perf_counter() - t0) * 1e3
+    c["replay_time_ms"] += dt
+    if not fresh and not entry.card:
+        _note_program(entry.akey, "captured", dt)  # host clock (the card's: events)
+    _tls.last_captured = weakref.ref(entry)
+    _emit("capture", site="captured", phase="replay", donated=True, mesh=None)
     _resolve_outputs(seg, entry, outs)
     c["capture_replays"] += 1
     profiler.count_program("captured")
@@ -1618,6 +1771,12 @@ def step_capture_step(optimizer) -> bool:
 # ---------------------------------------------------------------------------
 # state
 # ---------------------------------------------------------------------------
+def drain_async():
+    """Join every background build (``paddle_tpu/core/lazy.py:100``): the
+    port builds its programs on the calling thread
+    (FLAGS_eager_async_compile), so there is nothing to join."""
+
+
 def step_signature_id() -> Optional[int]:
     """A small id of this thread's armed step signature, or None."""
     obs = getattr(_tls, "observer", None)
@@ -1649,19 +1808,19 @@ def _later(what: str, item: str):
 
 def captured_step_program():
     """The JAX package's retrace of the captured step for the memory
-    planner: not ported (item 12)."""
-    _later("lazy.captured_step_program (the memory plan of a capture)", "item 12")
+    planner: not ported (item 12b)."""
+    _later("lazy.captured_step_program (the memory plan of a capture)", "item 12b")
 
 
 def captured_step_certificate():
-    """The captured step's equivalence certificate: not ported (item 12)."""
-    _later("lazy.captured_step_certificate", "item 12")
+    """The captured step's equivalence certificate: not ported (item 12b)."""
+    _later("lazy.captured_step_certificate", "item 12b")
 
 
 def captured_step_handle():
     """The analysis passes' handle on the captured step (the launch budget):
-    not ported (item 12)."""
-    _later("lazy.captured_step_handle", "item 12")
+    not ported (item 12b)."""
+    _later("lazy.captured_step_handle", "item 12b")
 
 
 def captured_step_shard_info():
@@ -1682,6 +1841,7 @@ def reset_lazy_state():
     _tls.capture_deferred = None
     deferred_step[0] = None
     _tls.observer = None
+    _tls.last_captured = None
     _segment_cache.clear()
     _spec_cache.clear()
     _layer_tokens.clear()
@@ -1722,11 +1882,12 @@ class _ServeProgram:
     """One captured serving program (a prefill or decode bucket signature)."""
 
     __slots__ = ("key", "fn", "_built_donate", "_built_plain", "_graph", "_host", "_dev",
-                 "_inputs", "_out")
+                 "_inputs", "_out", "ir")
 
     def __init__(self, key, fn):
         self.key = key
         self.fn = fn
+        self.ir = None  # the IR recorded at the capture (the first run on the CPU)
         self._built_donate = False
         self._built_plain = False
         self._graph = None
@@ -1749,11 +1910,19 @@ class _ServeProgram:
             out = self._retained(k_pools, v_pools, feeds)
             self._built_plain = True
         profiler.count("serve_capture_builds" if fresh else "serve_capture_replays")
+        if fresh:
+            _emit("serve_capture", site="captured", phase="build", key=str(self.key),
+                  donated=bool(donate))
         return out
 
     def _captured(self, k_pools, v_pools, feeds):
         device = k_pools[0].device
         if device.type != "cuda":
+            if self.ir is None:
+                with _recording("serve") as rec:
+                    out = self.fn(k_pools, v_pools, *feeds)
+                self.ir = rec.program
+                return out
             return self.fn(k_pools, v_pools, *feeds)
         if self._graph is None:
             self._capture(k_pools, v_pools, feeds, device)
@@ -1783,8 +1952,9 @@ class _ServeProgram:
             pool = _graph_pools[device] = [torch.cuda.graph_pool_handle(), 0]
         graph = cuda_graphs.Graph(device)
         try:
-            with graph.capture(pool[0]):
+            with _recording("serve") as rec, graph.capture(pool[0]):
                 _, _, row, nxt = self.fn(k_pools, v_pools, *self._inputs)
+            self.ir = rec.program
         except BaseException:
             if not pool[1]:
                 del _graph_pools[device]
@@ -1832,6 +2002,11 @@ def serve_program(key: Tuple, fn: Callable) -> _ServeProgram:
         old.release()
         profiler.count("serve_capture_evictions")
     return prog
+
+
+def serve_program_if_cached(key: Tuple) -> Optional[_ServeProgram]:
+    """The cached program of ``key`` (no LRU touch), or None."""
+    return _serve_cache.get(key)
 
 
 def reset_serve_programs(owner=None):

@@ -31,6 +31,18 @@
 // stores when every buffer is 16-byte aligned (a scalar tail covers n % 4),
 // scalar accesses otherwise; the outputs are written in place over p, m and v,
 // so each buffer is read once and written once.
+//
+// The telemetry variant (FLAGS_telemetry; replaces nothing of its own: the
+// JAX package computes the same sums in the XLA program around its kernel,
+// paddle_tpu/optimizer/optimizer.py:100-117) writes, beside the update, three
+// sums of squares per parameter: g^2 (the cast grad, before the decay term),
+// p^2 (the parameter before the update) and (p' - p)^2 (the applied update,
+// 0 on a gated step). The update arithmetic is the plain kernel's; only the
+// grid changes: it is capped at `tele_blocks` blocks (a grid-stride loop), and
+// block b writes its three partial sums to tele[3*b .. 3*b+2], a row of the
+// step's dense (params, tele_blocks, 3) buffer, which the caller zeroes and
+// sums over dim 1 (a fixed order: no atomics, the rows repeat bit for bit). A
+// gated step still writes g^2 and p^2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,17 +85,62 @@ struct AdamOp {
   }
 };
 
+// The telemetry sums of one element: g^2 and p^2 before the update, then
+// (p' - p)^2 after it.
+struct Sums {
+  float g2 = 0.f, p2 = 0.f, d2 = 0.f;
+  __device__ __forceinline__ void before(float p, float g) {
+    g2 = __fadd_rn(g2, __fmul_rn(g, g));
+    p2 = __fadd_rn(p2, __fmul_rn(p, p));
+  }
+  __device__ __forceinline__ void after(float old_p, float new_p) {
+    const float d = __fsub_rn(new_p, old_p);
+    d2 = __fadd_rn(d2, __fmul_rn(d, d));
+  }
+};
+
+// The block's three sums, written by thread 0 to out[0..2] in a fixed order.
+__device__ __forceinline__ void block_sums(Sums s, float* __restrict__ out) {
+  __shared__ float part[THREADS / 32][3];
+  for (int off = 16; off > 0; off >>= 1) {
+    s.g2 = __fadd_rn(s.g2, __shfl_down_sync(0xffffffffu, s.g2, off));
+    s.p2 = __fadd_rn(s.p2, __shfl_down_sync(0xffffffffu, s.p2, off));
+    s.d2 = __fadd_rn(s.d2, __shfl_down_sync(0xffffffffu, s.d2, off));
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    part[warp][0] = s.g2;
+    part[warp][1] = s.p2;
+    part[warp][2] = s.d2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float g2 = 0.f, p2 = 0.f, d2 = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      g2 = __fadd_rn(g2, part[w][0]);
+      p2 = __fadd_rn(p2, part[w][1]);
+      d2 = __fadd_rn(d2, part[w][2]);
+    }
+    out[0] = g2;
+    out[1] = p2;
+    out[2] = d2;
+  }
+}
+
 // NS state buffers (0, 1 or 2) beside p and g; s0 and s1 are unused past NS.
-template <int NS, class Op>
+// With Tele, tele points at the parameter's (gridDim.x, 3) partial sums.
+template <int NS, class Op, bool Tele>
 __global__ void __launch_bounds__(THREADS)
 update_kernel(Op op, float* __restrict__ p, const float* __restrict__ g,
               float* __restrict__ s0, float* __restrict__ s1, long long n,
               const float* __restrict__ lr_ptr, const unsigned char* __restrict__ bad,
-              int vec) {
-  if (bad != nullptr && *bad != 0) return;  // rescued step: write nothing
+              int vec, float* __restrict__ tele) {
+  const bool gated = bad != nullptr && *bad != 0;
+  if (!Tele && gated) return;  // rescued step: write nothing
   const float lr = *lr_ptr;
   const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  Sums sums;
   long long tail = 0;
   if (vec) {
     const long long n4 = n >> 2;
@@ -94,6 +151,14 @@ update_kernel(Op op, float* __restrict__ p, const float* __restrict__ g,
     for (long long i = first; i < n4; i += stride) {
       float4 pv = p4[i];
       const float4 gv = g4[i];
+      if (Tele) {
+        sums.before(pv.x, gv.x);
+        sums.before(pv.y, gv.y);
+        sums.before(pv.z, gv.z);
+        sums.before(pv.w, gv.w);
+        if (gated) continue;
+      }
+      const float4 old = pv;
       float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
       if (NS > 0) av = a4[i];
       if (NS > 1) bv = b4[i];
@@ -104,26 +169,41 @@ update_kernel(Op op, float* __restrict__ p, const float* __restrict__ g,
       p4[i] = pv;
       if (NS > 0) a4[i] = av;
       if (NS > 1) b4[i] = bv;
+      if (Tele) {
+        sums.after(old.x, pv.x);
+        sums.after(old.y, pv.y);
+        sums.after(old.z, pv.z);
+        sums.after(old.w, pv.w);
+      }
     }
     tail = n4 << 2;
   }
   for (long long i = tail + first; i < n; i += stride) {
     float pv = p[i], av = 0.f, bv = 0.f;
+    const float gv = g[i];
+    if (Tele) {
+      sums.before(pv, gv);
+      if (gated) continue;
+    }
+    const float old = pv;
     if (NS > 0) av = s0[i];
     if (NS > 1) bv = s1[i];
-    op(lr, pv, g[i], av, bv);
+    op(lr, pv, gv, av, bv);
     p[i] = pv;
     if (NS > 0) s0[i] = av;
     if (NS > 1) s1[i] = bv;
+    if (Tele) sums.after(old, pv);
   }
+  if (Tele) block_sums(sums, tele + 3 * (long long)blockIdx.x);
 }
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 template <int NS, class Op>
 int launch(const Op& op, float* p, const float* g, float* s0, float* s1, long long n,
-           const float* lr, const unsigned char* bad, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+           const float* lr, const unsigned char* bad, float* tele, int tele_blocks,
+           void* stream) {
+  if (n <= 0 || (tele != nullptr && tele_blocks <= 0)) return (int)cudaErrorInvalidValue;
   const int vec = aligned16(p) && aligned16(g) && (NS < 1 || aligned16(s0)) &&
                   (NS < 2 || aligned16(s1));
   const long long work = vec ? (n + 3) / 4 : n;
@@ -132,10 +212,16 @@ int launch(const Op& op, float* p, const float* g, float* s0, float* s1, long lo
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   long long blocks = (work + THREADS - 1) / THREADS;
-  const long long cap = (long long)sms * BLOCKS_PER_SM;
+  const long long cap = tele != nullptr ? tele_blocks : (long long)sms * BLOCKS_PER_SM;
   if (blocks > cap) blocks = cap;
-  update_kernel<NS, Op><<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      op, p, g, s0, s1, n, lr, bad, vec);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tele != nullptr) {
+    update_kernel<NS, Op, true><<<(unsigned)blocks, THREADS, 0, s>>>(op, p, g, s0, s1, n, lr,
+                                                                       bad, vec, tele);
+  } else {
+    update_kernel<NS, Op, false><<<(unsigned)blocks, THREADS, 0, s>>>(op, p, g, s0, s1, n, lr,
+                                                                        bad, vec, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -143,23 +229,29 @@ int launch(const Op& op, float* p, const float* g, float* s0, float* s1, long lo
 
 // Each entry launches on `stream` and returns the cudaError_t of the launch.
 // `lr` points at one f32 on the device (lr_t for Adam); `bad` at one bool, or
-// is null when the update is not gated.
+// is null when the update is not gated; `tele` at the parameter's
+// (tele_blocks, 3) f32 partial sums for the telemetry variant, or is null.
 
 extern "C" int paddle_fused_sgd(float* p, const float* g, long long n, const float* lr,
-                                const unsigned char* bad, float wd, int decay, void* stream) {
-  return launch<0>(SgdOp{wd, decay}, p, g, nullptr, nullptr, n, lr, bad, stream);
+                                const unsigned char* bad, float wd, int decay, float* tele,
+                                int tele_blocks, void* stream) {
+  return launch<0>(SgdOp{wd, decay}, p, g, nullptr, nullptr, n, lr, bad, tele, tele_blocks,
+                   stream);
 }
 
 extern "C" int paddle_fused_momentum(float* p, const float* g, float* v, long long n,
                                      const float* lr, const unsigned char* bad, float mu,
-                                     int nesterov, float wd, int decay, void* stream) {
-  return launch<1>(MomentumOp{mu, wd, nesterov, decay}, p, g, v, nullptr, n, lr, bad, stream);
+                                     int nesterov, float wd, int decay, float* tele,
+                                     int tele_blocks, void* stream) {
+  return launch<1>(MomentumOp{mu, wd, nesterov, decay}, p, g, v, nullptr, n, lr, bad, tele,
+                   tele_blocks, stream);
 }
 
 extern "C" int paddle_fused_adam(float* p, const float* g, float* m, float* v, long long n,
                                  const float* lr_t, const unsigned char* bad, float b1,
                                  float one_minus_b1, float b2, float one_minus_b2, float eps,
-                                 float wd, int decay, void* stream) {
+                                 float wd, int decay, float* tele, int tele_blocks,
+                                 void* stream) {
   return launch<2>(AdamOp{b1, one_minus_b1, b2, one_minus_b2, eps, wd, decay}, p, g, m, v, n,
-                   lr_t, bad, stream);
+                   lr_t, bad, tele, tele_blocks, stream);
 }

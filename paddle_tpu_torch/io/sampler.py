@@ -9,9 +9,9 @@ from the host sampling stream (``core.random.host_draw``): after
 ``paddle.seed(s)`` their first iteration gives the JAX sampler's order for
 the same seed, and each further iteration draws anew.
 
-Deliberate difference: ``GlobalStepSampler`` does not register with the
-profiler's sample attribution, which waits for ``profiler.attribution``
-(ROADMAP, open items, queue 1 item 12).
+``GlobalStepSampler`` registers with the profiler's sample attribution
+(``profiler.attribution.register_sampler``, weakly): a postmortem's triage
+names the last batch's sample ids from the step number alone.
 """
 from __future__ import annotations
 
@@ -293,6 +293,15 @@ class GlobalStepSampler(Sampler):
         self.cursor = 0  # next global step to consume
         self._perm_cache = (None, None)  # (epoch, permutation)
         self.set_world(rank, world)
+        # the batch of step s is a pure function of (seed, epoch, s), so a
+        # postmortem names the offending batch's samples from the step
+        # number alone; weak, and the latest sampler wins
+        try:
+            from ..profiler import attribution as _attribution
+
+            _attribution.register_sampler(self)
+        except Exception:
+            pass
 
     # -- geometry --------------------------------------------------------
     @property

@@ -47,7 +47,15 @@ around the static input buffers, so no cell outlives a replay.
 On the CPU the same step function runs eagerly on every call. That is the
 path the tests take, not a fallback: there is no graph on the CPU.
 
-Not ported yet (ROADMAP, open items, queue 1 items 12 and 13): meshes and
+The ops plane: a captured step registers with the attribution registry as
+``captured:<sig>``, its IR recorded during the capture, and feeds it each
+replay's device ms (the replay's CUDA event pair, read at the next replay).
+Under FLAGS_telemetry the update computes the fused telemetry rows
+(``apply_update(telemetry=True)``, the rule path) and the step hands them
+to the lagged reader (``profiler.attribution.push_telemetry``); the flag
+keys the graph.
+
+Not ported yet (ROADMAP, open items, queue 1 items 12b and 13): meshes and
 input shardings, and the memory plan.
 """
 from __future__ import annotations
@@ -58,7 +66,9 @@ import torch
 
 from ..core import cuda_graphs, dispatch
 from ..core import random as _random
+from .. import analysis
 from ..optimizer.optimizer import apply_update
+from ..profiler import attribution as _attribution
 
 __all__ = ["CompiledTrainStep", "compile_train_step"]
 
@@ -74,6 +84,9 @@ class _Captured:
         self.graph = None  # a cuda_graphs.Graph
         self.inputs = None
         self.out = None
+        self.tele = None  # the graph's fused telemetry vector (FLAGS_telemetry)
+        self.key = None  # the attribution key, captured:<sig>
+        self.timing = None  # (start, end) CUDA events of the last replay
 
     @property
     def pairs(self):
@@ -100,8 +113,9 @@ class CompiledTrainStep:
 
     def _step_fn(self, batch, lr, states, as_tensors=False):
         """The whole step: loss, gradients, then the in-place update. Returns
-        the loss and the gradients of the ``grad_input_idx`` batch inputs.
-        With ``as_tensors`` the model and the loss function get Paddle
+        the loss and the gradients of the ``grad_input_idx`` batch inputs,
+        and the update's fused telemetry rows under FLAGS_telemetry (else
+        None). With ``as_tensors`` the model and the loss function get Paddle
         Tensors over the batch's torch tensors."""
         model = self.model
         batch = list(batch)
@@ -127,9 +141,10 @@ class CompiledTrainStep:
         clip = self.optimizer._grad_clip
         if clip is not None:
             grads = [g for _, g in clip(list(zip(self._params, grads)))]
-        apply_update(self.optimizer, self._params, grads, lr, states)
+        tele = apply_update(self.optimizer, self._params, grads, lr, states,
+                            telemetry=_attribution.telemetry_active())
         in_grads = [torch.zeros_like(x) if g is None else g for x, g in zip(diff, in_grads)]
-        return loss.detach(), in_grads
+        return loss.detach(), in_grads, tele
 
     def _device(self):
         return self._params[0].device if self._params else torch.device("cpu")
@@ -140,10 +155,12 @@ class CompiledTrainStep:
         batch = [torch.as_tensor(dispatch.unwrap(b)).to(device) for b in batch]
         states = self._states()
         if device.type == "cuda":
-            loss, in_grads = self._cuda_step(device, batch, states, as_tensors)
+            loss, in_grads, tele = self._cuda_step(device, batch, states, as_tensors)
         else:
             lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32, device=device)
-            loss, in_grads = self._step_fn(batch, lr, states, as_tensors)
+            loss, in_grads, tele = self._step_fn(batch, lr, states, as_tensors)
+        if tele is not None:  # recorded at the next step (the lagged reader)
+            _attribution.push_telemetry(_attribution.group_names(self._params), tele)
         self.optimizer._step_count += 1
         if as_tensors:
             loss, in_grads = dispatch.wrap(loss), dispatch.wrap(list(in_grads))
@@ -155,7 +172,9 @@ class CompiledTrainStep:
         if self._lr is None:
             self._lr = torch.empty((), dtype=torch.float32, device=device)
         self._lr.fill_(self.optimizer.get_lr())
-        sig = (as_tensors,) + tuple((tuple(b.shape), b.dtype, b.device) for b in batch)
+        # the fused telemetry changes the captured program: it keys the graph
+        sig = (as_tensors, _attribution.telemetry_active()) + tuple(
+            (tuple(b.shape), b.dtype, b.device) for b in batch)
         entry = self._captured.setdefault(sig, _Captured())
         if entry.graph is None and entry.eager_steps < WARMUP_STEPS:
             with _random.counting_segments() as seen:
@@ -167,14 +186,30 @@ class CompiledTrainStep:
         if entry.graph is None:
             entry.inputs = [b.clone() for b in batch]
             graph = cuda_graphs.Graph(device)
-            with graph.capture(segments=entry.segments):
+            entry.key = f"captured:{hash(sig) & 0xFFFF:04x}"
+            # the capture's own run is recorded: the program's IR for the
+            # attribution registry
+            with analysis.recording(entry.key) as rec, graph.capture(segments=entry.segments):
                 entry.out = self._step_fn(entry.inputs, self._lr, states, as_tensors)
             entry.graph = graph
+            _attribution.register(entry.key, "captured",
+                                  ir_thunk=lambda _p=rec.program: _p)
         cuda_graphs.copy_in(entry.inputs, batch)
+        # the last replay's device ms (its CUDA events, read here at the next
+        # one when done, so the step never waits for them)
+        if entry.timing is None:
+            entry.timing = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+        elif entry.timing[1].query():
+            _attribution.note_run(entry.key, "captured",
+                                  entry.timing[0].elapsed_time(entry.timing[1]))
+        entry.timing[0].record()
         entry.graph.replay()
-        # the static outputs are overwritten by the next replay: hand out copies
-        loss, in_grads = entry.out
-        return loss.clone(), [g.clone() for g in in_grads]
+        entry.timing[1].record()
+        # the static outputs are overwritten by the next replay: hand out
+        # copies (the lagged reader copies the telemetry behind an event)
+        loss, in_grads, tele = entry.out
+        return loss.clone(), [g.clone() for g in in_grads], tele
 
 
 def compile_train_step(model, loss_fn, optimizer, mesh=None, in_shardings=None,

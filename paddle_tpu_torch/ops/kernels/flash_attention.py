@@ -52,6 +52,7 @@ import math
 
 import torch
 
+from ...analysis import kernel_region
 from . import _build
 
 NEG_INF = -1e30
@@ -308,6 +309,18 @@ def _fwd_cuda(q, k, v, scale: float, causal: bool, route: str):
     return o, lse
 
 
+def attention_flops(q, causal: bool, matmuls: int) -> int:
+    """FLOPs of ``matmuls`` (s x s x d) products per head, the work of one
+    flash kernel: the forward does 2 (S = QK^T, PV), dK/dV 4 (S, dV, dP,
+    dK), dQ 3 (S, dP, dQ); a causal mask skips the blocks above the
+    diagonal, so it needs (s + 1) / 2s of it. This is what the analysis IR
+    charges a kernel launch (a ``ctypes`` launch is invisible to its
+    recorder)."""
+    b, s, h, d = q.shape
+    full = 2 * matmuls * b * h * s * s * d
+    return int(full * (s + 1) / (2 * s)) if causal else full
+
+
 def _fake(t) -> bool:
     """A FakeTensor: lazy dispatch infers a deferred call's output specs by
     running it on fake tensors (``core/lazy.py``); a wrapper then gives
@@ -324,11 +337,15 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool):
     if _fake(q):
         b, s, h, _ = q.shape
         return torch.empty_like(q), torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if q.device.type == "cuda":
-        return _fwd_cuda(q, k, v, scale, causal, _fwd_route((q, k, v)))
-    if q.device.type == "cpu":
-        return fwd_plain(q, k, v, scale, causal)
-    raise RuntimeError(f"flash_attention_fwd: no kernel for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"flash_attention_fwd: no kernel for device {q.device}")
+    with kernel_region() as region:
+        if q.device.type == "cuda":
+            out = _fwd_cuda(q, k, v, scale, causal, _fwd_route((q, k, v)))
+        else:
+            out = fwd_plain(q, k, v, scale, causal)
+    region.note("flash_attention_fwd", (q, k, v), out, attention_flops(q, causal, 2))
+    return out
 
 
 flash_attention_fwd.launches = 0
@@ -365,12 +382,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool)
     _check_shapes("flash_attention_bwd_dkv", (q, k, v, do))
     if _fake(q):
         return torch.empty_like(k), torch.empty_like(v)
-    if q.device.type == "cuda":
-        return _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
-                              _bwd_route((q, k, v, do)))
-    if q.device.type == "cpu":
-        return bwd_plain(q, k, v, do, lse, delta, scale, causal)[1:]
-    raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"flash_attention_bwd_dkv: no kernel for device {q.device}")
+    with kernel_region() as region:
+        if q.device.type == "cuda":
+            out = _bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal,
+                                _bwd_route((q, k, v, do)))
+        else:
+            out = bwd_plain(q, k, v, do, lse, delta, scale, causal)[1:]
+    region.note("flash_attention_bwd_dkv", (q, k, v, do, lse, delta), out,
+                attention_flops(q, causal, 4))
+    return out
 
 
 flash_attention_bwd_dkv.launches = 0
@@ -406,12 +428,17 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     _check_shapes("flash_attention_bwd_dq", (q, k, v, do))
     if _fake(q):
         return torch.empty_like(q)
-    if q.device.type == "cuda":
-        return _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
-                            _bwd_route((q, k, v, do)))
-    if q.device.type == "cpu":
-        return bwd_plain(q, k, v, do, lse, delta, scale, causal)[0]
-    raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"flash_attention_bwd_dq: no kernel for device {q.device}")
+    with kernel_region() as region:
+        if q.device.type == "cuda":
+            out = _bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal,
+                               _bwd_route((q, k, v, do)))
+        else:
+            out = bwd_plain(q, k, v, do, lse, delta, scale, causal)[0]
+    region.note("flash_attention_bwd_dq", (q, k, v, do, lse, delta), out,
+                attention_flops(q, causal, 3))
+    return out
 
 
 flash_attention_bwd_dq.launches = 0
@@ -434,7 +461,10 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         delta = bwd_delta(o, do)
         if q.device.type == "cpu":  # one dense pass for all three gradients
-            dq, dk, dv = bwd_plain(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+            with kernel_region() as region:
+                dq, dk, dv = bwd_plain(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+            region.note("flash_attention_bwd", (q, k, v, do, lse, delta), (dq, dk, dv),
+                        attention_flops(q, ctx.causal, 5))
         else:
             dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
             dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)

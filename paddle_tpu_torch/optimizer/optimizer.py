@@ -35,8 +35,13 @@ first flushes the pending lazy segment and observes the step, or runs a
 deferred step as one captured program, in which case ``step()`` only
 counts it. The captured program runs ``_update_params``, the same clip
 and update as the eager step, with the learning rate from a device scalar.
-Not ported yet (ROADMAP, open items, queue 1 item 12): the offload hooks
-of ``step()`` and the fused telemetry output.
+
+With ``FLAGS_telemetry`` the update also gives the fused numerics
+telemetry (``make_fused_update(telemetry=True)``), recorded by
+``profiler.attribution``: read with the rescue sentinel when
+``FLAGS_numeric_rescue`` is set (one synchronisation), else handed to the
+lagged reader (no synchronisation; recorded one step late). Not ported yet
+(ROADMAP, open items, queue 1 item 12b): the offload hooks of ``step()``.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import torch
 
 from .. import profiler
 from ..core import lazy as _lazy
+from ..profiler import attribution as _attribution
 from ..ops.kernels import fused_update as _fu
 from ..ops.nn_ops import promoted
 from ..resilience import faults as _faults
@@ -88,6 +94,35 @@ def _rule_update(opt, p, g, lr, st, hyper, bad=None):
             st[key] = value
 
 
+def _leaf_of(p):
+    """The torch tensor an optimizer updates for ``p``: itself, or the leaf a
+    ``paddle.Tensor`` holds."""
+    return p if isinstance(p, torch.Tensor) else p._grad_holder()
+
+
+class _RuleTelemetry:
+    """The telemetry rows of parameters the rule updates, in few launches:
+    the grads' and the parameters' norms by one multi-tensor launch each
+    before the updates, then per parameter the applied update's norm from a
+    copy made just before its update (freed right after, so a capture's
+    pool reuses one parameter-sized buffer); ``rows()`` squares the three
+    columns at once. Each norm is an f32 sum of squares, as
+    ``fused_update.telemetry_plain``'s."""
+
+    def __init__(self, params, grads):
+        f32 = torch.float32
+        self.g = torch._foreach_norm(list(grads), 2, dtype=f32)
+        self.p = torch._foreach_norm(list(params), 2, dtype=f32)
+        self.d = [None] * len(self.g)
+
+    def applied(self, i, old, new):
+        self.d[i] = torch.linalg.vector_norm(new - old, dtype=torch.float32)
+
+    def rows(self):
+        return torch.square(torch.stack(
+            [torch.stack(self.g), torch.stack(self.p), torch.stack(self.d)], dim=1))
+
+
 def _check_not_capturing(p, dtype):
     if p.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
@@ -97,20 +132,26 @@ def _check_not_capturing(p, dtype):
 
 
 @torch.no_grad()
-def apply_update(opt, params, grads, lr, states):
+def apply_update(opt, params, grads, lr, states, telemetry=False):
     """One update of ``params`` by ``opt``'s rule, in place.
 
     ``grads[i]`` None counts as a zero gradient, as ``jax.grad`` gives for an
     unused parameter; a gradient of another dtype is cast to the
     parameter's. ``lr`` is a 0-d float32 tensor; ``states[i]`` is the state
-    dict of ``params[i]``, overwritten in place."""
+    dict of ``params[i]``, overwritten in place. With ``telemetry`` it
+    returns the ``(n_params, 3)`` telemetry rows of ``make_fused_update``,
+    each from a copy of its parameter made just before its update and freed
+    just after; otherwise None."""
     hyper = opt._hyper()
-    for p, g, st in zip(params, grads, states):
-        if g is None:
-            g = torch.zeros_like(p)
-        if g.dtype != p.dtype:
-            g = g.to(p.dtype)
+    grads = [torch.zeros_like(p) if g is None else g.to(p.dtype) for p, g in zip(params, grads)]
+    tele = _RuleTelemetry(params, grads) if telemetry and params else None
+    for i, (p, g, st) in enumerate(zip(params, grads, states)):
+        old = p.clone() if tele is not None else None
         _rule_update(opt, p, g, lr, st, dict(hyper, **opt._per_param_hyper(p)))
+        if tele is not None:
+            tele.applied(i, old, p)
+            del old
+    return None if tele is None else tele.rows()
 
 
 def make_fused_update(opt, params, sentinel=False, telemetry=False):
@@ -125,12 +166,18 @@ def make_fused_update(opt, params, sentinel=False, telemetry=False):
     over every grad into one 0-d device bool and returns it: the kernel
     gates its own writes on it, and the rule's results are where-gated, so
     a non-finite step leaves every parameter and state tensor as it was.
-    Without the sentinel it returns None. ``telemetry`` is not ported."""
-    if telemetry:
-        raise NotImplementedError(
-            "make_fused_update(telemetry=True) is not ported yet (ROADMAP, open "
-            "items, queue 1 item 12: the profiler's fused numerics telemetry)"
-        )
+    Without the sentinel it returns None.
+
+    With ``telemetry=True`` it returns ``(bad, tele)``: ``tele`` is the
+    ``(n_params, 3)`` f32 vector of per-parameter sums of squares of the
+    cast grad, the parameter before the update and the applied update
+    (0 on a gated step), the JAX applier's telemetry output. A kernel
+    parameter's sums come from the fused-update kernels' telemetry variant
+    (partial sums per block into a zeroed ``(n_params, blocks, 3)`` buffer);
+    a rule parameter's from torch ops over a copy of the parameter made
+    just before its update and freed just after; one sum over the blocks
+    gives the rows. The update itself is untouched, so the step is
+    bitwise the same with telemetry off."""
     hypers = [dict(opt._hyper(), **opt._per_param_hyper(p)) for p in params]
     kind = _fu.rule_kind(type(opt)) if _fu.enabled() else None
 
@@ -141,15 +188,41 @@ def make_fused_update(opt, params, sentinel=False, telemetry=False):
             bad = torch.zeros((), dtype=torch.bool, device=lr.device)
             for g in grads:
                 bad = bad | ~torch.isfinite(g).all()
-        for p, g, st, hy in zip(params, grads, states, hypers):
-            if g.dtype != p.dtype:
-                g = g.to(p.dtype)
-            if kind is not None and _fu.supported(kind, p, g, st):
+        grads = [g if g.dtype == p.dtype else g.to(p.dtype) for p, g in zip(params, grads)]
+        fused = [kind is not None and _fu.supported(kind, p, g, st)
+                 for p, g, st in zip(params, grads, states)]
+        partials = rule = None
+        if telemetry:
+            n_fused = sum(fused)
+            if n_fused:
+                partials = torch.zeros((n_fused, _fu.telemetry_blocks(lr.device), 3),
+                                       dtype=torch.float32, device=lr.device)
+            if n_fused < len(params):
+                rule = _RuleTelemetry([p for p, f in zip(params, fused) if not f],
+                                      [g for g, f in zip(grads, fused) if not f])
+        k = r = 0
+        for p, g, st, hy, f in zip(params, grads, states, hypers, fused):
+            if f:
                 # gated inside the kernel: not gated again here
-                _fu.param_update(kind, p, g, lr, st, hy, wd=opt._weight_decay, bad=bad)
-            else:
+                _fu.param_update(kind, p, g, lr, st, hy, wd=opt._weight_decay, bad=bad,
+                                 tele=None if partials is None else partials[k])
+                k += 1
+            elif rule is None:
                 _rule_update(opt, p, g, lr, st, hy, bad)
-        return bad
+            else:
+                old = p.clone()
+                _rule_update(opt, p, g, lr, st, hy, bad)
+                rule.applied(r, old, p)
+                del old
+                r += 1
+        if not telemetry:
+            return bad
+        fused_rows = None if partials is None else partials.sum(dim=1)
+        rule_rows = None if rule is None else rule.rows()
+        if rule_rows is None or fused_rows is None:
+            return bad, fused_rows if rule_rows is None else rule_rows
+        it_f, it_r = iter(fused_rows), iter(rule_rows)  # back in the parameters' order
+        return bad, torch.stack([next(it_f) if f else next(it_r) for f in fused])
 
     return apply
 
@@ -167,7 +240,10 @@ class Optimizer:
         self._lr = (learning_rate if isinstance(learning_rate, LRScheduler)
                     else float(learning_rate))
         self._grad_clip = grad_clip
-        self._parameters = list(parameters) if parameters is not None else None
+        # a Paddle Tensor made trainable (``stop_gradient=False``) updates
+        # through the torch leaf it holds, as a Parameter does
+        self._parameters = ([_leaf_of(p) for p in parameters] if parameters is not None
+                            else None)
         self._weight_decay = self._parse_wd(weight_decay)
         # per-parameter optimizer state: id(param) -> dict[str, torch.Tensor]
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
@@ -266,18 +342,35 @@ class Optimizer:
             profiler.count("injected_faults")
             grads[0] = torch.full_like(grads[0], float("nan"))
         sentinel = _rescue.active()
+        telemetry = _attribution.telemetry_active()
         states = [self._state_of(p) for p in params]
         # a fill on the device, not a copy from the host: nothing here
         # waits for the card
         if lr is None:
             lr = torch.full((), self.get_lr(), dtype=torch.float32, device=params[0].device)
-        update = make_fused_update(self, params, sentinel=sentinel)
+        update = make_fused_update(self, params, sentinel=sentinel, telemetry=telemetry)
         # the kernels write p, m and v IN PLACE, where the JAX update is
         # pure: a real fault after the launch may have applied part of the
         # update, so it must propagate, never re-run (retry_unsafe). An
         # injected fault is raised before the launch and still retries.
-        bad = _rrt.execute("optimizer", lambda: update(params, grads, lr, states),
+        out = _rrt.execute("optimizer", lambda: update(params, grads, lr, states),
                            retry_unsafe=True)
+        bad, tele = out if telemetry else (out, None)
+        if tele is not None:
+            names = _attribution.group_names(params)
+            if tele.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                # inside a step capture: the captured step hands the graph's
+                # vector to the lagged reader after every replay
+                self._captured_telemetry = (names, tele)
+            elif bad is not None:
+                # one synchronisation for both: the telemetry is recorded
+                # BEFORE the rescue policy, so a rescue postmortem's tail
+                # already carries the spike event
+                host = torch.cat([tele.reshape(-1), bad.reshape(1).to(tele.dtype)]).cpu()
+                _attribution.record_telemetry(names, host[:-1])
+                bad = host[-1] != 0
+            else:
+                _attribution.push_telemetry(names, tele)
         if bad is not None:
             # the one host read of the step: applies skip / lr_backoff / abort
             _rescue.handle_sentinel(self, bad)

@@ -4,6 +4,11 @@ port of ``paddle_tpu/profiler/trace.py``.
 A bounded in-memory ring of structured runtime events
 ``{ts, kind, site, step, attrs}`` emitted at the port's choke points:
 
+  program          every program run, by category
+                   (op/segment/backward/optimizer/captured)
+  flush            a lazy-segment flush: reason, cache hit/miss
+  capture          whole-step capture build/replay/fallback WITH REASON
+  serve_capture    a serving bucket program built
   fault / retry    every resilience event: classification, attempt,
                    backoff, disruptive verdict (resilience/runtime.py)
   ladder           degradation-ladder demotions and re-promotions
@@ -14,19 +19,21 @@ A bounded in-memory ring of structured runtime events
   stall            the step-stall watchdog fired
   preempt          a preemption signal reached the step boundary
   postmortem       a postmortem file was written
+  perf_regression  a sentinel key tripped or cleared (profiler/sentinel.py)
+  telemetry        one step's fused numerics telemetry (attribution.py)
+  diag             the diagnostics server started
 
 The ring (``FLAGS_trace_ring_size``, default on) is a ``deque(maxlen=N)``:
 append is O(1); with the flag at 0 the emit fast path is a single dict
 read. ``chrome_trace_events`` turns events into chrome-trace instants and
 per-request async lanes. Crash postmortems dump the event tail, the
-dispatch counters and latency histograms, the card's allocator figures and
-the resilience state to ``FLAGS_postmortem_dir`` as JSON.
+unified metrics snapshot, the card's allocator figures, the resilience
+state and the attribution triage to ``FLAGS_postmortem_dir`` as JSON.
 
 Host code throughout. The watchdog thread reads only ``perf_counter_ns``
 and calls listeners; the postmortems it dumps leave the memory section
-``None`` rather than query the card from a second thread. The attribution
-section stays ``None`` until the attribution layer is ported (ROADMAP
-queue 1 item 12).
+``None`` rather than query the card from a second thread. Every postmortem
+carries the attribution layer's triage section (``attribution``).
 """
 from __future__ import annotations
 
@@ -278,25 +285,6 @@ def _prune_postmortems(directory: str, keep_path: Optional[str] = None):
         pass  # pruning must never fail the dump that triggered it
 
 
-def _metrics_snapshot() -> Dict[str, Any]:
-    """The dispatch counters and every registered latency histogram's count
-    and p50/p99 (the port's metrics registry holds histograms only)."""
-    from .. import profiler
-
-    reg = profiler.metrics.default_registry()
-    with reg._lock:
-        hists = dict(reg._metrics)
-    return {
-        "counters": {k: (dict(v) if hasattr(v, "items") else v)
-                     for k, v in profiler.dispatch_counters().items()},
-        "histograms": {
-            name + "".join(f"{{{k}={v}}}" for k, v in labels): {
-                "count": h.count, "p50": h.quantile(0.5), "p99": h.quantile(0.99)}
-            for (name, labels), h in hists.items()
-        },
-    }
-
-
 def _memory_snapshot() -> Optional[Dict[str, Any]]:
     """The caching allocator's figures for the current card, or None when
     the process has not touched CUDA (a CPU run)."""
@@ -332,8 +320,11 @@ def _build_postmortem(reason, exc, attrs, memory: bool) -> Dict[str, Any]:
         }
     tail = int(_flags.flag("postmortem_events"))
     doc["events"] = [e.as_dict() for e in events(last=max(0, tail))]
+    # unified metrics: registry-native + the adopted dispatch counters
     try:
-        doc["metrics"] = _metrics_snapshot()
+        from . import metrics as _metrics
+
+        doc["metrics"] = _metrics.snapshot(include_dispatch=True)
     except Exception:
         doc["metrics"] = None
     try:
@@ -346,7 +337,16 @@ def _build_postmortem(reason, exc, attrs, memory: bool) -> Dict[str, Any]:
         doc["resilience"] = _rt.state()
     except Exception:
         doc["resilience"] = None
-    doc["attribution"] = None  # the attribution layer is not ported (item 12)
+    # spike auto-triage (profiler.attribution): which program key's measured
+    # EMA moved (and the sentinel-tripped keys), which parameter group's
+    # grad-norm broke trend, and the batch's sample ids from the registered
+    # GlobalStepSampler
+    try:
+        from . import attribution as _attribution
+
+        doc["attribution"] = _attribution.triage_section()
+    except Exception:
+        doc["attribution"] = None
     return doc
 
 

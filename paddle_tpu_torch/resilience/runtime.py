@@ -28,8 +28,8 @@ The eager tiers form the ladder captured → lazy → per-op
 the per-op path, ``lazy_tier_ok``), a captured step's replay at site
 ``captured``, keyed by its step signature (a demoted signature is not
 armed again until its cooldown ends, and its steps run on the 3-program
-path). Not ported: the perf sentinel's and attribution's step laps of
-``on_step_end`` (ROADMAP queue 1 item 12).
+path). ``on_step_end`` is also the step lap of the perf sentinel and of
+the attribution layer (``train[<sig>]`` / ``serve[<uid>]`` keys).
 """
 from __future__ import annotations
 
@@ -173,6 +173,30 @@ def on_step_end(source: str = "train"):
     faults.advance_step()
     _ladder.degradation_ladder().step_end()
     _trace.step_heartbeat(source)
+    # the perf-regression sentinel's and the attribution registry's lap
+    # (paddle_tpu/resilience/runtime.py:183-215): a captured training step
+    # laps under its armed signature, so a re-captured step re-baselines
+    try:
+        key = source
+        if source == "train":
+            from ..core import lazy as _lazy
+
+            sig = _lazy.step_signature_id()
+            if sig is not None:
+                key = f"train[{sig}]"
+        # inner try: an attribution failure must not cost the sentinel its lap
+        try:
+            from ..profiler import attribution as _attribution
+
+            _attribution.step_lap(key)
+        except Exception:
+            pass
+        from ..profiler import sentinel as _sentinel
+
+        if _sentinel.PerfSentinel.enabled():
+            _sentinel.default_sentinel().lap(key)
+    except Exception:
+        pass  # the sentinel must never break the step boundary
 
 
 def state() -> dict:

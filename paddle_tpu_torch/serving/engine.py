@@ -54,9 +54,14 @@ Overload robustness wraps that loop in three layers:
               unhealthy replica, restart a wedged engine, or fail cleanly.
 
 Every request phase, health transition and restart is a ``serve`` event in
-the flight recorder (``profiler.trace``). Not ported yet: the
-planner-budgeted pool (raises NotImplementedError naming ROADMAP queue 1
-item 12), and the perf sentinel and the diagnostics server (item 12).
+the flight recorder (``profiler.trace``). The ops plane: an engine
+registers with the diagnostics server (``profiler.diag``: /healthz and
+/readyz aggregate its health), feeds the perf sentinel its decode steps
+(``serve_decode[<uid>:<BxN>]``, the step's CUDA event pair on the card) and
+queue waits (``serve_queue_wait[<uid>]``), and feeds the attribution
+registry its bucket programs (``serve:<kind>:<uid>:<bucket>:<blocks>``);
+``close()`` retires all of them. Not ported yet: the planner-budgeted pool
+(raises NotImplementedError naming ROADMAP queue 1 item 12b).
 """
 from __future__ import annotations
 
@@ -101,7 +106,7 @@ _DEGRADED_COOLDOWN_TICKS = 8
 _TIMING_WINDOW = 1 << 14
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP, open items, queue 1 item {item})")
 
@@ -119,6 +124,12 @@ def _prefill_pick(logits, plen):
     idx = (plen - 1)[:, None, None].expand(-1, 1, logits.shape[-1])
     row = torch.gather(logits, 1, idx)[:, 0]
     return row, torch.argmax(row, dim=-1)
+
+
+def _sentinel():
+    from ..profiler import sentinel
+
+    return sentinel.default_sentinel()
 
 
 def _feed(rows) -> torch.Tensor:
@@ -233,7 +244,7 @@ class Engine:
             if float(flags.flag("memory_budget_mb")) > 0:
                 raise _not_ported(
                     "a KV block pool sized from FLAGS_memory_budget_mb (the "
-                    "memory planner; set ServingConfig.num_blocks instead)", 12)
+                    "memory planner; set ServingConfig.num_blocks instead)", "12b")
             num_blocks = default_num_blocks()
         device = next(model.parameters()).device
         self._pool = BlockPool(
@@ -293,6 +304,14 @@ class Engine:
         self._last_restart_error: Optional[str] = None
         # the rung that completed the last step (StepTiming.rung)
         self._rung = "captured"
+        # attribution keys seen: a key's first step builds its program and
+        # is not a measured run
+        self._noted = set()
+        # the diagnostics server aggregates every live engine's health into
+        # /healthz and /readyz (weakly referenced; close() unregisters)
+        from ..profiler import diag as _diag
+
+        _diag.register_engine(self)
 
     # ------------------------------------------------------------------
     # step functions (shared by all three execution rungs)
@@ -629,11 +648,27 @@ class Engine:
         heartbeat down. Safe to call twice."""
         from ..core.lazy import reset_serve_programs
 
+        from ..profiler import attribution as _attribution
+        from ..profiler import diag as _diag
+        from ..profiler import sentinel as _sentinel
+
         self.uninstall_preemption_handler()
+        _diag.unregister_engine(self)
         _trace.watchdog_disarm(f"serve[{self._uid}]")
         reset_serve_programs(owner=self._uid)
         profiler.metrics.default_registry().remove(
             "serve_token_lat_ms", labels={"engine": str(self._uid)})
+        # a closed engine's keys get no further observations: a tripped one
+        # could never clear, and per-engine state must not grow with churn
+        _sentinel.retire(f"serve[{self._uid}]")
+        _sentinel.retire(f"serve_decode[{self._uid}:")
+        _sentinel.retire(f"serve_queue_wait[{self._uid}]")
+        try:
+            _attribution.retire(f"serve:prefill:{self._uid}:")
+            _attribution.retire(f"serve:decode:{self._uid}:")
+            _attribution.retire(f"serve[{self._uid}]")
+        except Exception:
+            pass
         self._admission.close()
         self._health = "dead"
 
@@ -859,8 +894,9 @@ class Engine:
                 # backpressure: wait for a completion to free blocks
                 self._queue.push_front(req)
                 return
-            self._admission.note_queue_wait(
-                (self._now() - req.submit_time) * 1000.0)
+            wait_ms = (self._now() - req.submit_time) * 1000.0
+            self._admission.note_queue_wait(wait_ms)
+            _sentinel().observe(f"serve_queue_wait[{self._uid}]", wait_ms)
             seq = Sequence(req, blocks, n_blk)
             try:
                 self._prefill(seq)
@@ -955,6 +991,12 @@ class Engine:
                     rids=tuple(s.req.request_id for s in ready), batch=B,
                     blocks=n_blk, ms=round(step_ms, 3))
         self._admission.note_decode(step_ms, len(ready))
+        # one regression baseline per decode bucket, on the step's device
+        # time (its CUDA events, read with the tokens) on the card
+        timing = self._timings[-1] if self._timings else None
+        dev_ms = timing.device_ms if timing is not None else None
+        _sentinel().observe(f"serve_decode[{self._uid}:{B}x{n_blk}]",
+                            step_ms if dev_ms is None else dev_ms)
         now = self._now()
         for i, s in enumerate(ready):
             tok = int(out[i])
@@ -996,14 +1038,34 @@ class Engine:
         nxt = nxt.cpu().numpy()
         row = row.cpu().numpy() if self._keep_logits else None
         end = time.perf_counter()
+        device_ms = self._events[0].elapsed_time(self._events[1]) if self._events else None
         self._timings.append(StepTiming(
             kind=key[0], request_ids=request_ids, batch=int(nxt.shape[0]),
             blocks=key[3], end=end,
             feed_ms=(t_launch - t_feed) * 1e3, launch_ms=(t_wait - t_launch) * 1e3,
-            wait_ms=(end - t_wait) * 1e3,
-            device_ms=self._events[0].elapsed_time(self._events[1]) if self._events else None,
-            rung=self._rung))
+            wait_ms=(end - t_wait) * 1e3, device_ms=device_ms, rung=self._rung))
+        self._note_program(key, (end - t_launch) * 1e3 if device_ms is None else device_ms)
         return row, nxt, (end - t_launch) * 1e3
+
+    def _note_program(self, key, ms):
+        """One run of a bucket program into the attribution registry: the
+        step's device ms on the card (its CUDA events), the launch to the
+        tokens on the host clock on the CPU. A key's first run built it."""
+        from ..profiler import attribution as _attribution
+
+        akey = "serve:" + ":".join(str(x) for x in key)
+        if akey in self._noted and self._rung == "captured":
+            _attribution.note_run(akey, "serve", ms)
+        elif akey not in self._noted:
+            self._noted.add(akey)
+            from ..core import lazy as _lazy
+
+            # the IR its first run recorded, not the program (which holds
+            # the model): the registry must not keep a closed engine alive
+            prog = _lazy.serve_program_if_cached(key)
+            ir = None if prog is None else prog.ir
+            _attribution.register(akey, "serve",
+                                  ir_thunk=None if ir is None else (lambda: ir))
 
     def _run_tiered(self, key, fn, args):
         """captured (in place) → retained (on copies) → eager, each rung

@@ -412,6 +412,52 @@ def test_fused_update_kernels_equal_plain_bitwise(kind, hyper, n):
                 assert not torch.equal(got[0], bufs[0])
 
 
+def _run_kernel_tele(kind, bufs, lr, hyper, wd, bad):
+    """One telemetry-variant launch on copies of ``bufs``; returns the
+    copies and the summed rows."""
+    p, g, m, v = (b.clone() for b in bufs)
+    tele = torch.zeros((tfu.telemetry_blocks(p.device), 3), device=p.device)
+    if kind == "sgd":
+        tfu.fused_sgd(p, g, lr, wd=wd, bad=bad, tele=tele)
+        out = (p,)
+    elif kind == "momentum":
+        tfu.fused_momentum(p, g, m, lr, mu=0.9, nesterov=hyper, wd=wd, bad=bad, tele=tele)
+        out = (p, m)
+    else:
+        tfu.fused_adam(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=wd, bad=bad, tele=tele)
+        out = (p, m, v)
+    return out, tele.sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", UPDATE_SIZES)
+@pytest.mark.parametrize("kind,hyper", [("sgd", None), ("momentum", True), ("adam", None)])
+def test_fused_update_telemetry_variant_equals_the_kernel_and_repeats(kind, hyper, n):
+    """The telemetry variant updates bit for bit as the kernel does; its
+    rows are within 1e-5 of float64 sums, and a second launch's rows are
+    bitwise the first's."""
+    bufs = _update_inputs(n, seed=n % 1000 + 7)
+    lr = torch.full((), 3e-3, device=_card())
+    for wd in (0.0, 0.01):
+        for gate in (None, False, True):
+            bad = None if gate is None else torch.tensor(gate, device=_card())
+            before = tfu.KERNELS[kind].telemetry_launches
+            got, rows = _run_kernel_tele(kind, bufs, lr, hyper, wd, bad)
+            again, rows2 = _run_kernel_tele(kind, bufs, lr, hyper, wd, bad)
+            want = _run_kernel(kind, bufs, lr, hyper, wd, bad)
+            torch.cuda.synchronize()
+            assert tfu.KERNELS[kind].telemetry_launches == before + 2
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (kind, n, wd, gate)
+            assert torch.equal(rows, rows2)
+            p, g = bufs[0].double(), bufs[1].double()
+            ref = torch.stack([(g * g).sum(), (p * p).sum(),
+                               ((got[0].double() - p) ** 2).sum()])
+            torch.testing.assert_close(rows.double(), ref, rtol=1e-5, atol=1e-30)
+            if gate:
+                assert rows[2].item() == 0.0
+
+
 @pytest.mark.cuda
 def test_fused_update_refuses_what_the_kernel_does_not_take():
     p = torch.zeros(8, 128, device=_card())

@@ -360,9 +360,19 @@ def test_ragged_parameter_updates_like_the_jax_rule(fused_on):
 
 
 def test_telemetry_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        pt.optimizer.optimizer.make_fused_update(pt.optimizer.SGD(parameters=[]), [],
-                                                 telemetry=True)
+    """The fused telemetry is ported now: ``telemetry=True`` no longer
+    raises and gives the ``(n_params, 3)`` sums of squares beside the
+    update (``tests/test_torch_attribution.py`` holds them against the JAX
+    package)."""
+    p = torch.tensor([1.0, -2.0, 3.0])
+    g = torch.tensor([0.5, 0.5, -1.0])
+    old = p.clone()
+    opt = pt.optimizer.SGD(learning_rate=0.1, parameters=[p])
+    bad, tele = pt.optimizer.optimizer.make_fused_update(opt, [p], telemetry=True)(
+        [p], [g], torch.tensor(0.1), [{}])
+    assert bad is None and tele.shape == (1, 3)
+    np.testing.assert_allclose(tele[0].numpy(), [1.5, 14.0, float(((p - old) ** 2).sum())],
+                               rtol=1e-6)
 
 
 def test_other_devices_raise():

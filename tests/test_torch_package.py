@@ -682,3 +682,73 @@ def test_utils_surface():
 
     with pytest.warns(DeprecationWarning, match="paddle.new"):
         assert old(1) == 2
+
+
+# API.spec names of paddle.static.analysis the port's ``analysis`` package
+# carries (ROADMAP queue 1 item 12a); the rest of the analysis names are
+# item 12b (passes, the remat plan, equivalence, donation safety) and
+# item 13 (sharding)
+ANALYSIS_PORTED = {
+    "Diagnostic", "ProgramVerificationError", "Severity", "check", "enforce", "pass_names",
+    "register_pass", "run_passes", "memory.Buffer", "memory.MemoryPlan",
+    "memory.captured_step_plans", "memory.device_hbm_bytes", "memory.plan_memory",
+}
+
+
+def test_api_spec_surface_of_profiler_and_analysis():
+    """Every ``paddle.profiler`` name of API.spec resolves in the port (10
+    new at the top, attribution 19, diag 10, sentinel 10, metrics 7 new),
+    and the ported ``paddle.static.analysis`` names resolve through the
+    port's ``analysis`` package; the coverage reaches 854 of 1208."""
+    names = _api_names()
+    scoped = [n for n in names if n.startswith("paddle.profiler.")]
+    assert [n for n in scoped if _resolve(n) is None] == []
+    for sub, count in (("attribution", 19), ("diag", 10), ("sentinel", 10), ("metrics", 10),
+                       ("trace", 12)):
+        assert len([n for n in scoped if n.startswith(f"paddle.profiler.{sub}.")]) == count
+    assert _resolve("paddle.profiler.Profiler") is pt.profiler.Profiler
+    assert _resolve("paddle.profiler.sentinel.PerfSentinel") is pt.profiler.sentinel.PerfSentinel
+    analysis = [n[len("paddle.static.analysis."):] for n in names
+                if n.startswith("paddle.static.analysis.")]
+    assert len(analysis) == 41
+    import importlib
+
+    for name in analysis:
+        mod, _, attr = ("." + name).rpartition(".")
+        try:
+            found = hasattr(importlib.import_module("paddle_tpu_torch.analysis" + mod), attr)
+        except ModuleNotFoundError:  # equivalence (item 12b), sharding (item 13)
+            found = False
+        assert found == (name in ANALYSIS_PORTED), name
+    covered = sum(_resolve(n) is not None for n in names)
+    assert covered >= 854
+    print(f"API.spec coverage of the port: {covered} of {len(names)} names "
+          f"(+ {len(ANALYSIS_PORTED)} paddle.static.analysis names in its analysis package)")
+
+
+def test_ops_plane_path_loads_neither_jax_nor_paddle_tpu(tmp_path):
+    # the profiler session and export, the diag server, the sentinel, the
+    # fused telemetry and the static profile of a captured step
+    out = _run(
+        "import sys, json, urllib.request, numpy as np\n"
+        "import paddle_tpu_torch as paddle\n"
+        "from paddle_tpu_torch import profiler\n"
+        "paddle.set_device('cpu')\n"
+        "paddle.set_flags({'FLAGS_telemetry': True, 'FLAGS_sentinel_pct': 30.0,\n"
+        "                  'FLAGS_eager_lazy_dispatch': True})\n"
+        "addr = profiler.diag.start(port=0)\n"
+        "m = paddle.nn.Linear(4, 2)\n"
+        "opt = paddle.optimizer.Adam(parameters=m.parameters())\n"
+        f"p = profiler.Profiler(on_trace_ready=profiler.export_chrome_tracing({str(tmp_path)!r}))\n"
+        "with p:\n"
+        "    for _ in range(4):\n"
+        "        with profiler.RecordEvent('step'):\n"
+        "            m(paddle.ones([3, 4])).sum().backward(); opt.step(); opt.clear_grad()\n"
+        "        p.step()\n"
+        "assert urllib.request.urlopen(f'http://{addr}/metrics').status == 200\n"
+        "assert profiler.attribution.telemetry_state()['steps'] == 4\n"
+        "assert any(k.startswith('captured:') for k in profiler.program_costs())\n"
+        "profiler.diag.stop()\n"
+        "print(sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'paddle_tpu')))\n"
+    )
+    assert out.strip().splitlines()[-1] == "[]"

@@ -468,7 +468,9 @@ def test_postmortem_dump_contents_and_pruning(tmp_path):
     assert doc["exception"]["message"] == "boom 3" and doc["exception"]["traceback"]
     assert doc["metrics"]["counters"]["retry_attempts"] == 3
     assert doc["memory"] is None  # no CUDA in this process
-    assert doc["resilience"]["retry_max"] == 2 and doc["attribution"] is None
+    assert doc["resilience"]["retry_max"] == 2
+    # the attribution layer's triage section (profiler.attribution)
+    assert set(doc["attribution"]) == {"programs", "telemetry", "batch"}
     assert any(e["kind"] == "fault" for e in doc["events"])
 
 
