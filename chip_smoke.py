@@ -281,9 +281,35 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      spans, flight events, a counter lane for the captured key, 48 launches
      of each sm90 kernel in the device trace) and its costs; (16d) the
      serving engine on bench_serving's mix with the diagnostics server
-     scraped at 10 Hz and the sentinel on, then a slowed decode that trips
+     scraped at 10 Hz from a process of its own and the sentinel on, each
+     decode program's device ms with scraping against without, then a
+     slowed decode that trips
      the sentinel once; (16e) ``tools/obs_probe.py`` on the card;
- 17. one JSON line of per-kernel numbers, the script's time, then the
+ 17. static analysis and the memory plan: (17a) every analysis pass over
+     GPT-2 345M and ResNet-50 with no error; phase 13b's Paddle-style 345M
+     f32 step captured whole under FLAGS_check_programs=2, certified
+     against a recorded 3-program step before its first replay, its graph
+     still 24 tf32x3 launches of each flash kernel and 292 Adam; an injected
+     divergence a counted fallback with its diagnostic; each serving
+     program's rungs certified once; (17b) bench.py main()'s O2 step with a
+     remat plan at a budget halfway between the unplanned and the
+     use_recompute peaks: feasible, cheaper than uniform recompute, bitwise
+     the unplanned step over 3 steps, 24 sm90 launches of each kernel plus
+     one forward per recomputed decoder layer, the planned step's measured
+     peak within its budget, the three steps' peaks and replay times in
+     turns; (17c) phase 13b's step per-op and captured with the Adam
+     moments parked on the host against without, on twin models: bitwise,
+     the memory each twin holds at its step's peak (per-op its transient
+     peak, captured its graph's pool) lower by most of the parked bytes,
+     blocked and step ms; (17d) a serving engine whose KV pool the planner
+     sizes from FLAGS_memory_budget_mb: its overhead against the serve's
+     measured non-pool memory, and less the inputs against the decode
+     program run at the planned geometry, bench_serving's mix, requests waiting for
+     blocks, the "no room" error; a default engine sized from the card's
+     free memory serves the mix, and half the headroom is allocated beside
+     it; (17e) ``python -m paddle_tpu_torch.tools.graph_lint`` and
+     ``.mem_probe`` in processes of their own;
+ 18. one JSON line of per-kernel numbers, the script's time, then the
      result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -312,6 +338,10 @@ runs only phase 15, after building the libraries its paths launch.
 
 runs only phase 16, after building the libraries its paths launch.
 
+    python3 chip_smoke.py --phase17
+
+runs only phase 17, after building the libraries its paths launch.
+
     python3 chip_smoke.py --host-cost-vs DIR
 
 times the per-op path's host cost (phase 5a's four ops and 13a's per-op
@@ -333,6 +363,8 @@ import subprocess
 import sys
 import threading
 import time
+import types
+import warnings
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16/f16
 # and TF32 on the tensor cores, and HBM3 bandwidth. Bounds below are stated
@@ -972,6 +1004,9 @@ def serve_345m(torch, pt, fa, fu, card):
     n_new = SERVE_NEW_TOKENS
 
     def engine(**kw):
+        # the pool of earlier runs: a default engine on the card is sized
+        # from the card's memory by the planner since phase 17
+        kw.setdefault("num_blocks", 256)
         return serving.Engine(model, serving.ServingConfig(
             block_size=16, prompt_buckets=[32, 64, 128], **kw))
 
@@ -1129,6 +1164,9 @@ def serve_under_faults(torch, pt, fa, fu, card, served):
     out = {"card": card}
 
     def engine(**kw):
+        # the pool of earlier runs: a default engine on the card is sized
+        # from the card's memory by the planner since phase 17
+        kw.setdefault("num_blocks", 256)
         return serving.Engine(model, serving.ServingConfig(
             block_size=16, prompt_buckets=[32, 64, 128], **kw))
 
@@ -1390,7 +1428,7 @@ def serve_under_faults(torch, pt, fa, fu, card, served):
     fresh()
     config = inference.Config()
     config.enable_generative_serving(model, block_size=16, prompt_buckets=[32, 64, 128],
-                                     max_new_tokens=n_new)
+                                     max_new_tokens=n_new, num_blocks=256)
     rows = [i for i, p in enumerate(prompts) if p.size == 32][:4]
     ids = np.stack([prompts[i] for i in rows])
     pred = inference.create_predictor(config)
@@ -3345,34 +3383,37 @@ SURFACE_TIMED = 8  # steps timed after them, in turns (surface, torch, torch, su
 HOST_COST_CALLS = 10_000
 
 # The card sweep runs the case table of tests/torch_surface_cases.py (the CPU
-# parity test's own) at GPT-2 345M's widths (its CARD_345M): activations of a
-# layer (8 x 1024 tokens x 1024 hidden) for the elementwise, reduction, logic
-# and manipulation functions; 1024 x 1024 weights and the (16 heads, 1024
-# tokens, 64) attention operands for the products; rows of the 50304-word
-# vocabulary for the search functions.
+# parity test's own) at GPT-2 345M's widths over fewer tokens (its CARD_345M):
+# activations of 8 x 128 tokens x 1024 hidden (1M elements) for the
+# elementwise, reduction, logic and manipulation functions; 1024 x 1024
+# weights and the (16 heads, 128 tokens, 64) attention operands for the
+# products; rows of the 50304-word vocabulary for the search functions.
 #
-# card against the port's own CPU result on the same inputs. Integer, bool
+# Each case's outputs and gradients on the card are compared with the
+# port's own CPU result on the same inputs. Integer, bool
 # and index outputs exact. Floats, |card - cpu| <= atol + rtol * |cpu|:
 #   elem   elementwise math: libdevice and ATen's CPU functions differ by
 #          a few ulps (1e-5 is ~80 ulps of f32);
-#   reduce sums, means, norms, std over up to 8M elements and cumulative
-#          sums over 1024: the card reduces in a tree, the CPU in another
-#          order (f32 error ~ eps * sqrt(n) * scale, ~2e-4 of a sum of
-#          8M unit values);
-#   prod   the product of all 8M factors in (0.999, 1.001), and its gradient
+#   reduce sums, means, norms, std over up to 1M elements and cumulative
+#          sums over 128-1024: the card reduces in a tree, the CPU in another
+#          order (f32 error ~ eps * sqrt(n) * scale, ~7e-5 of a sum of
+#          1M unit values);
+#   prod   the product of all 1M factors in (0.999, 1.001), and its gradient
 #          (w * product / x): each level of the card's tree rounds products
 #          of factors near 1 onto f32's grid (6e-8 below 1, 1.2e-7 above),
 #          and the roundings do not cancel as a random walk's would (sqrt(n)
-#          eps ~ 3.5e-4): 1.5e-2 absolute seen against the CPU's sequential
+#          eps ~ 3.5e-4 at 8M factors): 1.5e-2 absolute seen against the CPU's sequential
 #          product, on a product of order 1 (the logs of its factors sum to
-#          ~N(0, 1.7));
+#          ~N(0, 1.7)) at 8M factors; at 1M the log-sum is ~N(0, 0.6) and
+#          the tree is three levels shallower, so the bound keeps its room;
 #   scan   cumulative products and logcumsumexp over 1024 steps, and their
 #          gradients (reverse sums over 1024): the rounding of each step
 #          compounds (~1024 eps of values up to ~30);
-#   flatscan prefix sums over all 8M elements of the flattened input, and
-#          their reverse for the gradient: the partial sums reach ~4e3,
-#          where f32's grid is 2.4e-4 to 4.9e-4, and the card adds each
-#          block's prefix in f32 where the CPU accumulates in double;
+#   flatscan prefix sums over all 1M elements of the flattened input, and
+#          their reverse for the gradient: the partial sums reach ~1.5e3
+#          (~4e3 at 8M), where f32's grid is 1.2e-4 (2.4e-4 to 4.9e-4 at
+#          8M), and the card adds each block's prefix in f32 where the CPU
+#          accumulates in double;
 #   matmul products over K = 1024 with TF32 off: FMA order of cuBLAS and
 #          the CPU BLAS, ~sqrt(K) eps of terms ~30 (4e-4 seen at 5 sigma);
 #   atomic index_add, scatter_nd_add, put_along_axis(reduce="add"),
@@ -3384,6 +3425,9 @@ HOST_COST_CALLS = 10_000
 #          bound means nothing (~2e-6 absolute seen);
 # A case names one kind, or "out/grad": its outputs under the first, its
 # gradients under the second (the gradient of a broadcast is a reduction).
+# The bounds were set at 8 x 1024 tokens (8M elements); every error they
+# cover grows with the count of terms, so none is loosened by the 8x fewer,
+# and the sweep prints each kind's worst share of its bound.
 SURFACE_TOL = {"elem": (1e-5, 1e-6), "reduce": (1e-4, 1e-4), "prod": (2e-2, 1e-4),
                "scan": (1e-3, 1e-3), "flatscan": (1e-4, 2e-2), "matmul": (1e-4, 1e-3),
                "atomic": (1e-4, 1e-3), "special": (1e-5, 1e-5)}
@@ -3422,7 +3466,8 @@ def surface_differ(a, b, kind):
 
 def surface_sweep(torch, pt, dev):
     """Phase 11b-ii: every case of tests/torch_surface_cases.py on the card and
-    on the CPU through the port on the same inputs, at the 345M's widths;
+    on the CPU through the port on the same inputs, at the 345M's widths over
+    8 x 128 tokens (its ``CARD_345M``);
     outputs, dtypes, shapes, stop_gradient and the gradients of the
     differentiable ones compared. Returns the failures (printed)."""
     import numpy as np
@@ -5928,6 +5973,10 @@ SENTINEL_16D = {"FLAGS_sentinel_pct": 30.0, "FLAGS_sentinel_warmup_steps": 10,
                 "FLAGS_sentinel_sustain_steps": 3}
 SLOW_TICKS = (24, 32)  # [first, last) engine ticks whose decode step sleeps
 SLOW_REQUESTS, SLOW_PROMPT, SLOW_NEW = 4, 32, 96
+# 16d's rounds of plain, scraped, scraped, plain serves: one serve's decode
+# steps shift together by up to ~0.2 ms from serve to serve, so the gap's
+# median needs a dozen pairs to sit well inside FAST_PATH_STEP_MS
+SCRAPE_ROUNDS = 6
 PROBE_TIMEOUT_S = 600
 
 
@@ -6489,38 +6538,84 @@ def _http(addr, path):
         return e.code, e.read()
 
 
-class _Scraper:
-    """A thread that scrapes the diagnostics server's endpoints at ~10 Hz and
-    keeps every (path, status) it got and every scrape's ms by path."""
+SCRAPE_PATHS = ("/metrics", "/healthz", "/readyz", "/statusz", "/flight?last=16",
+                "/programz?static=0")
 
-    PATHS = ("/metrics", "/healthz", "/readyz", "/statusz", "/flight?last=16", "/programz?static=0")
 
-    def __init__(self, addr):
-        self.addr, self.got, self.errors, self.ms = addr, [], [], {}
-        self.stop = threading.Event()
-        self.thread = threading.Thread(target=self.run, daemon=True)
+def scrape_child(addr) -> int:
+    """``python3 chip_smoke.py --scrape-child ADDR``: a scraper of the
+    diagnostics server driven over its standard input, one byte a command.
+    ``g`` starts a window of scrapes of its endpoints at ~10 Hz; ``s`` ends
+    it, and the child prints one JSON line: every (path, status) the window
+    got, its unanswered scrapes and every scrape's ms by path. It exits when
+    its standard input closes."""
+    import select
+    import urllib.request  # noqa: F401 — imported before the first window
 
-    def run(self):
+    print("ready", flush=True)
+    while os.read(0, 1) == b"g":
+        got, errors, ms = [], [], {}
         i = 0
-        while not self.stop.is_set():
-            path = self.PATHS[i % len(self.PATHS)]
+        while True:
+            path = SCRAPE_PATHS[i % len(SCRAPE_PATHS)]
             t0 = time.perf_counter()
             try:
-                code, body = _http(self.addr, path)
-                self.ms.setdefault(path, []).append((time.perf_counter() - t0) * 1e3)
-                self.got.append((path, code if code == 200 else (code, body[:200])))
+                code, body = _http(addr, path)
+                ms.setdefault(path, []).append((time.perf_counter() - t0) * 1e3)
+                got.append((path, code if code == 200
+                            else (code, body[:200].decode(errors="replace"))))
             except Exception as e:  # noqa: BLE001 — counted as an unanswered scrape
-                self.errors.append(f"{path}: {e!r}")
+                errors.append(f"{path}: {e!r}")
             i += 1
-            self.stop.wait(0.1)
+            if select.select([0], [], [], 0.1)[0]:
+                break
+        print(json.dumps({"got": got, "errors": errors, "ms": ms}), flush=True)
+        if os.read(0, 1) != b"s":
+            break
+    return 0
+
+
+class _Scraper:
+    """A scraper of the diagnostics server in a process of its own, as a
+    metrics collector is: its HTTP client takes no share of the served
+    process's interpreter lock, and the process starts once, before the
+    first window. ``with scraper as w:`` scrapes for the block's length; ``w``
+    then holds every (path, status) it got, the unanswered scrapes and every
+    scrape's ms by path."""
+
+    def __init__(self, addr):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--scrape-child", addr],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.window = None
+        check(self.proc.stdout.readline().strip() == "ready", "the scraper process did not start")
+
+    def _send(self, cmd):
+        self.proc.stdin.write(cmd)
+        self.proc.stdin.flush()
 
     def __enter__(self):
-        self.thread.start()
-        return self
+        self.window = types.SimpleNamespace(got=[], errors=[], ms={})
+        self._send("g")
+        return self.window
 
     def __exit__(self, *exc):
-        self.stop.set()
-        self.thread.join(timeout=10)
+        self._send("s")
+        line = self.proc.stdout.readline()
+        if not line:
+            self.window.errors = [f"the scraper process exited {self.proc.poll()}"]
+            return
+        doc = json.loads(line)
+        self.window.got = [tuple(g) for g in doc["got"]]
+        self.window.errors, self.window.ms = doc["errors"], doc["ms"]
+
+    def close(self):
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
 
 
 class _GcPauses:
@@ -6565,7 +6660,8 @@ def serving_ops_plane(torch, pt, card):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, SERVE_PROMPT_LENS[i % len(SERVE_PROMPT_LENS)])
                for i in range(SERVE_REQUESTS)]
-    eng = serving.Engine(model, serving.ServingConfig(block_size=16, prompt_buckets=[32, 64, 128]))
+    eng = serving.Engine(model, serving.ServingConfig(block_size=16, prompt_buckets=[32, 64, 128],
+                                                      num_blocks=256))
     pt.set_flags({"FLAGS_diag_port": 0})
     addr = diag.start()
     # every route's server-side ms, and every collection's, until the end
@@ -6580,13 +6676,15 @@ def serving_ops_plane(torch, pt, card):
 
     diag._route = timed_route
     pauses = _GcPauses()
+    scraper = None
     try:
         # the clean serve builds the engine's programs, scraped from its
         # start: the first scrape that overlaps a serve in a process costs
         # that serve ~100 ms of host time once (the line below prints it), a
         # warm-up cost, kept out of the timed serves as the captures are
+        scraper = _Scraper(addr)
         t_serve = time.perf_counter()
-        with _Scraper(addr) as warm:
+        with scraper as warm:
             clean = [r.tokens for r in eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)]
         warm_ms = (time.perf_counter() - t_serve) * 1e3
         # then collect what the builds and the earlier phases left, and
@@ -6615,35 +6713,50 @@ def serving_ops_plane(torch, pt, card):
         for path in server_ms:
             server_ms[path] = []
         decode_ms = {"plain": [], "scraped": []}
+        # each serve's decode device ms median per decode program (batch,
+        # blocks): a median over all of a serve's steps mixes its programs,
+        # and moves by the spread between them when the mix or a few steps
+        # do
+        by_program = {"plain": [], "scraped": []}
         scrapes, errors, scrape_ms, serves = [], [], {}, []
         prof0 = profiler.dispatch_counters()
         sites0 = dict(prof0["perf_regression_sites"])
-        for kind in ("plain", "scraped", "scraped", "plain") * 3:
+        for kind in ("plain", "scraped", "scraped", "plain") * SCRAPE_ROUNDS:
             eng.reset_stats()
-            t_serve = time.perf_counter()
+            with scraper if kind == "scraped" else contextlib.nullcontext() as s:
+                t_serve = time.perf_counter()
+                resps = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+                wall_ms = (time.perf_counter() - t_serve) * 1e3
             if kind == "scraped":
-                with _Scraper(addr) as s:
-                    resps = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
                 scrapes += s.got
                 errors += s.errors
                 for path, ms in s.ms.items():
                     scrape_ms.setdefault(path, []).extend(ms)
-            else:
-                resps = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
-            wall_ms = (time.perf_counter() - t_serve) * 1e3
             check([r.tokens for r in resps] == clean,
                   f"the tokens of a {kind} serve differ from the clean serve's")
             steps = eng.step_timings()
             decode_ms[kind].append(statistics.median(
                 t.device_ms for t in steps if t.kind == "decode"))
+            per = {}
+            for t in steps:
+                if t.kind == "decode":
+                    per.setdefault((t.batch, t.blocks), []).append(t.device_ms)
+            by_program[kind].append({k: statistics.median(v) for k, v in per.items()})
             waits = [w for _, w in list(eng._admission._recent_waits)[-SERVE_REQUESTS:]]
             st = sentinel.state()["keys"].get(qw_key, {})
             serves.append(f"{kind[0]} {wall_ms:.1f}/"
                           f"{sum(t.feed_ms + t.launch_ms + t.wait_ms for t in steps):.1f}/"
                           f"{max(waits):.1f}/{st.get('ema_ms')}/{st.get('trips')}")
         pauses.close()
-        gaps = [b - a for a, b in zip(decode_ms["plain"], decode_ms["scraped"])]
+        # the gap: the median, over the rounds' (plain, scraped) pairs and
+        # the decode programs both serves of a pair ran, of the difference
+        # of that program's medians
+        gaps = [sc[k] - pl[k] for pl, sc in zip(by_program["plain"], by_program["scraped"])
+                for k in sorted(pl.keys() & sc.keys())]
         gap = statistics.median(gaps)
+        serve_gap = statistics.median(
+            b - a for a, b in zip(decode_ms["plain"], decode_ms["scraped"]))
+        programs = sorted({k for per in by_program["plain"] + by_program["scraped"] for k in per})
         bad = [(p, c) for p, c in scrapes if c != 200]
         loop_trips = {k: v - sites0.get(k, 0)
                       for k, v in profiler.dispatch_counters()["perf_regression_sites"].items()
@@ -6673,9 +6786,11 @@ def serving_ops_plane(torch, pt, card):
         print(f"  {len(scrapes)} scrapes over {sum(p == '/metrics' for p, _ in scrapes)} "
               f"/metrics, {len(errors)} unanswered, non-200 {bad[:4]}; /metrics parses, "
               f"{len(parsed)} samples, {len(cost_keys)} serve:decode program-cost series; decode "
-              f"device ms medians plain {decode_ms['plain']}, scraped {decode_ms['scraped']}, "
-              f"the median gap {gap:+.4f} ms (bound {FAST_PATH_STEP_MS} ms); tokens equal the "
-              f"clean serve's")
+              f"device ms medians of each serve's steps plain {decode_ms['plain']}, scraped "
+              f"{decode_ms['scraped']}, their median gap {serve_gap:+.4f} ms; decode programs "
+              f"(batch, blocks) {programs}, gaps by pair and program "
+              f"{[round(g, 4) for g in gaps]}, the median gap {gap:+.4f} ms (bound "
+              f"{FAST_PATH_STEP_MS} ms); tokens equal the clean serve's")
         check(not errors and not bad and scrapes, f"scrapes failed: {errors[:2]} {bad[:4]}")
         check(code == 200 and cost_keys, "/metrics lacks the serve:decode program costs")
         check(abs(gap) <= FAST_PATH_STEP_MS, f"scraping moved the decode step by {gap:.4f} ms")
@@ -6755,6 +6870,8 @@ def serving_ops_plane(torch, pt, card):
         check(code_after == 200 and not sentinel.tripped(),
               f"/healthz after the slowdown: {code_after} {doc_after}")
     finally:
+        if scraper is not None:
+            scraper.close()
         pauses.close()
         gc.unfreeze()
         diag._route = route
@@ -6765,7 +6882,8 @@ def serving_ops_plane(torch, pt, card):
         eng.close()
     del model
     torch.cuda.empty_cache()
-    return {"decode_gap_ms": gap, "scrapes": len(scrapes), "gc_pauses": len(loop_gc),
+    return {"decode_gap_ms": gap, "serve_decode_gap_ms": serve_gap, "scrapes": len(scrapes),
+            "gc_pauses": len(loop_gc),
             "gc_longest_ms": max(loop_gc, default=0.0)}
 
 
@@ -6845,7 +6963,668 @@ def slice18_alone(torch) -> int:
     return 0
 
 
+# Phase 17: static analysis and the memory plan, at GPT-2 345M's width.
+# 17b's budget sits halfway between the planner's peak of the unplanned O2
+# step and of the use_recompute step (the uniform per-block plan)
+PLAN_STEPS = 3  # steps held bitwise, planned against unplanned (2 eager, 1 captured)
+PLAN_TIMED = 5  # rounds of replays timed in turns
+OFFLOAD_STEPS = 3  # steps held bitwise, offload on against off, per regime
+# 17c: the share of the parked bytes the card must hold less at a step's
+# peak. The moments come back (per-op) or are staged (captured) only for the
+# update, into memory the forward's activations freed; the rest is left to
+# the allocator's rounding. Staging beside the activations would save ~0.
+OFFLOAD_KEPT = 0.75
+# 17d: the budget of the planner-sized pool, and the ratio its overhead
+# estimate must keep to the measured non-pool memory of a serve (the bound
+# phase 16b holds the liveness planner to)
+POOL_BUDGET_MB = 2048.0
+POOL_RATIO = (0.5, 2.0)
+
+
+def lint_and_certificates(torch, pt, fa, fu, dev):
+    """17a: every pass over GPT-2 345M and ResNet-50 with no error; phase
+    13b's Paddle-style 345M f32 step captured whole under
+    FLAGS_check_programs=2 and certified against a recorded 3-program step,
+    its graph's launches; an injected divergence; each serve program's rungs
+    certified once."""
+    import numpy as np
+    from paddle_tpu_torch import analysis, serving
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    print("[17a] lint, and the equivalence certificates on the card")
+    t0 = time.perf_counter()
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    pt.seed(SEED)
+    gpt = GPTForPretraining(cfg, device=dev)
+    lint = {}
+    for name, model, specs in (
+            ("gpt2_345m", gpt, [((2, cfg.max_seq_len), "int64")]),
+            ("resnet50", pt.vision.models.resnet50().to(dev), [((2, 3, 224, 224), "float32")])):
+        t1 = time.perf_counter()
+        diags = analysis.check(model, specs)
+        errors = [d for d in diags if d.severity >= analysis.Severity.ERROR]
+        kinds = {}
+        for d in diags:
+            kinds[f"{d.pass_name}:{d.severity}"] = kinds.get(f"{d.pass_name}:{d.severity}", 0) + 1
+        lint[name] = kinds
+        print(f"  analysis.check({name}) over {len(analysis.pass_names())} passes in "
+              f"{time.perf_counter() - t1:.2f} s: {kinds or 'clean'}")
+        for d in errors:
+            print(f"    {d}")
+        check(not errors, f"the lint of {name} has error diagnostics")
+        del model
+    del gpt
+    torch.cuda.empty_cache()
+
+    # the captured Paddle-style step, certified before its first replay
+    batch = 8
+    data = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1))
+    pt.set_flags({"FLAGS_pallas_fused_update": True, "FLAGS_check_programs": 2})
+    pt.seed(SEED)
+    model = GPTForPretraining(cfg)
+    opt = pt.optimizer.Adam(learning_rate=1e-4, parameters=model.parameters())
+    n_params = len(list(model.parameters()))
+    crit = GPTPretrainingCriterion(cfg)
+    ids = pt.to_tensor(data[:, :-1], dtype="int64")
+    labels = pt.to_tensor(data[:, 1:], dtype="int64")
+    lazy.reset_lazy_state()
+    set_regime(pt, "captured")
+    pt.profiler.reset_dispatch_counters()
+    warm = pt.get_flags("FLAGS_eager_capture_warmup")["FLAGS_eager_capture_warmup"]
+    built = None
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the donation gate's info findings, every replay
+        for i in range(warm + 2):
+            before = kernel_counts(fa, fu)
+            t1 = time.perf_counter()
+            loss = crit(model(ids), labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            float(loss)
+            if i == warm:
+                got = counts_since(fa, fu, before)
+                built = {k: v for k, v in got.items() if v}
+                build_s = time.perf_counter() - t1
+    c = pt.profiler.dispatch_counters()
+    cert = lazy.captured_step_certificate()
+    print(f"  the 345M f32 step under FLAGS_check_programs=2: build (recording, capture, "
+          f"proof) {build_s:.2f} s; {c['capture_equivalence_checks']} check, "
+          f"{c['capture_equivalence_certified']} certified, {c['capture_replays']} replays; "
+          f"{cert.summary() if cert else None}; the graph holds {built}")
+    want = {"fwd_tf32x3": cfg.num_layers, "dkv_tf32x3": cfg.num_layers,
+            "dq_tf32x3": cfg.num_layers, "adam": n_params}
+    check(cert is not None and cert.equivalent and c["capture_equivalence_checks"] == 1,
+          f"the captured 345M step was not certified once (the last capture error: "
+          f"{lazy.last_capture_error[0]})")
+    check(built == want, f"the certified graph holds {built}, expected {want}")
+    check(c["capture_fallbacks"] == 0, "the certified step fell back")
+    lazy.reset_lazy_state()
+    del model, opt, loss
+    torch.cuda.empty_cache()
+
+    # an injected divergence: the reference recording altered, the capture
+    # falls back (counted) and the step raises with the first divergence
+    pt.seed(SEED)
+    net = pt.nn.Sequential(pt.nn.Linear(1024, 1024), pt.nn.ReLU(), pt.nn.Linear(1024, 16))
+    nopt = pt.optimizer.Adam(learning_rate=1e-3, parameters=net.parameters())
+    x = pt.to_tensor(np.random.default_rng(0).standard_normal((64, 1024)).astype(np.float32))
+    y = pt.to_tensor(np.random.default_rng(1).integers(0, 16, (64,)))
+    orig = lazy._build_captured_step
+
+    def sabotaged(rec, opt_, live=()):
+        entry = orig(rec, opt_, live)
+        prog, labels_, outs = lazy._tls.reference_done
+        bad = copy.copy(prog)
+        bad.ops = list(prog.ops)
+        for k, op in enumerate(bad.ops):
+            pos = list(op.pos)
+            hit = [i for i, a in enumerate(pos) if isinstance(a, float) and math.isfinite(a)
+                   and a not in (0.0, 1.0)]
+            if hit:
+                pos[hit[0]] *= 2.0
+                op = copy.copy(op)
+                op.args = (tuple(pos), op.args[1])
+                bad.ops[k] = op
+                break
+        entry.reference = (bad, labels_, outs)
+        return entry
+
+    lazy.reset_lazy_state()
+    pt.profiler.reset_dispatch_counters()
+    lazy._build_captured_step = sabotaged
+    raised = None
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for _ in range(warm + 2):
+                loss = pt.nn.CrossEntropyLoss()(net(x), y)
+                loss.backward()
+                nopt.step()
+                nopt.clear_grad()
+    except analysis.ProgramVerificationError as e:
+        raised = e
+    finally:
+        lazy._build_captured_step = orig
+    c = pt.profiler.dispatch_counters()
+    diag = raised.diagnostics[0] if raised is not None and raised.diagnostics else None
+    print(f"  an injected divergence: fallbacks {dict(c['capture_fallback_reasons'])}, "
+          f"divergences {c['capture_equivalence_divergences']}; {diag}")
+    check(raised is not None and diag is not None and diag.pass_name == "equivalence",
+          "the injected divergence did not raise with its diagnostic")
+    check(dict(c["capture_fallback_reasons"]).get("verification_failed") == 1,
+          "the injected divergence was not one counted fallback")
+    lazy.reset_lazy_state()
+    set_regime(pt, "per_op")
+
+    # each serve program's rungs certified exactly once
+    pt.seed(0)
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    small = GPTForPretraining(GPTConfig(hidden_size=1024, num_layers=2, num_heads=16,
+                                        max_seq_len=2048, dropout=0.0, attn_dropout=0.0),
+                              device="gpu:0").eval()
+    eng = serving.Engine(small, serving.ServingConfig(block_size=16, prompt_buckets=[32, 64, 128],
+                                                      num_blocks=256))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 50304, SERVE_PROMPT_LENS[i % len(SERVE_PROMPT_LENS)])
+               for i in range(SERVE_REQUESTS)]
+    pt.profiler.reset_dispatch_counters()
+    out = eng.serve(prompts, max_new_tokens=8)
+    first = pt.profiler.dispatch_counters()
+    eng.serve(prompts, max_new_tokens=8)
+    again = pt.profiler.dispatch_counters()
+    print(f"  serving (2 layers at the 345M width): {first['serve_capture_builds']} programs "
+          f"built, {first['serve_equivalence_checks']} rung certificates "
+          f"({first['serve_equivalence_certified']} certified); a second serve: "
+          f"{again['serve_equivalence_checks'] - first['serve_equivalence_checks']} more checks, "
+          f"{again['serve_capture_replays']} replays")
+    check(all(r.status == "ok" for r in out), "a certified serve failed")
+    check(first["serve_equivalence_checks"] == first["serve_equivalence_certified"]
+          == first["serve_capture_builds"] > 0
+          and again["serve_equivalence_checks"] == first["serve_equivalence_checks"],
+          "the serve programs' rungs were not certified exactly once each")
+    eng.close()
+    pt.set_flags({"FLAGS_check_programs": 0, "FLAGS_pallas_fused_update": False})
+    del small, eng
+    torch.cuda.empty_cache()
+    print(f"  17a in {time.perf_counter() - t0:.1f} s")
+    return {"lint": lint, "certificate": cert.to_dict(), "built": built}
+
+
+def remat_plan_345m(torch, pt, fa, dev):
+    """17b: bench.py main()'s step (345M, 8 x 1024, O2 bf16, AdamW, dropout 0,
+    compile_train_step): the plan at a budget between the unplanned and the
+    uniform peaks, bitwise the unplanned step, its launches, the three steps'
+    peaks and replay times."""
+    from paddle_tpu_torch.analysis import plan as plan_mod
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+
+    print("[17b] the remat plan of the 345M O2 step (8 x 1024, AdamW, compile_train_step)")
+    t0 = time.perf_counter()
+    batch = 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    failures = pt.profiler.dispatch_counters()["memory_plan_failures"]
+
+    def build(recompute=False, memory_plan=None):
+        pt.seed(SEED)
+        cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0, use_recompute=recompute)
+        model = pt.amp.decorate(GPTForPretraining(cfg, device=dev), level="O2",
+                                dtype="bfloat16")
+        crit = GPTPretrainingCriterion(cfg)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                                 weight_decay=0.01)
+        step = pt.jit.compile_train_step(model, lambda lo, la: crit(lo.float(), la), opt,
+                                         memory_plan=memory_plan)
+        return model, step
+
+    cfg = gpt2_345m()
+    ids = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1), generator=gen,
+                        device=dev)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def run(step, n):
+        """``n`` steps; the launches of each, and the peak of the capture above
+        what was allocated before it (the step's own transient memory: the
+        parameters and states of every model alive are below it)."""
+        losses, launches, peak = [], [], None
+        for i in range(n):
+            before = flash_counts(fa)
+            if i == pt.jit.WARMUP_STEPS:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+            losses.append(float(step(x, y)))
+            if i == pt.jit.WARMUP_STEPS:
+                peak = torch.cuda.max_memory_allocated(dev) - held
+            launches.append({k: v - before[k] for k, v in flash_counts(fa).items()
+                             if v != before[k]})
+        return losses, launches, peak
+
+    models = {}
+    m0, s0 = build()
+    l0, k0, peak0 = run(s0, PLAN_STEPS)
+    models["unplanned"] = (m0, s0)
+    mu, su = build(recompute=True)
+    _lu, ku, peak_u = run(su, PLAN_STEPS)
+    models["uniform"] = (mu, su)
+    plan_peak0, plan_peak_u = s0.memory_plan().peak_bytes, su.memory_plan().peak_bytes
+    budget_mb = (plan_peak0 + plan_peak_u) / 2 / 2**20
+    t1 = time.perf_counter()
+    plan = s0.plan_remat(budget_mb=budget_mb)
+    plan_s = time.perf_counter() - t1
+    print(plan.summary())
+    print(f"  planner peaks: unplanned {plan_peak0 / 2**30:.3f} GB, uniform recompute "
+          f"{plan_peak_u / 2**30:.3f} GB, budget {budget_mb / 1024:.3f} GB; planned in "
+          f"{plan_s:.2f} s over {plan.evals} estimates (none ran)")
+    m1, s1 = build(memory_plan=plan)
+    l1, k1, peak1 = run(s1, PLAN_STEPS)
+    models["planned"] = (m1, s1)
+    bitwise = l1 == l0 and all(torch.equal(a, b) for a, b in zip(m0.parameters(),
+                                                                  m1.parameters()))
+    remat_attn = sum(1 for _s, _e, p, _o in plan.remat_units if ".layers." in p)
+    want = {"fwd_sm90": cfg.num_layers + remat_attn, "dkv_sm90": cfg.num_layers,
+            "dq_sm90": cfg.num_layers}
+    uniform_flops = sum(op.flops for op in su._last.ir.ops) if su._last.ir else 0
+    print(f"  losses unplanned {l0}, planned {l1}: bitwise (losses and parameters) {bitwise}")
+    print(f"  flash launches a step, planned: {k1}; unplanned {k0[-1]}; uniform {ku[-1]}; "
+          f"expected planned {want} ({remat_attn} decoder layers recomputed)")
+    print(f"  recompute FLOPs: planned {plan.recompute_flops:.4g} "
+          f"({plan.recompute_pct:.1f}% of one forward), uniform {plan.full_remat_flops:.4g} "
+          f"over the forward ({uniform_flops:.4g} recorded in its step)")
+    recorded1 = s1.memory_plan().peak_bytes
+    inputs = s0.memory_plan().input_bytes  # parameters, states, the batch
+    transient = {"unplanned": plan.peak_before_bytes - inputs,
+                 "planned": plan.peak_after_bytes - inputs, "uniform": plan_peak_u - inputs}
+    print(f"  peaks: the planner's unplanned {plan.peak_before_bytes / 2**30:.3f} GB -> planned "
+          f"{plan.peak_after_bytes / 2**30:.3f} GB (the planned step's own recording "
+          f"{recorded1 / 2**30:.3f} GB), uniform {plan_peak_u / 2**30:.3f} GB, of which the "
+          f"program's inputs {inputs / 2**30:.3f} GB; above them, the planner's unplanned / "
+          f"planned / uniform " + " / ".join(f"{transient[k] / 2**30:.3f}" for k in
+                                             ("unplanned", "planned", "uniform"))
+          + f" GB against the measured {peak0 / 2**30:.3f} / {peak1 / 2**30:.3f} / "
+          f"{peak_u / 2**30:.3f} GB (max_memory_allocated over each capture above what was "
+          f"allocated before it: a replay's would miss the activations, which live in the "
+          f"graph's pool)")
+    budget_bytes = budget_mb * 2**20
+    measured = {"unplanned": peak0, "planned": peak1, "uniform": peak_u}
+    print(f"  measured over the planner's, above the inputs: " + ", ".join(
+        f"{k} {measured[k] / transient[k]:.3f}x" for k in ("unplanned", "planned", "uniform"))
+          + f"; the planned step measured with the inputs {(peak1 + inputs) / 2**30:.3f} GB "
+          f"against its budget {budget_bytes / 2**30:.3f} GB")
+    check(plan.has_cuts and plan.feasible, "the 345M plan is not feasible")
+    check(peak1 + inputs <= budget_bytes,
+          f"the planned step measured {(peak1 + inputs) / 2**30:.3f} GB with its inputs, over "
+          f"its budget {budget_bytes / 2**30:.3f} GB")
+    check(plan.recompute_flops < plan.full_remat_flops, "the plan recomputes as much as uniform")
+    check(bitwise, "the planned step is not bitwise the unplanned step")
+    check(all(k == want for k in k1), f"planned flash launches {k1}, expected {want} each step")
+    failures = pt.profiler.dispatch_counters()["memory_plan_failures"] - failures
+    check(failures == 0, f"{failures} memory plan failures")
+    times = {k: [] for k in models}
+    for _ in range(PLAN_TIMED):
+        for name in ("unplanned", "planned", "uniform"):
+            step = models[name][1]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            step(x, y)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  ms per replay (CUDA events, median of {PLAN_TIMED} in turns): unplanned "
+          f"{ms['unplanned']:.3f}, planned {ms['planned']:.3f}, uniform {ms['uniform']:.3f}")
+    del models, m0, m1, mu, s0, s1, su
+    torch.cuda.empty_cache()
+    print(f"  17b in {time.perf_counter() - t0:.1f} s")
+    return {"plan": plan.to_dict(), "launches": k1[-1], "want": want, "ms": ms,
+            "peaks_gb": {"unplanned": peak0 / 2**30, "planned": peak1 / 2**30,
+                         "uniform": peak_u / 2**30},
+            "planner_transient_gb": {k: v / 2**30 for k, v in transient.items()},
+            "planner_gb": {"before": plan.peak_before_bytes / 2**30,
+                           "after": plan.peak_after_bytes / 2**30,
+                           "uniform": plan_peak_u / 2**30}}
+
+
+def offload_345m(torch, pt, fa, fu, dev):
+    """17c: phase 13b's f32 Adam step on the fused kernel, eager (per-op) and
+    captured, with offload.enable against without on twin models in turns:
+    bitwise, the parked bytes, the blocked and step ms, the capture's
+    data_ptr() gates."""
+    import numpy as np
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion, gpt2_345m
+    from paddle_tpu_torch.optimizer import offload
+
+    print("[17c] host offload of the Adam moments, phase 13b's 345M f32 step, 8 x 1024")
+    t0 = time.perf_counter()
+    batch = 8
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    data = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1))
+    pt.set_flags({"FLAGS_pallas_fused_update": True})
+    models, opts, workers = [], [], [_Worker(), _Worker()]
+    for i in range(2):
+        pt.seed(SEED)
+        models.append(GPTForPretraining(cfg))
+        opts.append(pt.optimizer.Adam(learning_rate=1e-4, parameters=models[-1].parameters()))
+    sched = offload.enable(opts[1], overhead_pct=1e9)  # every moment stays parked here
+    crit = GPTPretrainingCriterion(cfg)
+    ids = pt.to_tensor(data[:, :-1], dtype="int64")
+    labels = pt.to_tensor(data[:, 1:], dtype="int64")
+
+    def step(i, regime):
+        """One step: its loss, host ms, and the peak it allocated above what
+        was allocated before it (a replay's misses its graph's pool)."""
+        set_regime(pt, regime)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t1 = time.perf_counter()
+        loss = crit(models[i](ids), labels)
+        loss.backward()
+        opts[i].step()
+        opts[i].clear_grad()
+        out = float(loss)
+        torch.cuda.synchronize()
+        return (out, (time.perf_counter() - t1) * 1e3,
+                torch.cuda.max_memory_allocated(dev) - before)
+
+    def moments(i):
+        return [t for p in models[i].parameters() for t in (opts[i]._accumulators.get(id(p))
+                                                            or {}).values() if t.dim() >= 1]
+
+    res = {}
+    for regime in ("per_op", "captured"):
+        lazy.reset_lazy_state()
+        n = OFFLOAD_STEPS + (pt.get_flags("FLAGS_eager_capture_warmup")[
+            "FLAGS_eager_capture_warmup"] + 1 if regime == "captured" else 0)
+        rows = {0: [], 1: []}
+        ptrs = []
+        for k in range(n):
+            for i in (0, 1):
+                rows[i].append(workers[i](step, i, regime))
+                if regime == "captured" and i == 1:
+                    ptrs.append(tuple(p.data_ptr() for p in models[1].parameters()))
+        same = [a[0] for a in rows[0]] == [b[0] for b in rows[1]]
+        parked, state = sched.parked_bytes(), sched.snapshot()
+        # what each twin keeps on the card beyond its parameters, at its
+        # step's peak: per-op, its moments between steps (the twin without
+        # offload: every one) and the step's transient peak; captured, the
+        # moments and its graph's pool, which holds every transient buffer
+        # (the staged moments among them) between replays
+        if regime == "per_op":
+            extra = [max(r[2] for r in rows[i][-OFFLOAD_STEPS:]) for i in (0, 1)]
+            how = "the step's max_memory_allocated above what was allocated before it"
+        else:
+            extra = [workers[i](lambda: lazy.captured_step_handle().pool_bytes())
+                     for i in (0, 1)]
+            how = "the graph pool's reserved segments"
+        saved = parked - (extra[1] - extra[0])
+        res[regime] = {"bitwise_losses": same, "step_ms_off": statistics.median(
+            r[1] for r in rows[0][-OFFLOAD_STEPS:]), "step_ms_on": statistics.median(
+            r[1] for r in rows[1][-OFFLOAD_STEPS:]), "parked_gb": parked / 2**30,
+            "transient_gb_off": extra[0] / 2**30, "transient_gb_on": extra[1] / 2**30,
+            "saved_gb": saved / 2**30, "state": state}
+        print(f"  {regime}: losses bitwise {same}; step ms (host clock, median of the last "
+              f"{OFFLOAD_STEPS}) without {res[regime]['step_ms_off']:.2f}, with "
+              f"{res[regime]['step_ms_on']:.2f}; {parked / 2**30:.3f} GB parked; transient "
+              f"({how}) without {extra[0] / 2**30:.3f} GB, with {extra[1] / 2**30:.3f} GB: the "
+              f"card holds {saved / 2**30:.3f} GB less at the step's peak "
+              f"({saved / max(parked, 1):.3f} of the parked); offload.state() {state}")
+        check(same, f"offload changed the {regime} losses")
+        check(parked > 0 and saved >= OFFLOAD_KEPT * parked,
+              f"offload saved {saved} bytes at the {regime} step's peak, under "
+              f"{OFFLOAD_KEPT:g} of the parked {parked}")
+        if regime == "captured":
+            c = pt.profiler.dispatch_counters()
+            check(c["capture_replays"] >= 2 and len(set(ptrs[-OFFLOAD_STEPS:])) == 1,
+                  "the offloaded capture moved a parameter or did not replay")
+        sched.sync()
+    sched.sync()
+    same = bitwise_same(torch, models[0], models[1], opts[0], opts[1])
+    print(f"  parameters and moments bitwise after both regimes: {same}; blocked ms "
+          f"{sched.blocked_ema_ms:.3f} (the prefetch copies, measured by CUDA events), "
+          f"step period {sched.step_ema_ms:.2f} ms")
+    check(same, "offload left the twin models apart")
+    offload.disable(opts[1])
+    for w in workers:
+        w.close()
+    set_regime(pt, "per_op")
+    pt.set_flags({"FLAGS_pallas_fused_update": False})
+    lazy.reset_lazy_state()
+    del models, opts
+    torch.cuda.empty_cache()
+    print(f"  17c in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def budgeted_pool_345m(torch, pt, card):
+    """17d: the engine's pool sized by the memory planner from
+    FLAGS_memory_budget_mb: its overhead against the measured non-pool
+    memory of a serve, bench_serving's mix, requests waiting for blocks,
+    and the "no room" error."""
+    import numpy as np
+    from paddle_tpu_torch import profiler, serving
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt2_345m
+
+    print(f"[17d] a planner-sized KV pool: serving.Engine(num_blocks=0), "
+          f"FLAGS_memory_budget_mb={POOL_BUDGET_MB:g}; {card}")
+    t0 = time.perf_counter()
+    pt.seed(0)
+    cfg = gpt2_345m(max_seq_len=2048, dropout=0.0, attn_dropout=0.0)
+    model = GPTForPretraining(cfg, device="gpu:0").eval()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    pt.set_flags({"FLAGS_memory_budget_mb": POOL_BUDGET_MB})
+    try:
+        eng = serving.Engine(model, serving.ServingConfig(block_size=16,
+                                                          prompt_buckets=[32, 64, 128],
+                                                          num_blocks=0))
+        plan = eng._pool_plan
+        pool_bytes = plan.pool_bytes(eng._pool.num_blocks)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, cfg.vocab_size, SERVE_PROMPT_LENS[i % len(SERVE_PROMPT_LENS)])
+                   for i in range(SERVE_REQUESTS)]
+        profiler.reset_dispatch_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the weights, the pool, what else lives
+        out = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        # the serve's peak above what was held before it, plus the weights it
+        # reads: what the planner's overhead stands for
+        measured = torch.cuda.max_memory_allocated() - held + weights
+        c = profiler.dispatch_counters()
+        ratio = plan.overhead_bytes / measured
+        # the weights are most of both, so the planner is held on the rest
+        # too: the decode program's activations, gathered block views and
+        # outputs, run at the geometry it planned (the largest batch at the
+        # longest context, on a minimal pool) after one run that sets up
+        # its streams, against its estimate
+        args, _pool, _block = eng._plan_inputs(**eng._plan_args)
+        eng._decode_fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        eng._decode_fn(*args)
+        torch.cuda.synchronize()
+        decode_act = torch.cuda.max_memory_allocated() - before
+        feeds = sum(t.numel() * t.element_size() for t in args[2:])
+        planner_act = plan.overhead_bytes - weights - feeds
+        act_ratio = planner_act / max(decode_act, 1)
+        del args
+        print(f"  pool {eng._pool.num_blocks} blocks x {plan.block_bytes / 2**20:.3f} MB = "
+              f"{pool_bytes / 2**30:.3f} GB of a {POOL_BUDGET_MB / 1024:.3f} GB budget; the "
+              f"planner's overhead {plan.overhead_bytes / 2**30:.3f} GB (the decode program "
+              f"recorded on a minimal pool, peak {plan.trace_peak_bytes / 2**30:.3f} GB) against "
+              f"the measured non-pool memory of the serve {measured / 2**30:.3f} GB (its "
+              f"max_memory_allocated above what was held before it, plus the weights "
+              f"{weights / 2**30:.3f} GB): {ratio:.3f}x; less its inputs, the planner's "
+              f"{planner_act / 2**20:.2f} MB against the decode program's "
+              f"{decode_act / 2**20:.2f} MB run at the planned geometry "
+              f"(max_memory_allocated above what was allocated before it): {act_ratio:.3f}x")
+        check(POOL_RATIO[0] <= ratio <= POOL_RATIO[1],
+              f"the pool planner's overhead is {ratio:.3f}x the measured one")
+        check(POOL_RATIO[0] <= act_ratio <= POOL_RATIO[1],
+              f"the pool planner's activations are {act_ratio:.3f}x the decode program's")
+        check(all(r.status == "ok" for r in out) and c["serve_block_leaks"] == 0,
+              "the budgeted serve failed or leaked blocks")
+        # a pool smaller than the mix needs at once: requests wait for blocks
+        need = max(eng._buckets.ctx_blocks(len(p), SERVE_NEW_TOKENS) for p in prompts)
+        small_budget = (plan.overhead_bytes + 3 * need * plan.block_bytes) / 2**20
+        pt.set_flags({"FLAGS_memory_budget_mb": small_budget})
+        small = serving.Engine(model, serving.ServingConfig(block_size=16,
+                                                            prompt_buckets=[32, 64, 128],
+                                                            num_blocks=0))
+        profiler.reset_dispatch_counters()
+        out2 = small.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+        c2 = profiler.dispatch_counters()
+        peak_used = small._pool._peak_used
+        print(f"  a {small._pool.num_blocks}-block pool ({small_budget:.1f} MB budget, ~3 of the "
+              f"mix's largest contexts): all {len(out2)} requests answered "
+              f"({sum(r.status == 'ok' for r in out2)} ok), peak {peak_used} blocks in use, "
+              f"{c2['serve_block_leaks']} leaked")
+        check(all(r.status == "ok" for r in out2) and c2["serve_block_leaks"] == 0,
+              "the small budgeted pool failed a request or leaked")
+        check(peak_used <= small._pool.num_blocks < sum(
+            eng._buckets.ctx_blocks(len(p), SERVE_NEW_TOKENS) for p in prompts),
+              "the small pool held the whole mix at once: nothing waited")
+        small.close()
+        pt.set_flags({"FLAGS_memory_budget_mb": plan.overhead_bytes / 2**20 / 2})
+        try:
+            serving.Engine(model, serving.ServingConfig(block_size=16,
+                                                        prompt_buckets=[32, 64, 128],
+                                                        num_blocks=0))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        print(f"  a budget of half the overhead: {refused}")
+        check(refused is not None and "no room" in refused, "a budget below the overhead "
+              "built an engine")
+        eng.close()
+    finally:
+        pt.set_flags({"FLAGS_memory_budget_mb": 0.0})
+    del eng
+    torch.cuda.empty_cache()
+    detected = default_engine_on_card(torch, pt, model, prompts)
+    del model
+    torch.cuda.empty_cache()
+    print(f"  17d in {time.perf_counter() - t0:.1f} s")
+    return {"blocks": int(plan.num_blocks), "overhead_gb": plan.overhead_bytes / 2**30,
+            "measured_gb": measured / 2**30, "ratio": ratio, "planner_act_mb": planner_act / 2**20,
+            "decode_act_mb": decode_act / 2**20, "activation_ratio": act_ratio,
+            "detected": detected}
+
+
+def default_engine_on_card(torch, pt, model, prompts):
+    """17d: a default engine (no num_blocks, no budget): the planner sizes
+    its pool from the card's free memory less the headroom; it serves the
+    mix, and the process then allocates half the headroom besides."""
+    from paddle_tpu_torch import profiler, serving
+    from paddle_tpu_torch.analysis import memory as mem
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    free0 = torch.cuda.mem_get_info()[0]
+    eng = serving.Engine(model, serving.ServingConfig(block_size=16,
+                                                      prompt_buckets=[32, 64, 128]))
+    plan = eng._pool_plan
+    profiler.reset_dispatch_counters()
+    out = eng.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    c = profiler.dispatch_counters()
+    free1 = torch.cuda.mem_get_info()[0]
+    extra_bytes = int(mem.DETECTED_HEADROOM * total / 2)
+    extra = torch.ones(extra_bytes, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    got = int(extra[0]) == 1 and int(extra[-1]) == 1
+    print(f"  a default engine (no num_blocks, no budget): {eng._pool.num_blocks} blocks = "
+          f"{plan.pool_bytes(eng._pool.num_blocks) / 2**30:.3f} GB from the detected budget "
+          f"{plan.budget_bytes / 2**30:.3f} GB (free {free0 / 2**30:.3f} GB of "
+          f"{total / 2**30:.3f} before it, headroom {mem.DETECTED_HEADROOM:g} of the card); "
+          f"the mix {sum(r.status == 'ok' for r in out)}/{len(out)} ok, "
+          f"{c['serve_block_leaks']} leaked; free after the serve {free1 / 2**30:.3f} GB, then "
+          f"{extra_bytes / 2**30:.3f} GB allocated besides: {got}")
+    check(eng._pool.num_blocks > 256 and plan.budget_bytes is not None,
+          "the default engine's pool was not sized from the card")
+    check(all(r.status == "ok" for r in out) and c["serve_block_leaks"] == 0,
+          "the default engine failed a request or leaked")
+    check(got, "the process could not allocate half the headroom beside the default engine")
+    del extra
+    eng.close()
+    del eng
+    return {"blocks": int(plan.num_blocks), "budget_gb": plan.budget_bytes / 2**30,
+            "free_before_gb": free0 / 2**30, "free_after_serve_gb": free1 / 2**30,
+            "extra_gb": extra_bytes / 2**30}
+
+
+def analysis_tools_on_card():
+    """17e: graph_lint on a port builder file and mem_probe, each in a
+    process of its own, on the card."""
+    print("[17e] python -m paddle_tpu_torch.tools.graph_lint and .mem_probe on the card")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, cmd in (
+            ("graph_lint", [sys.executable, "-m", "paddle_tpu_torch.tools.graph_lint",
+                            "paddle_tpu_torch/examples/lint_models.py", "--memory-budget-mb",
+                            "64", "--plan"]),
+            ("mem_probe", [sys.executable, "-m", "paddle_tpu_torch.tools.mem_probe",
+                           "--steps", "4"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=300)
+        out[name] = time.perf_counter() - t0
+        tail = proc.stdout.strip().splitlines()[-6:]
+        print(f"  {name}: exit {proc.returncode} in {out[name]:.1f} s; " + " | ".join(tail))
+        if proc.returncode:
+            print(proc.stderr[-2000:])
+        check(proc.returncode == 0, f"{name} exited {proc.returncode} on the card")
+    return out
+
+
+def slice19(torch, pt, fa, fu, dev, card):
+    """Phase 17: 17a-17e. Returns their numbers."""
+    t0 = time.perf_counter()
+    lint = lint_and_certificates(torch, pt, fa, fu, dev)
+    remat = remat_plan_345m(torch, pt, fa, dev)
+    offl = offload_345m(torch, pt, fa, fu, dev)
+    pool = budgeted_pool_345m(torch, pt, card)
+    tools = analysis_tools_on_card()
+    print(f"  phase 17 in {time.perf_counter() - t0:.1f} s")
+    return {"lint": lint, "remat": remat, "offload": offl, "pool": pool, "tools": tools}
+
+
+def slice19_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase17``: phase 17 alone, after building the
+    libraries its paths launch (the tf32x3 and sm90 flash kernels, the fused
+    updates)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_update as fu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    print(card)
+    t0 = time.perf_counter()
+    sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME, fa.SM90_FWD_KERNEL_NAME,
+               fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME, fu.KERNEL_NAME]
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    out = slice19(torch, pt, fa, fu, torch.device("cuda", 0), card)
+    print(json.dumps({"phase17": out}, default=str))
+    return 0
+
+
 def main() -> int:
+    if "--scrape-child" in sys.argv:
+        return scrape_child(sys.argv[sys.argv.index("--scrape-child") + 1])
     import torch
 
     if "--tf32-repeat" in sys.argv:
@@ -6863,6 +7642,8 @@ def main() -> int:
         return slice17_alone(torch)
     if "--phase16" in sys.argv:
         return slice18_alone(torch)
+    if "--phase17" in sys.argv:
+        return slice19_alone(torch)
     if "--profile16" in sys.argv:
         return profiler_child()
     if "--host-cost-child" in sys.argv:
@@ -6879,6 +7660,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(label):
+        """Each phase's time, printed at its end."""
+        now = time.perf_counter()
+        print(f"  [time] phase {label}: {now - laps[-1]:.1f} s ({now - t_start:.1f} s in)")
+        laps.append(now)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt2_345m
@@ -6909,6 +7697,7 @@ def main() -> int:
     ps_built = start_ps_build()  # g++ builds phase 15's host libraries meanwhile
     logs = _build.build(sources)
     print(f"[2] built {sources} in {time.perf_counter() - t0:.1f} s")
+    lap("2 build")
     for name, log in logs.items():
         # ptxas -v: each instantiation, its registers and spills, and any
         # warning that it serialized the wgmmas
@@ -6939,6 +7728,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     fwd = check_forward_kernels(torch, fa, gen, dev)
+    lap("3")
 
     # 4. full-sequence forward of GPT-2 345M through the kernel
     print("[4] GPT-2 345M forward, 4 x 1024 tokens")
@@ -7031,31 +7821,41 @@ def main() -> int:
     print("[5a] host cost per op of the tensor surface before any profiler session, small "
           "card tensors (16 x 16)")
     early_host_us = host_cost_per_op(torch, pt, dev)
+    lap("4-5a")
 
     # 5b. the serving engine
     served = serve_345m(torch, pt, fa, fu, card)
+    lap("5b")
     # 5c. serving under faults
     serve_under_faults(torch, pt, fa, fu, card, served)
+    lap("5c")
     del served
     torch.cuda.empty_cache()
 
     bwd = check_backward_kernels(torch, fa, gen, dev)
     simt_path = simt_backward_path(torch, pt, fa, gen, dev)
+    lap("6")
     train = train_345m(torch, pt, fa, gen, dev)
+    lap("7")
     # 7b. recompute with dropout, the O1 fp16 loop, an input's gradient;
     # before phase 8's trace: a torch.profiler run leaves every later launch
     # dearer on the host
     recompute = recompute_step_345m(torch, pt, fa, gen, dev, train)
     o1 = o1_fp16_scaler_345m(torch, pt, fa, fu, gen, dev)
     grad_input_step(torch, pt, fa, gen, dev)
+    lap("7b")
     torch.cuda.empty_cache()
     run_trace_child("gpt")
+    lap("8")
     # 7c. checkpoint and resume, in processes of its own (phase 7's step is
     # freed by now)
     resume = checkpoint_resume_345m(torch, card)
+    lap("7c")
     # 7d. BERT-base pretraining: the non-causal flash kernels on a model's path
     bert = bert_pretraining(torch, pt, fa, gen, dev)
+    lap("7d")
     update = check_update_kernels(torch, fu, gen, dev)
+    lap("9")
     reset_flash_counts(fa)  # the f32 training path's flash count starts here
     launches_f32, f32_step = train_f32_adam(torch, pt, fa, fu, gen, dev)
     f32_train = f32_step["flash"]  # ... and ends inside, before the route comparison
@@ -7069,37 +7869,51 @@ def main() -> int:
           f"{f32_train['dq_tf32x3'] / f32_step['steps']:g} dQ tf32x3 launches per step")
     check(f32_train == want, f"f32 training flash launches {f32_train}, expected {want}")
     launches_f32.update(train_momentum_sgd(torch, pt, fu, gen, dev))
+    lap("10-11")
     # 8b. a trace of one replayed BERT step, after every host-clock window
     torch.cuda.empty_cache()
     run_trace_child("bert")
+    lap("8b")
     # 11b. the tensor surface: a Paddle user's 345M step, the surface on the card
     surface = tensor_surface(torch, pt, fa, fu, dev)
+    lap("11b")
     sf = surface["flash"]
     # 12. paddle.nn and ResNet-50: the O2 step, the Momentum kernel at its
     # width, the encoder on the flash kernels, a traced replay
     nn12 = nn_and_resnet50(torch, pt, fa, fu, dev)
+    lap("12")
     enc = nn12["encoder"]["launches"]
     # 13. eager lazy dispatch and whole-step capture
     p13 = eager_dispatch(torch, pt, fa, fu, dev)
+    lap("13")
     l13 = p13["launches"]
     # 14. frozen parameters, O1 casts, linalg and autograd.functional, the
     # serve-probe CLI
     p14 = slice16(torch, pt, fa, fu, dev, p13["345m"])
+    lap("14")
     l14 = p14["launches"]
     # 15. the PS tables and config 5's ERNIE CTR loop, the PS host rows, the
     # multi-process DataLoader
     p15 = slice17(torch, pt, fa, dev, ps_built)
+    lap("15")
     # 16. the profiler and the ops plane: the telemetry variants, the 345M
     # f32 step with telemetry, serving under the diagnostics server and the
     # sentinel, the Profiler over the O2 step and obs_probe in processes of
     # their own
     p16 = slice18(torch, pt, fa, fu, dev, card)
+    lap("16")
+    # 17. static analysis and the memory plan: the lint and the certificates,
+    # the remat plan of the O2 step, offload of the Adam moments, a
+    # planner-sized KV pool, the two CLIs
+    p17 = slice19(torch, pt, fa, fu, dev, card)
+    lap("17")
+    l17 = p17["remat"]["launches"]
 
-    # 17. per-kernel numbers, then the result
+    # 18. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[17] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[18] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -7207,7 +8021,7 @@ def main() -> int:
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
             inference["fwd_sm90"] + train["launches"]["fwd_sm90"] + resume["fwd_sm90"]
             + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"]
-            + enc["fwd_sm90"], fwd16),
+            + enc["fwd_sm90"] + l17["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
             inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"]
             + enc["fwd_tf32x3"] + l13["fwd_tf32x3"] + l14["fwd_tf32x3"], fwd32),
@@ -7216,7 +8030,8 @@ def main() -> int:
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
             train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
-            + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"], bwd["bfloat16"]["dkv"]),
+            + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"] + l17["dkv_sm90"],
+            bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
             f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"] + l13["dkv_tf32x3"] + l14["dkv_tf32x3"],
             bwd32["dkv"]),
@@ -7224,7 +8039,8 @@ def main() -> int:
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
-            + o1["launches"]["dq_sm90"] + enc["dq_sm90"], bwd["bfloat16"]["dq"]),
+            + o1["launches"]["dq_sm90"] + enc["dq_sm90"] + l17["dq_sm90"],
+            bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
             f32_train["dq_tf32x3"] + sf["dq_tf32x3"] + l13["dq_tf32x3"] + l14["dq_tf32x3"],
             bwd32["dq"]),
@@ -7304,7 +8120,19 @@ def main() -> int:
         })
         check(rows[-1]["launches"] > 0, f"the {kind} telemetry variant was launched no time "
                                         f"on its path")
-    print(f"[17] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
+    r17, o17, d17 = p17["remat"], p17["offload"], p17["pool"]
+    print(f"    static analysis and the memory plan (17a-17e): the remat plan of the O2 step "
+          f"{r17['plan']['peak_before_mb'] / 1024:.3f} -> {r17['plan']['peak_after_mb'] / 1024:.3f} "
+          f"GB (planner), {r17['plan']['recompute_pct']}% recompute; measured capture peaks "
+          f"unplanned / planned / uniform " + " / ".join(
+              f"{r17['peaks_gb'][k]:.3f}" for k in ("unplanned", "planned", "uniform"))
+          + " GB; ms per replay " + " / ".join(f"{r17['ms'][k]:.3f}" for k in
+                                                ("unplanned", "planned", "uniform"))
+          + f"; offload step ms (without / with) per-op {o17['per_op']['step_ms_off']:.2f} / "
+          f"{o17['per_op']['step_ms_on']:.2f}, captured {o17['captured']['step_ms_off']:.2f} / "
+          f"{o17['captured']['step_ms_on']:.2f}; the planner's pool overhead "
+          f"{d17['ratio']:.3f}x the measured one")
+    print(f"[18] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
           f"check")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,4 @@
-"""The static memory planner's estimate: the port of the liveness half of
-``paddle_tpu/analysis/memory.py``.
+"""The static memory planner: the port of ``paddle_tpu/analysis/memory.py``.
 
 Over a recorded program (``analysis.Program``), every value (a storage) is
 one buffer with a live range over the op timeline:
@@ -21,8 +20,23 @@ The peak is the largest live sum over the timeline, the caching
 allocator's view without its rounding and fragmentation. ``memory_budget``
 is the registered pass; ``captured_step_plans`` plans the captured step
 this thread replayed last; ``device_hbm_bytes`` is the card's memory.
-Donation safety, the use-after-donate scans, ``BlockPoolPlan`` and
-``plan_block_pool`` are ROADMAP queue 1 item 12b.
+
+Donation safety (``donation_safety``, ``donation_verdicts``): in the port
+"donated" means written in place by a captured program, so a use after
+donation is a live external alias of such a storage, which the next replay
+overwrites under it: a held ``numpy()`` view, a detached view, a tied
+buffer bound at two positions. ``tensor_aliases`` and
+``donated_buffer_alias_diags`` find them by one ``gc`` scan for tensors
+(and numpy arrays) over the same storage; ``donated_buffer_diags`` adds the
+tied buffers; ``donation_gate`` is the one gate the whole-step capture and
+``compile_train_step`` run under FLAGS_check_programs.
+
+``plan_block_pool`` sizes a paged KV pool from the budget: the decode
+program recorded once on a MINIMAL pool gives the non-pool overhead, and
+the pool gets ``(budget - overhead) // block_bytes`` blocks. The budget is
+an explicit argument, else FLAGS_memory_budget_mb, else the card's memory
+less what this process already holds outside the decode program's inputs
+(a deliberate difference: the JAX package takes the whole HBM).
 """
 from __future__ import annotations
 
@@ -34,8 +48,10 @@ import torch
 from ..core import flags as _flags
 from . import Context, Diagnostic, Program, Severity, register_pass
 
-__all__ = ["Buffer", "MemoryPlan", "captured_step_plans", "device_hbm_bytes",
-           "plan_memory"]
+__all__ = ["BlockPoolPlan", "Buffer", "MemoryPlan", "captured_step_plans",
+           "device_hbm_bytes", "donated_buffer_alias_diags", "donated_buffer_diags",
+           "donation_gate", "donation_verdicts", "plan_block_pool", "plan_memory",
+           "tensor_aliases", "traced_program_diags"]
 
 _MB = float(1 << 20)
 
@@ -186,7 +202,8 @@ def plan_memory(program, donated: Optional[Sequence[int]] = None, roles=()) -> M
     copies = []
     for v in program.values.values():
         if v.producer < 0:
-            kind, name = role_of.get(v.vid, ("arg", str(v.vid)))
+            kind, name = (getattr(program, "roles", {}).get(v.vid)
+                          or role_of.get(v.vid, ("arg", str(v.vid))))
             don = v.vid in donated_set
             buffers.append(Buffer(kind, name, v.shape, v.dtype, v.nbytes, -1, n, don))
             if don and v.vid in first_write:
@@ -283,3 +300,315 @@ def memory_budget(ctx: Context) -> List[Diagnostic]:
             data={"peak_bytes": int(plan.peak_bytes), "hbm_bytes": int(hbm)},
         ))
     return diags
+
+
+# ---------------------------------------------------------------------------
+# Donation safety
+# ---------------------------------------------------------------------------
+def _use_after_donate_diag(label, holders, source="") -> Diagnostic:
+    """The one use-after-donate ERROR, shared by the pass (caller-provided
+    alias_refs) and the runtime scan."""
+    held = "; ".join(str(h) for h in holders[:3])
+    more = f" (+{len(holders) - 3} more)" if len(holders) > 3 else ""
+    return Diagnostic(
+        Severity.ERROR, "donation_safety", label,
+        f"use-after-donate: {len(holders)} live external reference(s) alias this "
+        f"donated buffer [{held}{more}]; the captured program writes it in place, so "
+        "the alias changes under its holder at the next replay (a numpy() view or a "
+        "detach() held across a captured step is the classic shape of this bug)",
+        hint="copy before holding (alias.clone()), drop the alias before the step, or "
+             "keep the step off whole-step capture",
+        source=source)
+
+
+def _label(ctx: Context, vid: int) -> str:
+    kind, name = ctx.role_of(vid)
+    return f"{kind}:{name}"
+
+
+@register_pass("donation_safety")
+def donation_safety(ctx: Context) -> List[Diagnostic]:
+    donated = set(ctx.donated or ())
+    if not donated or ctx.program is None:
+        return []  # nothing donated: vacuously safe, stay silent
+    read = set()
+    for op in ctx.ops:
+        read.update(op.inputs)
+    diags: List[Diagnostic] = []
+    returned = set(ctx.program.outputs)
+    for vid in sorted(donated):
+        if vid in returned and not ctx.program.values[vid].written:
+            diags.append(Diagnostic(
+                Severity.ERROR, "donation_safety", _label(ctx, vid),
+                "donated input is returned unchanged: the caller's output aliases a "
+                "buffer the captured program writes in place at its next run",
+                hint="return a copy, or keep this input out of the donated set",
+                shapes=(ctx.program.values[vid].shape,)))
+        elif vid not in read and not ctx.program.values[vid].written:
+            diags.append(Diagnostic(
+                Severity.INFO, "donation_safety", _label(ctx, vid),
+                "donated input is never read: its buffer is free from program entry "
+                "(full donation credit)"))
+    for group in ctx.alias_groups:
+        g = set(group)
+        dg = g & donated
+        if dg and len(g) > 1:
+            names = ", ".join(_label(ctx, v) for v in sorted(g))
+            diags.append(Diagnostic(
+                Severity.ERROR, "donation_safety", _label(ctx, min(dg)),
+                f"one runtime buffer is bound to {len(g)} argument positions ({names}) and "
+                "at least one of them is written in place: the write changes what the "
+                "other position reads",
+                hint="pass distinct tensors, or keep the shared buffer out of the captured "
+                     "program"))
+    for vid, holders in sorted(ctx.alias_refs.items()):
+        if vid in donated and holders:
+            diags.append(_use_after_donate_diag(_label(ctx, vid), list(holders)))
+    if not any(d.severity >= Severity.ERROR for d in diags):
+        diags.append(Diagnostic(
+            Severity.INFO, "donation_safety", "program",
+            f"all {len(donated)} donated argument positions verified: no double-bound "
+            "buffers, no live external aliases"))
+    return diags
+
+
+def donation_verdicts(ctx: Context) -> List[Dict[str, object]]:
+    """Per-position verdicts of ``donation_safety`` over ``ctx``'s donated
+    values: ``{"position", "role", "proven", "diagnostics"}``, ``proven``
+    when no error names the position."""
+    from . import run_passes
+
+    diags = [d for d in run_passes(ctx, ["donation_safety"])
+             if d.pass_name == "donation_safety"]
+    out = []
+    for vid in sorted(set(ctx.donated or ())):
+        label = _label(ctx, vid)
+        errs = [d for d in diags if d.severity >= Severity.ERROR
+                and (d.op == label or label in (d.message or ""))]
+        out.append({"position": int(vid), "role": label, "proven": not errs,
+                    "diagnostics": [d.message for d in errs]})
+    return out
+
+
+def _scan_holders(targets: Dict, exclude=()) -> Dict:
+    """ONE ``gc.get_objects()`` pass: {storage key: [description of a live
+    tensor or numpy array over that storage]} for the storages of
+    ``targets`` ({storage key: (data pointer, bytes, device type)}),
+    leaving out the tensors in ``exclude`` (their owners)."""
+    import gc
+
+    import numpy as np
+
+    ex = {id(t) for t in exclude}
+    cpu = {k: (ptr, n) for k, (ptr, n, dev) in targets.items() if dev == "cpu"}
+    found: Dict = {}
+    for obj in gc.get_objects():
+        kind = type(obj)  # not isinstance: no attribute of a foreign object is read
+        if id(obj) in ex:
+            continue
+        if issubclass(kind, torch.Tensor):
+            try:
+                key = obj.untyped_storage()._cdata
+            except Exception:  # noqa: BLE001
+                continue
+            if key in targets:
+                found.setdefault(key, []).append(
+                    f"tensor shape={tuple(obj.shape)} dtype={obj.dtype}")
+        elif cpu and issubclass(kind, np.ndarray):
+            try:
+                ptr = obj.__array_interface__["data"][0]
+            except Exception:  # noqa: BLE001
+                continue
+            for key, (lo, n) in cpu.items():
+                if lo <= ptr < lo + n:
+                    found.setdefault(key, []).append(
+                        f"numpy array shape={obj.shape} dtype={obj.dtype}")
+    return found
+
+
+def _target(t):
+    st = t.untyped_storage()
+    return st._cdata, (st.data_ptr(), st.nbytes(), t.device.type)
+
+
+def tensor_aliases(t, exclude=()) -> List[str]:
+    """Descriptions of the live tensors and numpy arrays (outside
+    ``exclude``, and besides ``t`` itself) over ``t``'s storage: what an
+    in-place write by a captured program changes under its holder."""
+    key, info = _target(t)
+    return _scan_holders({key: info}, tuple(exclude) + (t,)).get(key, [])
+
+
+def donated_buffer_alias_diags(named_tensors, exclude=(),
+                               source="captured-step") -> List[Diagnostic]:
+    """donation_safety errors for tensors a captured program writes in place:
+    ``named_tensors`` is [(label, tensor)], ``exclude`` the tensors that own
+    them. One ``gc`` pass covers all."""
+    targets = dict(_target(t) for _label_, t in named_tensors)
+    owners = tuple(exclude) + tuple(t for _l, t in named_tensors)
+    found = _scan_holders(targets, owners)
+    diags = []
+    for label, t in named_tensors:
+        holders = found.get(_target(t)[0], [])
+        if holders:
+            diags.append(_use_after_donate_diag(label, holders, source))
+    return diags
+
+
+def donated_buffer_diags(named_tensors, exclude=(),
+                         source="captured-step") -> List[Diagnostic]:
+    """The runtime donation scan shared by the whole-step capture and
+    ``compile_train_step``: storages bound at two positions (tied weights),
+    then the live-external-alias scan. Errors bump the
+    ``donation_alias_flags`` dispatch counter."""
+    by_key: Dict = {}
+    for label, t in named_tensors:
+        by_key.setdefault(_target(t)[0], []).append(label)
+    diags: List[Diagnostic] = []
+    for labels in by_key.values():
+        if len(labels) > 1:
+            diags.append(Diagnostic(
+                Severity.ERROR, "donation_safety", labels[0],
+                f"one runtime buffer is bound to {len(labels)} donated positions "
+                f"({', '.join(labels)}): the program writes it in place twice, the second "
+                "update reading the first's result",
+                hint="untie the tensors (clone one), or keep the shared buffer out of the "
+                     "update",
+                source=source))
+    diags += donated_buffer_alias_diags(named_tensors, exclude=exclude, source=source)
+    if diags:
+        from ..core import lazy
+
+        lazy._counters()["donation_alias_flags"] += len(diags)
+    return diags
+
+
+def donation_gate(params, states, program_thunk, roles, donated, source,
+                  static_diags=None) -> List[Diagnostic]:
+    """The one donation-safety gate of the whole-step capture and
+    ``compile_train_step``: the runtime scan of the parameters and
+    optimizer states the program writes in place, plus the static passes
+    over the program's recording (``program_thunk()``; pass the previous
+    return value as ``static_diags`` to reuse it), then ``enforce`` per
+    FLAGS_check_programs. The static result is returned only after enforce
+    passes, so a raising verdict is proven again at the next call."""
+    from . import enforce
+
+    named = [(f"param:{getattr(p, 'name', '') or i}", p) for i, p in enumerate(params)]
+    owners = list(params)
+    for i, st in enumerate(states):
+        for k in sorted(st):
+            if isinstance(st[k], torch.Tensor):
+                named.append((f"opt_state:{i}.{k}", st[k]))
+                owners.append(st[k])
+    diags = donated_buffer_diags(named, exclude=owners, source=source)
+    if static_diags is None:
+        static_diags = traced_program_diags(program_thunk, roles, donated, source)
+    enforce(diags + static_diags, where=f"{source} donation")
+    return static_diags
+
+
+def traced_program_diags(program_thunk, roles, donated, source) -> List[Diagnostic]:
+    """Once-per-build static check of a program written in place: its
+    recorded IR (``program_thunk()``, a recording that happened anyway)
+    through the memory passes. A missing recording yields []: the check
+    never breaks the step it audits."""
+    from . import run_passes
+
+    try:
+        program = program_thunk()
+        if program is None:
+            return []
+        ctx = Context(program, roles, source, donated=donated)
+        return run_passes(ctx, ["memory_budget", "donation_safety"])
+    except Exception:  # noqa: BLE001
+        return []
+
+
+# ---------------------------------------------------------------------------
+# Block pools
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class BlockPoolPlan:
+    """The planner's size of a paged KV block pool (paddle.serving).
+
+    ``num_blocks`` is None when no budget is configured anywhere (argument,
+    flag or detected card memory): the caller applies its default.
+    ``overhead_bytes`` is the decode program's estimated peak without the
+    pool: weights, activations, the gathered block views, block tables."""
+
+    num_blocks: Optional[int]
+    block_bytes: int
+    budget_bytes: Optional[int]
+    overhead_bytes: int
+    trace_peak_bytes: int
+
+    @property
+    def est_peak_hbm_mb(self) -> float:
+        """Estimated peak of the recorded decode program (MB)."""
+        return self.trace_peak_bytes / _MB
+
+    def pool_bytes(self, num_blocks: Optional[int] = None) -> int:
+        n = self.num_blocks if num_blocks is None else num_blocks
+        return int(n or 0) * self.block_bytes
+
+
+# The share of the card the detected rung keeps out of a plan: what no
+# recording of the decode program sees (the serve buckets' graph pools, the
+# prefill activations, the streams' cuBLAS workspaces) and whatever the
+# process allocates later. XLA gives a JAX process 75% of the card by
+# default, the bytes_limit the JAX planner's detected rung reads.
+DETECTED_HEADROOM = 0.25
+
+
+def detected_budget_bytes(held_inputs_bytes: int = 0) -> Optional[int]:
+    """The budget of the detected rung, or None off the card: the card's
+    free memory (``torch.cuda.mem_get_info``, which sees every other
+    process, the CUDA context and this process's allocator segments), the
+    allocator's cached but unused bytes, and the program's inputs already
+    resident (``held_inputs_bytes``: the weights, which the plan counts),
+    less ``DETECTED_HEADROOM`` of the card's memory."""
+    hbm = device_hbm_bytes()
+    if hbm is None:
+        return None
+    dev = torch.cuda.current_device()
+    free, _total = torch.cuda.mem_get_info(dev)
+    cached = int(torch.cuda.memory_reserved(dev)) - int(torch.cuda.memory_allocated(dev))
+    budget = int(free) + cached + int(held_inputs_bytes) - int(DETECTED_HEADROOM * hbm)
+    return max(0, budget)
+
+
+def plan_block_pool(record_thunk, *, block_bytes: int, pool_bytes_in_trace: int = 0,
+                    budget_mb: Optional[float] = None, roles: Sequence = (),
+                    donated: Sequence[int] = (),
+                    source: str = "serving-decode") -> BlockPoolPlan:
+    """Size a paged KV block pool against the memory budget: record the
+    decode program once over a MINIMAL pool (``record_thunk()`` returns its
+    ``analysis.Program``), take its planner peak less the minimal pool's own
+    bytes (``pool_bytes_in_trace``) as the non-pool overhead, and give the
+    pool ``(budget - overhead) // block_bytes`` blocks. Budget precedence:
+    ``budget_mb`` > FLAGS_memory_budget_mb > the detected budget
+    (``detected_budget_bytes``: the card's free memory and the program's
+    resident inputs, less a headroom); with none,
+    ``num_blocks`` is None. A failed recording plans an overhead of the
+    minimal pool alone."""
+    if budget_mb is None:
+        flagged = float(_flags.flag("memory_budget_mb"))
+        budget_mb = flagged if flagged > 0 else None
+    peak, held = 0, 0
+    try:
+        program = record_thunk()
+        ctx = Context(program, list(roles), source, donated=tuple(donated))
+        peak = plan_memory(ctx, donated=tuple(donated)).peak_bytes
+        held = sum(v.nbytes for v in program.values.values() if v.producer < 0)
+    except Exception:  # noqa: BLE001
+        peak = int(pool_bytes_in_trace)
+    budget_bytes = (int(budget_mb * _MB) if budget_mb is not None
+                    else detected_budget_bytes(held))
+    overhead = max(0, int(peak) - int(pool_bytes_in_trace))
+    num_blocks: Optional[int] = None
+    if budget_bytes is not None:
+        num_blocks = max(0, (budget_bytes - overhead) // int(block_bytes))
+    return BlockPoolPlan(num_blocks=num_blocks, block_bytes=int(block_bytes),
+                         budget_bytes=budget_bytes, overhead_bytes=overhead,
+                         trace_peak_bytes=int(peak))

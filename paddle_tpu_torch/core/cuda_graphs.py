@@ -15,9 +15,9 @@ A capture runs inside ``Graph.capture()``:
     after another can share one), else into a private pool.
 
 ``Graph.replay()`` reseeds the segment pairs and replays. ``warm_up`` runs
-a function on a side stream, as ``torch.cuda.graphs`` asks of the eager
-runs before a capture; ``copy_in`` loads new inputs into a graph's static
-buffers.
+a function on the device's one side stream, as ``torch.cuda.graphs`` asks
+of the eager runs before a capture; ``copy_in`` loads new inputs into a
+graph's static buffers.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ import torch
 
 from . import random as _random
 
-__all__ = ["Graph", "copy_in", "gc_paused", "warm_up"]
+__all__ = ["Graph", "copy_in", "gc_paused", "side_stream", "warm_up"]
 
 
 @contextlib.contextmanager
@@ -43,11 +43,29 @@ def gc_paused():
             gc.enable()
 
 
+_side_streams: dict = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The one side stream of ``device`` that every warm-up runs on. Each
+    stream the process runs a matrix product on keeps a cuBLAS workspace of
+    its own allocated for good (PyTorch's default is 32 MiB on Hopper), so
+    a new stream per warm-up grew the process by a workspace per captured
+    program."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    side = _side_streams.get(device)
+    if side is None:
+        side = _side_streams[device] = torch.cuda.Stream(device=device)
+    return side
+
+
 def warm_up(device, fn, *args, **kwargs):
-    """``fn(*args, **kwargs)`` on a side stream, ordered after and before
-    the device's current stream's work; returns its result."""
+    """``fn(*args, **kwargs)`` on the device's side stream, ordered after
+    and before the device's current stream's work; returns its result."""
     current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device=device)
+    side = side_stream(device)
     side.wait_stream(current)
     with torch.cuda.stream(side):
         out = fn(*args, **kwargs)
@@ -89,3 +107,11 @@ class Graph:
 
     def reset(self):
         self.graph.reset()
+
+    def pool_bytes(self) -> int:
+        """The bytes the caching allocator keeps in this graph's memory pool:
+        its segments, reserved between replays (a replay's
+        ``max_memory_allocated`` does not count them)."""
+        pool = tuple(self.graph.pool())
+        return sum(int(s["total_size"]) for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id") or ()) == pool)

@@ -372,6 +372,9 @@ def _sweep(roots, seeds, retain_graph):
     """One backward sweep (a backward program) with the cells' hooks on."""
     from .. import profiler
 
+    from .. import analysis
+
+    analysis.mark("backward")
     with _attached_hooks():
         torch.autograd.backward(roots, seeds, retain_graph=retain_graph)
     profiler.count_program("backward")

@@ -175,11 +175,11 @@ define_flag(
 )
 define_flag(
     "memory_budget_mb", 0.0,
-    "estimated peak device-memory budget (MB). The serving engine reads it: "
-    "with FLAGS_serving_num_blocks 0 and a budget above 0, the JAX package "
-    "sizes the KV block pool with its memory planner, which the port has not "
-    "ported yet, so the engine raises; at 0 the pool takes "
-    "FLAGS_serving_num_blocks or its 256-block default",
+    "estimated peak device-memory budget (MB): the memory_budget pass reports a "
+    "checked program's estimated peak against it (an error above it, raised "
+    "under FLAGS_check_programs=2), FLAGS_memory_plan='auto' plans remat to fit "
+    "it, and the serving engine with FLAGS_serving_num_blocks 0 sizes its KV "
+    "block pool from it (analysis.memory.plan_block_pool); 0 = no budget",
 )
 # ---------------------------------------------------------------------------
 # Serving runtime (paddle_tpu_torch.serving)
@@ -194,9 +194,9 @@ define_flag(
 define_flag(
     "serving_num_blocks", 0,
     "KV block-pool size of the serving engine (shared logical blocks, each "
-    "spanning all layers). 0 = a 256-block default when no memory budget is "
-    "configured (FLAGS_memory_budget_mb 0); a budget-derived size needs the "
-    "memory planner, which the port has not ported yet",
+    "spanning all layers). 0 = sized by the memory planner from "
+    "FLAGS_memory_budget_mb, else from the card's memory, else (on the CPU) "
+    "a 256-block default",
 )
 define_flag(
     "serving_prompt_buckets", "32,64,128",
@@ -509,13 +509,26 @@ define_flag("eager_capture_sharded", True,
             "mesh, so every capture is single-card and only the default is "
             "accepted (ROADMAP queue 1 item 13)", later="item 13")
 define_flag("check_programs", 0,
-            "the JAX package's program verifier (0 off, 1 warn, 2 raise) over "
-            "segments and captured steps, with the capture's equivalence "
-            "certificate; not ported: only 0 is accepted (ROADMAP queue 1 item 12b)",
-            later="item 12b")
+            "the program verifier: 0 off; 1 runs the analysis passes over each lazy "
+            "segment's first flush, the captured step's donation gate and "
+            "compile_train_step's, warning on every finding; 2 also raises "
+            "ProgramVerificationError on an error-severity finding and certifies each "
+            "captured step (against its 3-program composition), each planned "
+            "compile_train_step (against the unplanned step) and each serving "
+            "program's rungs equivalent before it replays")
 define_flag("memory_plan", "",
-            "the JAX package's rematerialization plan of a captured step ('auto'); "
-            "not ported: only '' is accepted (ROADMAP queue 1 item 12b)", later="item 12b")
+            "'auto' turns the memory_budget estimate into a remat plan: with "
+            "FLAGS_memory_budget_mb > 0, compile_train_step and the whole-step capture "
+            "recompute the layer calls the planner chooses so the step's estimated peak "
+            "fits the budget (bitwise the unplanned step's numerics; a failed plan falls "
+            "back unplanned, counted in memory_plan_failures); '' (default) builds plans "
+            "only when asked (plan_remat(), graph_lint --plan)")
+define_flag("offload_overhead_pct", 1.0,
+            "measured-overhead budget (% of step time) of the optimizer's host-offload "
+            "scheduler (optimizer.offload): cold moment tensors are parked in host "
+            "memory between their update reads, and the scheduler shrinks or regrows "
+            "the parked set from the measured prefetch time so the stall it adds to a "
+            "step stays under this budget")
 define_flag(
     "eager_async_compile", True,
     "accepted for parity with the JAX package, where it compiles a new "

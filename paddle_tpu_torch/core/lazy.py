@@ -68,9 +68,27 @@ bracket), a captured program on the card by a CUDA event pair per entry,
 read at the entry's next run without a synchronisation (on the CPU the
 host clock). Under FLAGS_telemetry the captured step's update computes the
 fused telemetry inside the graph and hands it to the lagged reader after
-every replay. Left to later items (ROADMAP queue 1): the remat plan of a
-capture, its equivalence certificate and the launch budget (item 12b);
-mesh-aware and sharded capture (item 13).
+every replay.
+
+**Static analysis and the memory plan.** A segment's first run is checked
+under FLAGS_check_programs (``analysis.check`` of its recording, then
+``enforce``); ``pending_segment_program`` records the pending segment under
+``FakeTensorMode`` without flushing it. While the capture wants a reference
+(FLAGS_check_programs=2, or FLAGS_memory_plan='auto' with a budget), each
+step observed on the 3-program path is recorded whole, its segments run
+eagerly (``step_end``, at ``Optimizer.step()``'s end). At a capture build
+the last such recording is the reference: FLAGS_memory_plan='auto' plans
+the capture's remat over it (``analysis.plan``; the plan keys the cache and
+binds around the capture's forward), and under FLAGS_check_programs=2 the
+capture's own recording is certified equivalent to it before the first
+replay (on the CPU, after the first run: the step stands, a failed proof
+drops the program). A divergent proof resolves the step on the 3-program
+path and raises ``ProgramVerificationError`` at the end of ``step()``
+(``verification_failed``); an unprovable one falls back
+(``equivalence_unprovable``). Under FLAGS_check_programs >= 1 each replay
+first passes the donation gate. ``captured_step_program``,
+``captured_step_certificate`` and ``captured_step_handle`` expose the last
+replayed capture. Left to item 13: mesh-aware and sharded capture.
 
 **Decode-mode capture** (``serve_program``, ``reset_serve_programs``,
 ``serve_capture_state``). A serving engine knows its step boundaries
@@ -97,8 +115,10 @@ graph reads them from its static device buffer, whose values the host
 replaces before each replay. ``row`` and ``nxt`` of a graph are its static
 outputs: the next replay overwrites them, so the caller reads them first.
 The first call of a key counts one ``serve_capture_builds``, each later
-call one ``serve_capture_replays``. Not ported: the equivalence
-certificate between the rungs (``_certify_rungs``, item 12b).
+call one ``serve_capture_replays``. Under FLAGS_check_programs=2 each
+program's rungs are certified equivalent once (``_certify_rungs``): on the
+card the capture's recording against the warm-up run's, before the first
+replay; on the CPU the first two runs' recordings.
 """
 from __future__ import annotations
 
@@ -628,6 +648,31 @@ def flush_if_pending(reason: str = "explicit_sync"):
         _flush(seg, reason)
 
 
+def pending_segment_program():
+    """The recorded IR (``analysis.Program``) of this thread's pending
+    segment WITHOUT flushing it, or None: its calls run once more under
+    ``FakeTensorMode``, over fake stand-ins of its inputs and its layers'
+    parameters, inside a recording of fake tensors (nothing runs on the
+    device, nothing is written)."""
+    seg = getattr(_tls, "segment", None)
+    if seg is None or seg.flushed or not seg.ops:
+        return None
+    from .. import analysis
+
+    plan = tuple(_PlanOp(op) for op in seg.ops)
+    modules = [op.module for op in plan if op.module is not None]
+
+    def fake_like(t):
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device).requires_grad_(
+            t.requires_grad)
+
+    with _fake(), _swapped_parameters(modules, fake_like):
+        ext = [fake_like(t) for t in seg.ext]
+        with analysis.recording("lazy-segment", fake=True) as rec:
+            _run_plan(plan, ext)
+    return rec.program
+
+
 def lazy_on() -> bool:
     return bool(flags.flag("eager_lazy_dispatch"))
 
@@ -811,7 +856,9 @@ class _SegProgram:
         if self.card is None:
             self.card = _on_card(self.plan, ext)
         self.runs += 1
-        if not self.card or self.runs == 1 or _higher_order[0]:
+        if not self.card or self.runs == 1 or _higher_order[0] \
+                or getattr(_tls, "reference", None) is not None and _tls.reference[0] == "open":
+            # (a step recorded as the capture's reference runs its ops eagerly)
             return _run_plan(self.plan, ext)
         g = self.graphs.get(live)
         if g and g.storage != _storage_of(self.plan):
@@ -977,6 +1024,14 @@ def _flush(seg: _Segment, reason: str):
         _tls.segment = None
     if not seg.ops:
         return
+    ref = getattr(_tls, "reference", None)
+    if ref is not None and ref[0] == "armed":
+        # the step the capture will be held against starts at its forward
+        from .. import analysis
+
+        rec = analysis.recording("3-program")
+        rec.__enter__()
+        _tls.reference = ("open", rec)
     c = _counters()
     _count_reason("flush_reasons", reason)
     c["segments_flushed"] += 1
@@ -1002,6 +1057,14 @@ def _flush(seg: _Segment, reason: str):
                                        retry_unsafe=True)
             _register_program(skey, "segment", ir_thunk=lambda _p=rec.program: _p,
                               ops=len(seg.ops))
+            if int(flags.flag("check_programs")):
+                # FLAGS_check_programs: verify the segment's program at its first
+                # run (later runs replay the same program); a level-2 raise lands
+                # below, so reads of this segment's tensors re-raise it
+                from .. import analysis
+
+                analysis.enforce(analysis.check(rec.program, source="lazy-segment"),
+                                 where=f"lazy-segment flush ({reason})")
         else:
             c["segment_cache_hits"] += 1
             _segment_cache.move_to_end(sig)
@@ -1065,6 +1128,67 @@ def _disarm(obs: _Observer):
 def _capture_on() -> bool:
     return (bool(flags.flag("eager_lazy_dispatch")) and bool(flags.flag("eager_step_capture"))
             and not flags.flag("check_nan_inf"))
+
+
+def _mem_plan_on() -> bool:
+    """Planner-guided remat of the captured step (FLAGS_memory_plan='auto'
+    with a budget): a budget of 0 leaves nothing to plan against."""
+    return str(flags.flag("memory_plan")) == "auto" and float(flags.flag("memory_budget_mb")) > 0
+
+
+def _want_reference() -> bool:
+    """Record 3-program steps as the capture's reference: for its
+    equivalence certificate (FLAGS_check_programs=2) or its remat plan."""
+    return _capture_on() and (int(flags.flag("check_programs")) >= 2 or _mem_plan_on())
+
+
+def _step_labels(opt, program, lr=None):
+    """({value id: label}, output value ids) of a recorded step: its
+    parameters, their optimizer states and gradients by position, and the
+    learning rate of a captured step (a device scalar, labelled by its
+    value: the 3-program step makes it from the float)."""
+    labels, outs = {}, []
+    params = [p for p in opt._param_list() if p.requires_grad]
+    sched = getattr(opt, "_offload_sched", None)
+    for i, p in enumerate(params):
+        st = opt._accumulators.get(id(p)) or {}
+        parked = set() if sched is None else {k for k in st if (id(st), k) in sched._parked}
+        named = [(f"param{i}", p)]
+        # a parked moment's value is its pinned host buffer's
+        named += [(f"state{i}.{k}", sched._host[(id(st), k)] if k in parked else t)
+                  for k, t in sorted(st.items()) if isinstance(t, torch.Tensor)]
+        g = _raw_grad(p)
+        for label, t in named:
+            vid = program.value_of(t)
+            if vid is not None and program.values[vid].producer < 0:
+                labels[vid] = label
+            outs.append(vid)
+        outs.append(program.value_of(g) if g is not None else None)
+    if lr is not None:
+        vid = program.value_of(lr)
+        if vid is not None:
+            labels[vid] = f"sc:{float(opt.get_lr())!r}"
+    return labels, outs
+
+
+def step_end(opt, captured: bool):
+    """``Optimizer.step()``'s end: close the reference recording of the step
+    that just ran on the 3-program path (the capture's certificate and
+    remat plan read it), open one for the next while they are wanted, and
+    raise a verification error the step deferred until it completed."""
+    ref = getattr(_tls, "reference", None)
+    if ref is not None and ref[0] == "open":
+        rec = ref[1]
+        _tls.reference = None
+        rec.__exit__(None, None, None)
+        labels, outs = _step_labels(opt, rec.program)
+        _tls.reference_done = (rec.program, labels, outs)
+    if not captured and _want_reference() and getattr(_tls, "capture_deferred", None) is None:
+        _tls.reference = ("armed",)  # opened at the next step's first segment flush
+    err = getattr(_tls, "pending_verification", None)
+    if err is not None:
+        _tls.pending_verification = None
+        raise err
 
 
 def _observer() -> _Observer:
@@ -1401,6 +1525,12 @@ class _CaptureEntry:
         self.ir = None            # the program's recorded IR (analysis.Program)
         self.timing = None        # (start, end) CUDA events of the last replay
         self.tele = None          # (group names, the graph's telemetry vector)
+        self.mem_plan = None      # the RematPlan applied (FLAGS_memory_plan='auto')
+        self.reference = None     # (IR, labels, outputs) of a 3-program step
+        self.certificate = None   # its EquivalenceCertificate (FLAGS_check_programs=2)
+        self.failed_proof = None  # an exception that failed the certificate
+        self.static_diags = None  # the donation gate's static findings, once clean
+        self.opt = None           # a weak reference to the optimizer that replays it
 
     def release(self):
         if self.graph is not None:
@@ -1444,16 +1574,24 @@ def _step_fn(entry: _CaptureEntry, opt, ext, lr, leaves):
     The gradients are taken with respect to aliases of the leaves
     (``_aliased``) and written (or added) here, as AccumulateGrad writes
     them."""
+    from .. import analysis
+
     alias: Dict[int, torch.Tensor] = {}
     ids = {id(t) for t in leaves}
+    bound = contextlib.nullcontext() if entry.mem_plan is None else entry.mem_plan.bind(
+        *[op.module for op in entry.plan if op.module is not None])
+    # the aliases stay the layers' parameters through the backward: a
+    # recompute segment of the memory plan runs its layers again there
     with _aliased(entry.plan, alias):
-        ext = [alias.setdefault(id(t), t.detach().requires_grad_(True)) if id(t) in ids else t
-               for t in ext]
-        results = _run_plan(entry.plan, ext)
-    ri, rj = entry.root
-    root = results[ri][rj]
-    grads = (torch.autograd.grad([root], [alias.get(id(t), t) for t in leaves],
-                                 allow_unused=True) if leaves else ())
+        with bound:
+            ext = [alias.setdefault(id(t), t.detach().requires_grad_(True)) if id(t) in ids
+                   else t for t in ext]
+            results = _run_plan(entry.plan, ext)
+        ri, rj = entry.root
+        root = results[ri][rj]
+        analysis.mark("backward")
+        grads = (torch.autograd.grad([root], [alias.get(id(t), t) for t in leaves],
+                                     allow_unused=True) if leaves else ())
     with torch.no_grad():
         for t, g in zip(leaves, grads):
             if g is None:
@@ -1466,7 +1604,12 @@ def _step_fn(entry: _CaptureEntry, opt, ext, lr, leaves):
     if entry.update:
         from ..nn.clip import capture_clip_fn
 
-        opt._update_params(lr, capture_clip_fn(getattr(opt, "_grad_clip", None)))
+        analysis.mark("update")
+        sched = getattr(opt, "_offload_sched", None)
+        # parked moments stay on the host: the program stages them around the
+        # update (optimizer.offload)
+        with sched.staged(opt) if sched is not None else contextlib.nullcontext():
+            opt._update_params(lr, capture_clip_fn(getattr(opt, "_grad_clip", None)))
     return [results[ri][rj]] + [results[i][j] for i, j in entry.live]
 
 
@@ -1541,6 +1684,7 @@ def _run_entry(entry: _CaptureEntry, opt, seg: _Segment, leaves) -> list:
     ext = seg.ext
     if entry.card is None:
         entry.card = _on_card(entry.plan, ext)
+    params = list(opt._param_list()) if entry.update else []
     if not entry.card:
         # the function itself, at the captured site (an injected fault is
         # raised before it runs; a real one propagates)
@@ -1549,15 +1693,27 @@ def _run_entry(entry: _CaptureEntry, opt, seg: _Segment, leaves) -> list:
                 out = _rrt.execute("captured", lambda: _step_fn(entry, opt, ext, None, leaves),
                                    retry_unsafe=True, ladder_key=entry.ladder_key)
             entry.ir = rec.program
+            if entry.update and int(flags.flag("check_programs")) >= 2:
+                # the CPU's first run is the recorded one: a failed proof drops
+                # the program after it (its step stands, it ran the same function)
+                try:
+                    _certify_capture(entry, opt)
+                except Exception as e:  # noqa: BLE001
+                    entry.failed_proof = e
             return out
+        if entry.update and int(flags.flag("check_programs")):
+            _check_captured_donation(entry, opt, params)
         return _rrt.execute("captured", lambda: _step_fn(entry, opt, ext, None, leaves),
                             retry_unsafe=True, ladder_key=entry.ladder_key)
     lr = opt.get_lr() if entry.update else None
-    params = list(opt._param_list()) if entry.update else []
     if entry.graph is None:
         _capture_graph(entry, opt, ext, lr, leaves, params, entry.seg_sig)
+        if entry.update and int(flags.flag("check_programs")) >= 2:
+            _certify_capture(entry, opt)  # before the first replay
     elif _state_ptrs(entry, opt if entry.update else None, params, leaves) != entry.ptrs:
         raise _CaptureIneligible("param_rebound")
+    if entry.update and int(flags.flag("check_programs")):
+        _check_captured_donation(entry, opt, params)
     for t, g in zip(leaves, entry.grad_in or ()):
         if _raw_grad(t) is not g:
             raise _CaptureIneligible("accum_grad_ineligible")
@@ -1599,8 +1755,9 @@ def _capture_graph(entry: _CaptureEntry, opt, ext, lr, leaves, params, seg_sig=N
     entry.grad_in = [_raw_grad(t) for t in leaves] if any(
         _raw_grad(t) is not None for t in leaves) else None
     graph = cuda_graphs.Graph(device)
+    segments = 0 if entry.mem_plan is None else len(entry.mem_plan.remat_units)
     # the capture's own run of the step is recorded: the program's IR
-    with _recording(entry.akey or "captured") as rec, graph.capture():
+    with graph.capture(segments=segments), _recording(entry.akey or "captured") as rec:
         outs = _step_fn(entry, opt, entry.static, entry.lr, leaves)
     entry.ir = rec.program
     entry.tele = opt.__dict__.pop("_captured_telemetry", None) if opt is not None else None
@@ -1608,6 +1765,76 @@ def _capture_graph(entry: _CaptureEntry, opt, ext, lr, leaves, params, seg_sig=N
     entry.graph, entry.outs = graph, [o.detach() for o in outs]
     entry.grad_bufs = [_raw_grad(t) for t in leaves]
     entry.ptrs = _state_ptrs(entry, opt if entry.update else None, params, leaves)
+
+
+def _certify_capture(entry: _CaptureEntry, opt):
+    """FLAGS_check_programs=2: prove the captured step's recording equal to
+    a 3-program step's (the reference recorded while the step was observed;
+    two recordings that happened anyway, nothing runs to prove them), over
+    the parameters, optimizer states and gradients the step leaves.
+    Unprovable (no reference, a failed canonicalisation) raises
+    ``_CaptureIneligible("equivalence_unprovable")``; divergent raises
+    ``ProgramVerificationError`` with the first divergence."""
+    from ..analysis import ProgramVerificationError
+    from ..analysis import equivalence as _eq
+
+    c = _counters()
+    c["capture_equivalence_checks"] += 1
+    try:
+        if entry.reference is None:
+            raise RuntimeError("no 3-program step was recorded to certify against")
+        ref_ir, ref_labels, ref_outs = entry.reference
+        labels, outs = _step_labels(opt, entry.ir, lr=entry.lr)
+        cert = _eq.prove_equivalent(
+            entry.ir, ref_ir, label_a="captured-step", label_b="3-program-composition",
+            source="captured-step", labels_a=labels, labels_b=ref_labels, outputs_a=outs,
+            outputs_b=ref_outs)
+    except Exception as e:  # noqa: BLE001 — unprovable is not divergent
+        c["capture_equivalence_unprovable"] += 1
+        _emit("capture", site="captured", phase="equivalence", result="unprovable",
+              error=type(e).__name__)
+        last_capture_error[0] = repr(e)
+        raise _CaptureIneligible("equivalence_unprovable")
+    if not cert.equivalent:
+        c["capture_equivalence_divergences"] += 1
+        _emit("capture", site="captured", phase="equivalence", result="divergent", mesh=None)
+        raise ProgramVerificationError(
+            f"captured step is not provably equivalent to the 3-program composition: "
+            f"{cert.summary()}", [d for d in [cert.divergence] if d is not None])
+    entry.certificate = cert
+    c["capture_equivalence_certified"] += 1
+    _emit("capture", site="captured", phase="equivalence", result="certified", mesh=None,
+          ops=cert.n_ops[0], outputs=cert.outputs_compared)
+
+
+def _check_captured_donation(entry: _CaptureEntry, opt, params):
+    """FLAGS_check_programs >= 1, before a replay: the donation gate over the
+    parameters and states the captured program writes in place (a live
+    external alias changes under its holder), plus the static memory passes
+    over its recording once."""
+    from ..analysis import memory as _memory
+
+    upd = [p for p in params if p.requires_grad]
+    states = [opt._accumulators.get(id(p)) or {} for p in upd]
+    program = entry.ir
+    donated = None if program is None else tuple(
+        v.vid for v in program.values.values() if v.written)
+    entry.static_diags = _memory.donation_gate(
+        upd, states, lambda: program, (), donated, "captured-step",
+        static_diags=entry.static_diags)
+
+
+def _build_capture_plan(entry: _CaptureEntry):
+    """The RematPlan of a capture build (FLAGS_memory_plan='auto'), made over
+    the reference 3-program step's recording against FLAGS_memory_budget_mb;
+    None when it has no cuts. A failure raises (the caller counts it)."""
+    from ..analysis import plan as _plan
+
+    if entry.reference is None:
+        raise RuntimeError("no 3-program step was recorded to plan over")
+    budget = int(float(flags.flag("memory_budget_mb")) * (1 << 20))
+    plan = _plan.build_remat_plan(entry.reference[0], budget_bytes=budget, source="capture")
+    return plan if plan.has_cuts else None
 
 
 def _resolve_outputs(seg: _Segment, entry: _CaptureEntry, outs):
@@ -1715,9 +1942,14 @@ def step_capture_step(optimizer) -> bool:
     seg = rec.segment
     root = (rec.root._op_index, rec.root._out_index)
     live = _live_besides(seg, root)
-    # the fused telemetry changes the captured program: it keys the cache
+    # the fused telemetry and the memory plan change the captured program:
+    # they key the cache
     key = (rec.seg_sig, rec.bwd_key, opt_fp, rec.accumulate, live,
-           bool(flags.flag("telemetry")))
+           bool(flags.flag("telemetry")),
+           (str(flags.flag("memory_plan")), float(flags.flag("memory_budget_mb")))
+           if _mem_plan_on() else None,
+           optimizer._offload_sched.staged_key()
+           if getattr(optimizer, "_offload_sched", None) is not None else None)
     c = _counters()
     t0 = time.perf_counter()
     try:
@@ -1727,9 +1959,19 @@ def step_capture_step(optimizer) -> bool:
             entry = _build_captured_step(rec, optimizer, live)
             entry.ladder_key, entry.seg_sig = _ladder_key(rec.seg_sig), rec.seg_sig
             entry.akey = f"captured:{_sig_id(rec.seg_sig)}"
+            if entry.reference is None:
+                entry.reference = getattr(_tls, "reference_done", None)
             c["capture_builds"] += 1
             _emit("capture", site="captured", phase="build", background=False, mesh=None)
             _lru_capture(key, entry)
+            if _mem_plan_on():
+                try:
+                    entry.mem_plan = _build_capture_plan(entry)
+                except Exception as e:  # noqa: BLE001 — counted; the step runs 3-program
+                    from ..analysis import plan as _plan
+
+                    _plan.record_failure("capture", e)
+                    raise _CaptureIneligible("memory_plan_failed")
         else:
             _capture_cache.move_to_end(key)
         # the step's own reads of the grads are not a user's: stop watching
@@ -1751,13 +1993,39 @@ def step_capture_step(optimizer) -> bool:
         if isinstance(e, _CaptureIneligible):
             c["capture_invalidations"] += e.reason == "param_rebound"
             return fallback(e.reason)
+        from ..analysis import ProgramVerificationError
+
+        if isinstance(e, ProgramVerificationError):
+            # the step completes on the 3-program path; the verdict surfaces
+            # at the end of step()
+            _tls.pending_verification = e
+            return fallback("verification_failed")
         last_capture_error[0] = repr(e)
         return fallback("capture_error")
+    if entry.failed_proof is not None:
+        # the CPU ran the step once, recorded, before its proof failed: the
+        # step stands; the program is dropped and the verdict counted
+        err, entry.failed_proof = entry.failed_proof, None
+        _capture_cache.pop(key, None)
+        entry.release()
+        _tls.segment = None
+        _resolve_outputs(seg, entry, outs)
+        if isinstance(err, _CaptureIneligible):
+            _capture_fallback(err.reason)
+        else:
+            _tls.pending_verification = err
+            _capture_fallback("verification_failed")
+        obs = _observer()
+        obs.events, obs.dirty = [], False
+        obs.pos = 0
+        _disarm(obs)
+        return True
     dt = (time.perf_counter() - t0) * 1e3
     c["replay_time_ms"] += dt
     if not fresh and not entry.card:
         _note_program(entry.akey, "captured", dt)  # host clock (the card's: events)
     _tls.last_captured = weakref.ref(entry)
+    entry.opt = weakref.ref(optimizer)
     _emit("capture", site="captured", phase="replay", donated=True, mesh=None)
     _resolve_outputs(seg, entry, outs)
     c["capture_replays"] += 1
@@ -1806,21 +2074,61 @@ def _later(what: str, item: str):
         f"{what} is not ported yet (ROADMAP, open items, queue 1 {item})")
 
 
+def _last_entry() -> Optional["_CaptureEntry"]:
+    ref = getattr(_tls, "last_captured", None)
+    return ref() if ref is not None else None
+
+
 def captured_step_program():
-    """The JAX package's retrace of the captured step for the memory
-    planner: not ported (item 12b)."""
-    _later("lazy.captured_step_program (the memory plan of a capture)", "item 12b")
+    """``(program, donated value ids, roles)`` of the captured whole step this
+    thread replayed last, or None: its recorded IR (``analysis.Program``),
+    the inputs it writes in place, and {value id: (kind, label)} of its
+    parameters and optimizer states. What the memory planner, the offload
+    scheduler's cold set and ``measure_programs`` read."""
+    entry = _last_entry()
+    if entry is None or entry.ir is None:
+        return None
+    program = entry.ir
+    donated = tuple(v.vid for v in program.values.values() if v.written)
+    roles = {}
+    opt = entry.opt() if getattr(entry, "opt", None) is not None else None
+    if opt is not None:
+        labels, _outs = _step_labels(opt, program)
+        roles = {vid: ("param" if lab.startswith("param") else "buffer",
+                       lab.replace("state", "opt_state", 1)) for vid, lab in labels.items()}
+    return program, donated, roles
 
 
 def captured_step_certificate():
-    """The captured step's equivalence certificate: not ported (item 12b)."""
-    _later("lazy.captured_step_certificate", "item 12b")
+    """The ``EquivalenceCertificate`` of the captured step this thread
+    replayed last, or None (no capture, or FLAGS_check_programs < 2 when it
+    was built)."""
+    entry = _last_entry()
+    return None if entry is None else entry.certificate
 
 
-def captured_step_handle():
-    """The analysis passes' handle on the captured step (the launch budget):
-    not ported (item 12b)."""
-    _later("lazy.captured_step_handle", "item 12b")
+class _CapturedStepHandle:
+    """A stand-in for this thread's last replayed captured step: the
+    analysis tools dispatch on ``_captured_step`` and read the program
+    through it; the handle pins nothing."""
+
+    _captured_step = True
+
+    def program(self):
+        """The captured step's recorded IR, or None."""
+        got = captured_step_program()
+        return None if got is None else got[0]
+
+    def pool_bytes(self):
+        """The bytes the captured step's graph keeps in its memory pool, or
+        None (no graph: the CPU, or no capture)."""
+        entry = _last_entry()
+        graph = None if entry is None else entry.graph
+        return None if graph is None else graph.pool_bytes()
+
+
+def captured_step_handle() -> _CapturedStepHandle:
+    return _CapturedStepHandle()
 
 
 def captured_step_shard_info():
@@ -1842,6 +2150,11 @@ def reset_lazy_state():
     deferred_step[0] = None
     _tls.observer = None
     _tls.last_captured = None
+    ref = getattr(_tls, "reference", None)
+    if ref is not None and ref[0] == "open":
+        ref[1].__exit__(None, None, None)
+    _tls.reference = _tls.reference_done = None
+    _tls.pending_verification = None
     _segment_cache.clear()
     _spec_cache.clear()
     _layer_tokens.clear()
@@ -1882,12 +2195,14 @@ class _ServeProgram:
     """One captured serving program (a prefill or decode bucket signature)."""
 
     __slots__ = ("key", "fn", "_built_donate", "_built_plain", "_graph", "_host", "_dev",
-                 "_inputs", "_out", "ir")
+                 "_inputs", "_out", "ir", "certificate", "_plain_run")
 
     def __init__(self, key, fn):
         self.key = key
         self.fn = fn
         self.ir = None  # the IR recorded at the capture (the first run on the CPU)
+        self.certificate = None  # the rungs' EquivalenceCertificate (FLAGS_check_programs=2)
+        self._plain_run = None  # the CPU's first run, kept for the certificate
         self._built_donate = False
         self._built_plain = False
         self._graph = None
@@ -1922,6 +2237,17 @@ class _ServeProgram:
                 with _recording("serve") as rec:
                     out = self.fn(k_pools, v_pools, *feeds)
                 self.ir = rec.program
+                if int(flags.flag("check_programs")) >= 2:
+                    self._plain_run = (k_pools, v_pools, feeds, out)
+                return out
+            if self.certificate is None and int(flags.flag("check_programs")) >= 2 \
+                    and self._plain_run is not None:
+                # the CPU's rungs are one function in place: its first two runs
+                # are the two recordings the certificate compares
+                with _recording("serve") as rec:
+                    out = self.fn(k_pools, v_pools, *feeds)
+                self._certify_rungs(rec.program, (k_pools, v_pools, feeds, out),
+                                    self.ir, self._plain_run)
                 return out
             return self.fn(k_pools, v_pools, *feeds)
         if self._graph is None:
@@ -1946,21 +2272,67 @@ class _ServeProgram:
         # the warm-up writes the chunk's K/V at lens..lens+s-1, the same
         # values at the same places the replay below writes, so running the
         # step twice is harmless
-        cuda_graphs.warm_up(device, self.fn, k_pools, v_pools, *self._inputs)
+        check = int(flags.flag("check_programs")) >= 2
+        with _recording("serve-plain") if check else contextlib.nullcontext() as plain:
+            warm = cuda_graphs.warm_up(device, self.fn, k_pools, v_pools, *self._inputs)
         pool = _graph_pools.get(device)
         if pool is None:
             pool = _graph_pools[device] = [torch.cuda.graph_pool_handle(), 0]
         graph = cuda_graphs.Graph(device)
         try:
-            with _recording("serve") as rec, graph.capture(pool[0]):
+            # the recording inside the capture: the graph's own set-up (its
+            # generator registration) is not the program's
+            with graph.capture(pool[0]), _recording("serve") as rec:
                 _, _, row, nxt = self.fn(k_pools, v_pools, *self._inputs)
             self.ir = rec.program
+            if check:  # before the first replay: the warm-up's run and the capture's
+                self._certify_rungs(rec.program, (k_pools, v_pools, [self._dev],
+                                                  (None, None, row, nxt)),
+                                    plain.program, (k_pools, v_pools, [self._dev], warm))
         except BaseException:
             if not pool[1]:
                 del _graph_pools[device]
             raise
         self._graph, self._out = graph, (row, nxt)
         pool[1] += 1
+
+    def _certify_rungs(self, captured, cap_io, plain, plain_io):
+        """FLAGS_check_programs=2, once per program: the captured rung's
+        recording against a plain run's (on the card the warm-up's, on the
+        CPU the first run's), over the pools it writes and the row and token
+        it returns. Divergent raises ``ProgramVerificationError``."""
+        from .. import profiler
+        from ..analysis import ProgramVerificationError
+        from ..analysis import equivalence as _eq
+
+        def io(program, run):
+            k_pools, v_pools, feeds, out = run
+            named = [(f"k_pool{i}", t) for i, t in enumerate(k_pools)]
+            named += [(f"v_pool{i}", t) for i, t in enumerate(v_pools)]
+            named += [(f"feed{i}", t) for i, t in enumerate(feeds)]
+            labels = {}
+            for label, t in named:
+                vid = program.value_of(t)
+                if vid is not None and program.values[vid].producer < 0:
+                    labels.setdefault(vid, label)
+            outs = [program.value_of(t) for t in list(k_pools) + list(v_pools)]
+            outs += [program.value_of(t) for t in out[2:]]
+            return labels, outs
+
+        profiler.count("serve_equivalence_checks")
+        la, oa = io(captured, cap_io)
+        lb, ob = io(plain, plain_io)
+        cert = _eq.prove_equivalent(captured, plain, label_a="serve-donated",
+                                    label_b="serve-plain", source="serve", labels_a=la,
+                                    labels_b=lb, outputs_a=oa, outputs_b=ob)
+        if not cert.equivalent:
+            profiler.count("serve_equivalence_divergences")
+            raise ProgramVerificationError(
+                f"serving program {self.key} rungs diverge: {cert.summary()}",
+                [d for d in [cert.divergence] if d is not None])
+        self.certificate = cert
+        profiler.count("serve_equivalence_certified")
+        self._plain_run = None
 
     def _retained(self, k_pools, v_pools, feeds):
         device = k_pools[0].device

@@ -791,6 +791,7 @@ class TrainingState(dict):
         self.update(self._model.state_dict())
         opt = self._optimizer
         if opt is not None:
+            opt._state_sync()  # a parked moment comes back before the snapshot
             for i, p in enumerate(opt._param_list()):
                 st = opt._state_of(p) if create else opt._accumulators.get(id(p))
                 for k, v in (st or {}).items():

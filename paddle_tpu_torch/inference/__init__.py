@@ -132,9 +132,11 @@ class Config:
         ``serving.ServingConfig`` (block_size, prompt_buckets, ...), and
         ``max_new_tokens`` / ``eos_token_id`` to every request.
         ``enable_memory_optim`` then decides the paged KV pool's size: on
-        (the default), a pool sized from FLAGS_memory_budget_mb when one is
-        set, which needs the memory planner and raises (ROADMAP queue 1 item
-        12); off, the unbudgeted default size."""
+        (the default), the memory planner sizes it from
+        ``serving_opts['memory_budget_mb']``, else FLAGS_memory_budget_mb,
+        else the card's free memory less a headroom
+        (``analysis.memory.plan_block_pool``); off,
+        the unbudgeted default size."""
         self._generative_model = model
         self._serving_opts = dict(serving_opts)
 
@@ -147,8 +149,8 @@ class Config:
 
     def enable_memory_optim(self, flag: bool = True):
         """For generative serving predictors: on, the paged KV block pool is
-        budgeted against FLAGS_memory_budget_mb when it is set (not ported:
-        the engine raises); off, the pool takes the default size."""
+        sized by the memory planner against the budget; off, the pool takes
+        the default size."""
         self._memory_optim = flag
 
     def enable_tensorrt_engine(self, *a, **k):

@@ -40,8 +40,12 @@ With ``FLAGS_telemetry`` the update also gives the fused numerics
 telemetry (``make_fused_update(telemetry=True)``), recorded by
 ``profiler.attribution``: read with the rescue sentinel when
 ``FLAGS_numeric_rescue`` is set (one synchronisation), else handed to the
-lagged reader (no synchronisation; recorded one step late). Not ported yet
-(ROADMAP, open items, queue 1 item 12b): the offload hooks of ``step()``.
+lagged reader (no synchronisation; recorded one step late).
+
+Host offload (``optimizer.offload``): with a scheduler attached, ``step()``
+brings the parked moments of the parameters it updates back before the
+update, and parks the selected set again at its end; ``state_dict()`` and a
+checkpoint's snapshot bring every moment back first (``_state_sync``).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from typing import Dict, List
 
 import torch
 
+from .. import analysis as _analysis
 from .. import profiler
 from ..core import lazy as _lazy
 from ..profiler import attribution as _attribution
@@ -302,17 +307,28 @@ class Optimizer:
         numeric-rescue policy when ``FLAGS_numeric_rescue`` is set; then the
         resilience step boundary. A deferred whole step runs here as one
         captured program instead (``core/lazy.py``)."""
+        sched = getattr(self, "_offload_sched", None)
+        if sched is not None:
+            sched.step_begin()
+        captured = False
         try:
             if _lazy.step_capture_step(self):
+                captured = True
                 self._step_count += 1
-                return
-            self._step_count += 1
-            if self._update_params():
-                profiler.count_program("optimizer")
+            else:
+                self._step_count += 1
+                _analysis.mark("update")
+                if self._update_params():
+                    profiler.count_program("optimizer")
         finally:
             # advances the fault-injection step counter, the ladder's
             # cooldown clocks and the 'train' heartbeat
             _rrt.on_step_end()
+        if sched is not None:
+            sched.step_end(captured)  # park the selected moments again
+        # the capture controller's step end: its reference recording, and a
+        # verification error this step deferred until it completed
+        _lazy.step_end(self, captured)
 
     def _update_params(self, lr=None, clip_fn=None) -> bool:
         """The update of ``step()``: the clip over the parameters that have a
@@ -343,6 +359,9 @@ class Optimizer:
             grads[0] = torch.full_like(grads[0], float("nan"))
         sentinel = _rescue.active()
         telemetry = _attribution.telemetry_active()
+        sched = getattr(self, "_offload_sched", None)
+        if sched is not None and not _capturing(params[0]):
+            sched.ensure_resident(self, params)  # parked moments come back first
         states = [self._state_of(p) for p in params]
         # a fill on the device, not a copy from the host: nothing here
         # waits for the card
@@ -375,6 +394,14 @@ class Optimizer:
             # the one host read of the step: applies skip / lr_backoff / abort
             _rescue.handle_sentinel(self, bad)
 
+    def _state_sync(self):
+        """Make every state tensor whole on its device before it is read as
+        a whole (``state_dict()``, a checkpoint snapshot): the host-offload
+        scheduler brings its parked moments back (``optimizer.offload``)."""
+        sched = getattr(self, "_offload_sched", None)
+        if sched is not None:
+            sched.sync()
+
     def _param_list(self) -> List[torch.Tensor]:
         if self._parameters is None:
             raise ValueError("optimizer was created without a parameter list")
@@ -399,6 +426,7 @@ class Optimizer:
         the JAX package's key names, and ``"LR_Scheduler"`` with the
         scheduler's state when the lr is one. The tensors are copies: a later
         step does not change a state dict already taken."""
+        self._state_sync()
         out = {"_step_count": self._step_count}
         for i, p in enumerate(self._param_list()):
             st = self._accumulators.get(id(p))
@@ -754,3 +782,7 @@ class Lars(Optimizer):
         step = g + wd * p
         v = mu * state["velocity"] + (lr.to(p.dtype) * local_lr) * step
         return p - v, {"velocity": v}
+
+
+def _capturing(t) -> bool:
+    return t.device.type == "cuda" and torch.cuda.is_current_stream_capturing()

@@ -140,6 +140,20 @@ _COUNTERS = (
     "perf_regression_clears",
     "telemetry_steps",
     "telemetry_spikes",
+    # static analysis and the memory plan (analysis/, optimizer/offload.py):
+    # remat plans built and failed (a failure falls back unplanned), live
+    # aliases of storages a captured program writes in place, and the
+    # equivalence certificates of captured steps and serving rungs
+    "memory_plan_builds",
+    "memory_plan_failures",
+    "donation_alias_flags",
+    "capture_equivalence_checks",
+    "capture_equivalence_certified",
+    "capture_equivalence_divergences",
+    "capture_equivalence_unprovable",
+    "serve_equivalence_checks",
+    "serve_equivalence_certified",
+    "serve_equivalence_divergences",
 )
 _FAMILIES = ("serve_shed_reasons", "serve_expire_stages", "fault_sites", "flush_reasons",
              "capture_fallback_reasons", "perf_regression_sites", "telemetry_spike_groups")

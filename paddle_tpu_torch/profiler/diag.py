@@ -28,8 +28,10 @@ snapshots, so a scrape never blocks or tears a training step:
 
 ``start()`` is idempotent and a no-op while FLAGS_diag_port is -1; serving
 engines register themselves (weakly) at construction. Host code, copied;
-the elastic-rescale section of /statusz comes with item 13 and the memory
-plan and offload section reads "off" until item 12b ports them.
+the elastic-rescale section of /statusz comes with item 13. The "memory
+plan & offload" section lists the last remat plan per source
+(``analysis.plan.state()``) and every offload scheduler
+(``optimizer.offload.state()``), when there are any.
 """
 from __future__ import annotations
 
@@ -231,10 +233,36 @@ def statusz_text() -> str:
                 f"update_ratio={g['update_ratio']} spikes={g['spikes']}\n")
     except Exception as e:
         out.append(f"  <attribution state unavailable: {e!r}>\n")
-    # the memory plan and offload (FLAGS_memory_plan, optimizer/offload.py)
-    # are not ported (ROADMAP queue 1 item 12b): the section reports them off
-    out.append(_section("memory plan & offload"))
-    out.append(f"  off (FLAGS_memory_plan = {str(_flags.flag('memory_plan'))!r})\n")
+    try:
+        from ..analysis import plan as _plan
+        from ..optimizer import offload as _offload
+
+        plans = _plan.state()
+        offl = _offload.state()
+        if plans or offl:
+            out.append(_section("memory plan & offload"))
+            for src, doc in sorted(plans.items()):
+                if doc.get("failed"):
+                    out.append(f"  {src}: FAILED {doc.get('error')}\n")
+                    continue
+                out.append(
+                    f"  {src}: {'feasible' if doc['feasible'] else 'best-effort'} "
+                    f"peak {doc['peak_before_mb']}->{doc['peak_after_mb']}MB "
+                    f"(budget {doc['budget_mb']}MB) recompute={doc['recompute_pct']}% "
+                    f"cuts={doc['cut_points']} layers={len(doc['remat_layers'])} "
+                    f"fingerprint={doc['fingerprint']} evals={doc['evals']} "
+                    f"build_ms={doc['build_ms']}\n")
+            for st in offl:
+                out.append(
+                    f"  offload[{st['cold_source']}]: {st['groups_selected']}/"
+                    f"{st['groups_total']} groups {st['offloaded_mb']}MB parked  "
+                    f"overhead={st['overhead_pct_ema']}% (budget {st['overhead_budget_pct']}%)  "
+                    f"d2h={st['d2h_count']}x{st['d2h_ema_ms']}ms "
+                    f"h2d={st['h2d_count']}x{st['h2d_ema_ms']}ms "
+                    f"blocked_ema={st['blocked_ema_ms']}ms "
+                    f"shrinks={st['shrinks']} regrows={st['regrows']}\n")
+    except Exception as e:
+        out.append(f"  <memory plan state unavailable: {e!r}>\n")
     try:
         out.append(_section("perf-regression sentinel"))
         st = _sentinel.state()

@@ -60,8 +60,19 @@ registers with the diagnostics server (``profiler.diag``: /healthz and
 (``serve_decode[<uid>:<BxN>]``, the step's CUDA event pair on the card) and
 queue waits (``serve_queue_wait[<uid>]``), and feeds the attribution
 registry its bucket programs (``serve:<kind>:<uid>:<bucket>:<blocks>``);
-``close()`` retires all of them. Not ported yet: the planner-budgeted pool
-(raises NotImplementedError naming ROADMAP queue 1 item 12b).
+``close()`` retires all of them.
+
+With ``num_blocks`` 0 and FLAGS_serving_num_blocks 0 the memory planner
+sizes the pool (``analysis.memory.plan_block_pool``): the decode program
+recorded once on a minimal pool gives the overhead, and the pool takes
+``(budget - overhead) // block_bytes`` blocks of ``memory_budget_mb``, else
+FLAGS_memory_budget_mb, else the card's free memory and the model's resident
+weights less a quarter of the card (``analysis.memory.DETECTED_HEADROOM``,
+kept for the buckets' graph pools, prefill and what the process allocates
+later); a budget below the overhead raises ("memory budget
+leaves no room"). Such a pool also refuses a request whose context exceeds
+the geometry the planner recorded. On the CPU, with no budget, the pool
+takes the 256-block default.
 """
 from __future__ import annotations
 
@@ -77,6 +88,7 @@ import torch
 
 from .. import profiler
 from ..core import flags
+from ..core.dtype import to_torch_dtype
 from ..profiler import trace as _trace
 from ..resilience import faults as _faults
 from ..resilience import runtime as _rt
@@ -104,11 +116,6 @@ _DEGRADED_COOLDOWN_TICKS = 8
 # steps kept in Engine.step_timings(): a bounded window, so a long-running
 # engine holds fixed memory
 _TIMING_WINDOW = 1 << 14
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP, open items, queue 1 item {item})")
 
 
 def _decode_pick(logits):
@@ -180,7 +187,8 @@ class ServingConfig:
     defaults (see ``core.flags.describe_flags('serving')``)."""
 
     block_size: int = 0
-    num_blocks: int = 0              # 0 = FLAGS_serving_num_blocks or 256
+    num_blocks: int = 0              # 0 = FLAGS_serving_num_blocks, else the planner
+    memory_budget_mb: Optional[float] = None  # the planner's budget (None: the flag)
     prompt_buckets: Optional[List[int]] = None
     decode_batch_buckets: Optional[List[int]] = None
     max_new_tokens: int = 0          # default per-request cap
@@ -237,21 +245,35 @@ class Engine:
         self._decode_fn = self._make_decode_fn()
         self._prefill_fn = self._make_prefill_fn()
 
-        # -- block-pool sizing: explicit > default (the planner budget is
-        # not ported) -------------------------------------------------------
+        # -- block-pool sizing: explicit > FLAGS_serving_num_blocks > the
+        # memory planner (budget argument, FLAGS_memory_budget_mb, else the
+        # card's memory) > the 256-block default -----------------------------
+        device = next(model.parameters()).device
+        scratch = self._buckets.max_decode_batch
+        self._pool_plan = None
+        # a planner-sized pool also bounds a request's context by the geometry
+        # the planner recorded: the budget covers nothing larger
+        self._plan_ctx_blocks: Optional[int] = None
         num_blocks = int(cfg.num_blocks) or int(flags.flag("serving_num_blocks"))
         if num_blocks <= 0:
-            if float(flags.flag("memory_budget_mb")) > 0:
-                raise _not_ported(
-                    "a KV block pool sized from FLAGS_memory_budget_mb (the "
-                    "memory planner; set ServingConfig.num_blocks instead)", "12b")
-            num_blocks = default_num_blocks()
-        device = next(model.parameters()).device
+            self._pool_plan = self._plan_pool(
+                heads=int(heads), head_dim=int(head_dim), dtype=cfg.dtype, scratch=scratch,
+                budget_mb=cfg.memory_budget_mb, device=device)
+            if self._pool_plan.num_blocks is None:
+                num_blocks = default_num_blocks()
+                self._plan_ctx_blocks = None  # no budget: nothing to bound
+            else:
+                num_blocks = int(self._pool_plan.num_blocks)
+                if num_blocks < 1:
+                    raise ValueError(
+                        "memory budget leaves no room for a KV block pool: decode-program "
+                        f"overhead is ~{self._pool_plan.overhead_bytes / 2**20:.1f} MB of a "
+                        f"{self._pool_plan.budget_bytes / 2**20:.1f} MB budget "
+                        "(FLAGS_memory_budget_mb)")
         self._pool = BlockPool(
             layers=self._layers, heads=int(heads), head_dim=int(head_dim),
             block_size=self._block_size, num_blocks=num_blocks,
-            scratch_slots=self._buckets.max_decode_batch, dtype=cfg.dtype,
-            device=device,
+            scratch_slots=scratch, dtype=cfg.dtype, device=device,
         )
         self._timings: deque = deque(maxlen=_TIMING_WINDOW)
         # two events reused by every step: read right after the step's
@@ -328,6 +350,52 @@ class Engine:
             return tuple(st.k_pools), tuple(st.v_pools), row, nxt
 
         return decode_fn
+
+    def _plan_pool(self, *, heads, head_dim, dtype, scratch, budget_mb, device):
+        """The planner's pool (``analysis.memory.plan_block_pool``): the decode
+        program at the largest batch and context the buckets allow,
+        recorded once on a MINIMAL pool (the scratch slots and one block,
+        which every block table names), so its overhead (weights,
+        activations, the gathered block views, the tables) is measured
+        without the pool, and the budget is split between it and the pool."""
+        from .. import analysis
+        from ..analysis import memory as _mem
+
+        self._plan_args = dict(heads=heads, head_dim=head_dim, dtype=dtype, scratch=scratch,
+                               device=device)
+        args, pool_bytes, block_bytes = self._plan_inputs(**self._plan_args)
+        self._plan_ctx_blocks = int(args[2].shape[1])
+
+        def record():
+            with analysis.recording("serving-decode") as rec:
+                self._decode_fn(*args)
+            return rec.program
+
+        return _mem.plan_block_pool(record, block_bytes=block_bytes,
+                                    pool_bytes_in_trace=pool_bytes, budget_mb=budget_mb)
+
+    def _plan_inputs(self, *, heads, head_dim, dtype, scratch, device):
+        """The decode program's inputs at the planner's geometry: the largest
+        decode batch, block tables of the largest bucket's context that all
+        name the one block of a minimal pool, lengths at the longest
+        context. Returns ``((k, v, tables, lens, tokens), minimal pool
+        bytes, bytes of one block)``."""
+        B = self._buckets.max_decode_batch
+        nblk = self._buckets.ctx_blocks(
+            self._buckets.prompt_spec.boundaries[-1], self._default_max_new)
+        tdt = to_torch_dtype(dtype)
+        shape = (scratch + 1, self._block_size, heads, head_dim)
+        k = tuple(torch.zeros(shape, dtype=tdt, device=device) for _ in range(self._layers))
+        v = tuple(torch.zeros(shape, dtype=tdt, device=device) for _ in range(self._layers))
+        tables = torch.full((B, nblk), scratch, dtype=torch.int64, device=device)
+        # the longest context the tables hold: a gather sized by the lengths
+        # is at its largest
+        longest = min(nblk * self._block_size, int(self._max_positions)) - 1
+        lens = torch.full((B,), longest, dtype=torch.int64, device=device)
+        tokens = torch.zeros(B, dtype=torch.int64, device=device)
+        pool_bytes = 2 * self._layers * k[0].numel() * k[0].element_size()
+        block_bytes = 2 * self._layers * self._block_size * heads * head_dim * k[0].element_size()
+        return (k, v, tables, lens, tokens), pool_bytes, block_bytes
 
     def _make_prefill_fn(self) -> Callable:
         model, layers, bs = self._model, self._layers, self._block_size
@@ -416,6 +484,8 @@ class Engine:
             return req.request_id
         n_blk = self._buckets.ctx_blocks(plen, req.max_new_tokens)
         cap = self._pool.num_blocks
+        if self._plan_ctx_blocks is not None:
+            cap = min(cap, self._plan_ctx_blocks)
         if n_blk > cap:
             profiler.count("serve_admission_refusals")
             self._reject(

@@ -38,7 +38,13 @@ def test_core_flag_default_and_set(name):
 
 
 def test_flags_of_later_items_still_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tp.set_flags({"FLAGS_check_programs": 1})
+    """FLAGS_check_programs is ported (item 12b): its levels are accepted;
+    item 13's flag still raises."""
+    try:
+        for level in (1, 2, 0):
+            tp.set_flags({"FLAGS_check_programs": level})
+            assert tp.get_flags("FLAGS_check_programs") == {"FLAGS_check_programs": level}
+    finally:
+        tp.set_flags({"FLAGS_check_programs": 0})
     with pytest.raises(NotImplementedError, match="item 13"):
         tp.set_flags({"FLAGS_eager_capture_sharded": False})

@@ -1526,3 +1526,154 @@ def test_dataloader_workers_fork_after_cuda_is_up():
         for a, b in zip(m, s):
             assert a._value.device.type == "cuda" and torch.equal(a._value, b._value)
 
+
+
+def _small_gpt(card, recompute=False, seed=0):
+    pt.seed(seed)
+    cfg = tgpt.GPTConfig(vocab_size=256, hidden_size=128, num_layers=4, num_heads=2,
+                         max_seq_len=128, dropout=0.0, attn_dropout=0.0,
+                         use_recompute=recompute)
+    model = tgpt.GPTForPretraining(cfg, device=card)
+    crit = tgpt.GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                             weight_decay=0.01)
+    return model, crit, opt
+
+
+@pytest.mark.cuda
+def test_remat_planned_compiled_step_is_bitwise_the_unplanned_on_the_card():
+    """A remat plan at a budget between the unplanned and the uniform peaks:
+    feasible, its compiled step (warm-ups and the captured graph) bitwise
+    the unplanned one, one more flash forward per recomputed layer."""
+    card = _card()
+    gen = torch.Generator(device=card).manual_seed(0)
+    ids = torch.randint(0, 256, (4, 129), generator=gen, device=card)
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def run(step, n=4):
+        return [float(step(x, y)) for _ in range(n)]
+
+    m0, c0, o0 = _small_gpt(card)
+    s0 = pt.jit.compile_train_step(m0, c0, o0)
+    base = run(s0)
+    mu, cu, ou = _small_gpt(card, recompute=True)
+    su = pt.jit.compile_train_step(mu, cu, ou)
+    run(su, 3)  # the third step's capture is the recorded one
+    budget = (s0.memory_plan().peak_bytes + su.memory_plan().peak_bytes) / 2 / 2**20
+    plan = s0.plan_remat(budget_mb=budget)
+    assert plan.has_cuts and plan.feasible, plan.summary()
+    m1, c1, o1 = _small_gpt(card)
+    s1 = pt.jit.compile_train_step(m1, c1, o1, memory_plan=plan)
+    before = tfa.flash_attention_fwd.launches
+    s1(x, y)
+    layers = sum(1 for u in plan.remat_units if ".layers." in u[2])
+    assert tfa.flash_attention_fwd.launches - before == 4 + layers
+    assert [base[0]] + run(s1, 3) == base
+    assert all(torch.equal(a, b) for a, b in zip(m0.parameters(), m1.parameters()))
+
+
+@pytest.mark.cuda
+def test_captured_step_is_certified_and_offload_parks_on_the_card():
+    """Under FLAGS_check_programs=2 a lazily captured step is certified
+    before its first replay; with the Adam moments parked on the host its
+    losses stay bitwise, and memory_allocated between steps is lower by the
+    parked bytes."""
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.optimizer import offload
+
+    card = _card()
+    was = pt.get_device()
+    pt.set_device(f"gpu:{card.index or 0}")
+    pt.set_flags({"FLAGS_pallas_fused_update": True, "FLAGS_eager_lazy_dispatch": True,
+                  "FLAGS_check_programs": 2})
+    losses = {}
+    try:
+        for use in (False, True):
+            lazy.reset_lazy_state()
+            pt.profiler.reset_dispatch_counters()
+            pt.seed(0)
+            model = pt.nn.Sequential(pt.nn.Linear(256, 512), pt.nn.ReLU(), pt.nn.Linear(512, 8))
+            opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+            if use:
+                sched = offload.enable(opt, overhead_pct=1e9, min_bytes=1024)
+            x = pt.to_tensor(np.random.default_rng(0).standard_normal((32, 256)).astype(
+                np.float32))
+            y = pt.to_tensor(np.random.default_rng(1).integers(0, 8, (32,)))
+            got = []
+            import warnings
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for _ in range(6):
+                    loss = pt.nn.CrossEntropyLoss()(model(x), y)
+                    loss.backward()
+                    opt.step()
+                    opt.clear_grad()
+                    got.append(float(loss))
+            losses[use] = got
+            c = pt.profiler.dispatch_counters()
+            assert c["capture_equivalence_certified"] >= 1 and c["capture_replays"] >= 1, dict(c)
+            if use:
+                torch.cuda.synchronize()
+                between = torch.cuda.memory_allocated()
+                parked = sched.parked_bytes()
+                sched.sync()
+                assert parked > 0 and torch.cuda.memory_allocated() - between == parked
+                offload.disable(opt)
+        assert losses[True] == losses[False]
+    finally:
+        pt.set_flags({"FLAGS_pallas_fused_update": False, "FLAGS_eager_lazy_dispatch": False,
+                      "FLAGS_check_programs": 0})
+        lazy.reset_lazy_state()
+        pt.set_device(was)
+
+
+@pytest.mark.cuda
+def test_engine_pool_sized_by_the_planner_on_the_card():
+    """With num_blocks 0 and a budget, the engine's pool is the planner's
+    ``(budget - overhead) // block_bytes``; a budget below the overhead
+    raises."""
+    from paddle_tpu_torch import serving
+
+    card = _card()
+    pt.seed(0)
+    model = tgpt.GPTForPretraining(tgpt.GPTConfig(vocab_size=256, hidden_size=128,
+                                                  num_layers=2, num_heads=2, max_seq_len=256,
+                                                  dropout=0.0, attn_dropout=0.0),
+                                   device=card).eval()
+    eng = serving.Engine(model, serving.ServingConfig(block_size=16, prompt_buckets=[32],
+                                                      num_blocks=0, memory_budget_mb=256.0))
+    plan = eng._pool_plan
+    assert eng._pool.num_blocks == (256 * 2**20 - plan.overhead_bytes) // plan.block_bytes
+    out = eng.serve([[1, 2, 3], [4, 5]], max_new_tokens=4)
+    assert all(r.status == "ok" for r in out)
+    eng.close()
+    with pytest.raises(ValueError, match="no room"):
+        serving.Engine(model, serving.ServingConfig(block_size=16, prompt_buckets=[32],
+                                                    num_blocks=0, memory_budget_mb=0.01))
+
+
+@pytest.mark.cuda
+def test_default_engine_pool_sized_from_the_free_memory_on_the_card():
+    """With no num_blocks and no budget, the pool is sized from the card's
+    free memory less the headroom; it serves, and half the headroom can be
+    allocated beside it."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.analysis import memory as mem
+
+    card = _card()
+    pt.seed(0)
+    model = tgpt.GPTForPretraining(tgpt.GPTConfig(vocab_size=256, hidden_size=128,
+                                                  num_layers=2, num_heads=2, max_seq_len=256,
+                                                  dropout=0.0, attn_dropout=0.0),
+                                   device=card).eval()
+    eng = serving.Engine(model, serving.ServingConfig(block_size=16, prompt_buckets=[32]))
+    plan = eng._pool_plan
+    assert plan.budget_bytes is not None and eng._pool.num_blocks > 256
+    out = eng.serve([[1, 2, 3], [4, 5]], max_new_tokens=4)
+    assert all(r.status == "ok" for r in out)
+    total = torch.cuda.get_device_properties(card).total_memory
+    extra = torch.ones(int(mem.DETECTED_HEADROOM * total / 2), dtype=torch.uint8, device=card)
+    assert int(extra[0]) == 1 and int(extra[-1]) == 1
+    del extra
+    eng.close()

@@ -187,11 +187,17 @@ def test_memory_optim_and_the_budget(model, memory_optim):
     pt.set_flags({"FLAGS_memory_budget_mb": 3.0})
     config = cpu_config(model, block_size=8, prompt_buckets=[8], max_new_tokens=3)
     config.enable_memory_optim(memory_optim)
-    if memory_optim:  # a budget-sized pool needs the memory planner
-        with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-            inference.create_predictor(config)
+    try:
+        engine = inference.create_predictor(config).engine
+    finally:
+        pt.set_flags({"FLAGS_memory_budget_mb": 0.0})
+    if memory_optim:  # the memory planner sizes the pool from the budget
+        plan = engine._pool_plan
+        assert plan.budget_bytes == 3 * 2**20
+        assert engine._pool.num_blocks == (
+            plan.budget_bytes - plan.overhead_bytes) // plan.block_bytes
     else:
-        assert inference.create_predictor(config).engine._pool.num_blocks == 256
+        assert engine._pool.num_blocks == 256
 
 
 def test_predictor_pool_routes_around_unhealthy(model):

@@ -23,7 +23,11 @@ WORKER_TIMEOUT_S = 60
 
 @pytest.fixture(autouse=True)
 def _cpu():
+    """The CPU for this file's tests, the caller's device after them."""
+    was = pt.get_device()
     pt.set_device("cpu")
+    yield
+    pt.set_device(was)
 
 
 def _seed(s):

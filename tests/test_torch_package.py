@@ -692,6 +692,14 @@ ANALYSIS_PORTED = {
     "Diagnostic", "ProgramVerificationError", "Severity", "check", "enforce", "pass_names",
     "register_pass", "run_passes", "memory.Buffer", "memory.MemoryPlan",
     "memory.captured_step_plans", "memory.device_hbm_bytes", "memory.plan_memory",
+    # item 12b: the prover, donation safety, the block pool, the two checks
+    "check_launch_budget", "check_pending_segment",
+    "equivalence.CanonicalProgram", "equivalence.EquivalenceCertificate",
+    "equivalence.canonicalize", "equivalence.certify_callables", "equivalence.program_diff",
+    "equivalence.prove_equivalent",
+    "memory.BlockPoolPlan", "memory.plan_block_pool", "memory.tensor_aliases",
+    "memory.donated_buffer_alias_diags", "memory.donated_buffer_diags",
+    "memory.donation_gate", "memory.traced_program_diags",
 }
 
 
@@ -699,7 +707,9 @@ def test_api_spec_surface_of_profiler_and_analysis():
     """Every ``paddle.profiler`` name of API.spec resolves in the port (10
     new at the top, attribution 19, diag 10, sentinel 10, metrics 7 new),
     and the ported ``paddle.static.analysis`` names resolve through the
-    port's ``analysis`` package; the coverage reaches 854 of 1208."""
+    port's ``analysis`` package: all 28 but the 13 of ``analysis.sharding``
+    (item 13) since item 12b; the coverage reaches 854 of 1208, plus those
+    28."""
     names = _api_names()
     scoped = [n for n in names if n.startswith("paddle.profiler.")]
     assert [n for n in scoped if _resolve(n) is None] == []
@@ -717,9 +727,12 @@ def test_api_spec_surface_of_profiler_and_analysis():
         mod, _, attr = ("." + name).rpartition(".")
         try:
             found = hasattr(importlib.import_module("paddle_tpu_torch.analysis" + mod), attr)
-        except ModuleNotFoundError:  # equivalence (item 12b), sharding (item 13)
+        except ModuleNotFoundError:  # sharding (item 13)
             found = False
         assert found == (name in ANALYSIS_PORTED), name
+    assert len(ANALYSIS_PORTED) == 28
+    assert [n for n in analysis if n not in ANALYSIS_PORTED
+            and not n.startswith("sharding.")] == []
     covered = sum(_resolve(n) is not None for n in names)
     assert covered >= 854
     print(f"API.spec coverage of the port: {covered} of {len(names)} names "

@@ -31,7 +31,8 @@ WIRE_TIMEOUT_S = 60
 
 @pytest.fixture(scope="module", autouse=True)
 def _built():
-    """Build the six libraries (three of each package) at once."""
+    """Build the six libraries (three of each package) at once; the CPU for
+    this file's tests, the caller's device after them."""
     from paddle_tpu.distributed.ps import service as jservice
 
     loaders = (tps._load_lib, tservice._load_server_lib, tservice._load_client_lib,
@@ -50,7 +51,10 @@ def _built():
     for t in threads:
         t.join(timeout=600)
     assert not errors, errors
+    was = pt.get_device()
     pt.set_device("cpu")
+    yield
+    pt.set_device(was)
 
 
 def _within(fn, *args, timeout=WIRE_TIMEOUT_S):
@@ -449,6 +453,7 @@ def test_sparse_embedding_is_never_deferred_under_lazy_dispatch():
         finally:
             pt.set_flags({"FLAGS_eager_lazy_dispatch": False, "FLAGS_eager_step_capture": False})
 
+    pt.profiler.reset_dispatch_counters()  # its own runs' builds, not an earlier file's
     per_op = run(False, False)
     for lazy_on, capture in ((True, False), (True, True)):
         got = run(lazy_on, capture)

@@ -596,10 +596,17 @@ def test_embeddings_accept_per_row_offset_tensor(model):
 
 
 def test_budgeted_pool_raises_not_ported(model):
+    """The budgeted pool is ported (ROADMAP item 12b): the memory planner
+    gives the pool what FLAGS_memory_budget_mb leaves after the decode
+    program's overhead; with no budget the CPU pool takes the default."""
     pt.set_flags({"FLAGS_memory_budget_mb": 3.0})
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        make_engine(model, num_blocks=0)
-    pt.set_flags({"FLAGS_memory_budget_mb": 0.0})
+    try:
+        eng = make_engine(model, num_blocks=0)
+    finally:
+        pt.set_flags({"FLAGS_memory_budget_mb": 0.0})
+    plan = eng._pool_plan
+    assert plan.budget_bytes == 3 * 2**20 and plan.overhead_bytes > 0
+    assert eng._pool.num_blocks == (plan.budget_bytes - plan.overhead_bytes) // plan.block_bytes
     assert make_engine(model, num_blocks=0)._pool.num_blocks == 256
 
 
