@@ -33,7 +33,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      token latency p50/p99 from the engine's step timings, one graph replay
      per decode step, no re-capture, fallback, drop or leaked block, the
      decode steps' host cost split from their device time); then a
-     sustained run of 256 requests of the mix
+     sustained run of 64 requests of the mix
      arriving in a stagger into a 96-block pool, so admissions land
      mid-decode, batch sizes change and backpressure fires (warm, then
      timed, the same checks); the eager rung on both schedules with equal
@@ -225,7 +225,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      Tensors give bf16, ``exp``, ``log``, ``mean``, ``sum``, ``Tensor.sum``,
      ``pow``, ``cumsum``, ``square`` and ``norm`` of bf16 Tensors f32, each
      against its f32 result; (14c) every ``paddle.linalg`` function on a
-     4096 x 4096 f32 matrix (SPD where needed; ``eig`` and ``eigvals`` at
+     2048 x 2048 f32 matrix (SPD where needed; ``eig`` and ``eigvals`` at
      1024) and a 256 x 64 x 64 batch, held by its residual and against the
      port on the CPU, timed by CUDA events, its host synchronisations
      listed (torch's sync debug mode); the Jacobian and Hessian of a 2-layer
@@ -309,7 +309,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      free memory serves the mix, and half the headroom is allocated beside
      it; (17e) ``python -m paddle_tpu_torch.tools.graph_lint`` and
      ``.mem_probe`` in processes of their own;
- 18. one JSON line of per-kernel numbers, the script's time, then the
+ 18. multi-GPU, part one, the ranks processes of their own started by
+     ``paddle_tpu_torch.distributed.launch`` on the one card (NCCL refuses
+     two ranks on one card: the launcher's refusal is checked first): the
+     flash kernels at a rank's shape (2, 1024, 8, 64), causal, sm90 bf16 and
+     tf32x3 f32, against their plain versions and timed; (18a) world 1 under
+     NCCL, every collective on card tensors; 4 ranks over gloo
+     with card tensors, each collective against numpy, which of them gloo
+     takes on card tensors itself, each one's ms at 64 MB; (18b) GPT-2 345M
+     at full width as dp2 x mp2 x sharding2 (ZeRO-2), O2 bf16, AdamW, global
+     batch 8 x 1024 through ``fleet.distributed_train_step``, 8 ranks over
+     gloo: losses within 3e-2 of phase 7's single-card step, 24 sm90
+     launches of each flash kernel a step per rank at (2, 1024, 8, 64), every
+     parameter a group replicates bitwise equal across it after each step
+     (also at hidden and attention dropout 0.1, where the attention is dense
+     and its masks come from one stream per mp rank), half of each moment
+     per rank, ms a step split into compute and collectives, peak memory;
+     (18c) f32 at full width and 4 layers, the same hybrid and ZeRO-3
+     (sharding 4 x mp 2), losses, every gathered parameter and each rank's
+     moment shards within rtol 1e-4 and atol 1e-5 of the single-card step,
+     ZeRO-3 parameters at rest a quarter of their mp
+     shard; (18d) world 1 under NCCL through ``fleet``, bench.py main()'s O2
+     step, bitwise an eager ``compile_train_step`` copy;
+ 19. one JSON line of per-kernel numbers, the script's time, then the
      result line.
 
 It needs CUDA and the repository around it; without either it exits non-zero
@@ -341,6 +363,11 @@ runs only phase 16, after building the libraries its paths launch.
     python3 chip_smoke.py --phase17
 
 runs only phase 17, after building the libraries its paths launch.
+
+    python3 chip_smoke.py --phase18
+
+runs only phase 18, after building the libraries its paths launch (its 18b
+reference is then bench.py main()'s O2 step run for it).
 
     python3 chip_smoke.py --host-cost-vs DIR
 
@@ -840,7 +867,9 @@ FAST_PATH_CALLS, FAST_PATH_CALL_US, FAST_PATH_STEP_MS = 200_000, 3.0, 0.1
 # the sustained run: the same mix arriving in a stagger (Poisson arrivals per
 # scheduler tick) into a pool that holds about 16 of its requests at once,
 # so admissions land mid-decode, batch sizes change and backpressure fires
-SUSTAINED_REQUESTS, SUSTAINED_ARRIVALS_PER_TICK, SUSTAINED_BLOCKS = 256, 0.7, 96
+# 5b's sustained run: the queue for blocks forms within its first ticks, as 8
+# rows a decode step serve fewer than the 0.7 arrivals a tick bring
+SUSTAINED_REQUESTS, SUSTAINED_ARRIVALS_PER_TICK, SUSTAINED_BLOCKS = 64, 0.7, 96
 
 
 def staggered_arrivals(n, rate, seed):
@@ -1663,7 +1692,8 @@ def train_345m(torch, pt, fa, gen, dev):
     check(diff <= TOL_EAGER_VS_GRAPH, "the eager copy and the graph replays disagree")
     del eager, opt_e, loss
     return {"launches": launches, "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_gb": mem_gb - held_gb}
+            "peak_gb": mem_gb - held_gb, "first_losses": values[:P18_STEPS],
+            "ids": ids.cpu().numpy()}
 
 
 # Phase 7b. 7b-i: bench.py main()'s step with BENCH_RECOMPUTE=1 and GPTConfig's
@@ -2787,34 +2817,45 @@ def bert_new_optimizers(torch, pt, fa, dev):
 
 def bert_noncausal_kernels(torch, fa, gen, dev):
     """Phase 7d, step 6: the three flash kernels at BERT_SHAPE, non-causal,
-    in bf16 on BERT's projection-major qkv views (sm90) and in f32 (tf32x3):
-    each against its plain version, a second launch bitwise equal, and the
-    kernel, plain and SDPA times beside the bound. Returns {dtype: {kernel:
-    numbers}}."""
+    on BERT's projection-major qkv views ([b, s, 3, h, d])."""
     b, s, h, d = BERT_SHAPE
     print(f"[7d] the flash kernels at BERT's shape {BERT_SHAPE}, non-causal, on [b, s, 3, h, d] "
           f"qkv views")
-    out = {}
-    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "tf32x3")):
-        dname = dtype_name(dtype)
+
+    def views(dtype):
         qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
-        q, k, v = qkv.unbind(dim=2)
-        do = torch.randn(BERT_SHAPE, generator=gen, device=dev).to(dtype)
+        return qkv.unbind(dim=2)
+
+    return flash_kernels_at(torch, fa, gen, dev, BERT_SHAPE, False, views, "BERT's")
+
+
+def flash_kernels_at(torch, fa, gen, dev, shape, causal, make_qkv, what, routes=None):
+    """The three flash kernels at ``shape`` on each (dtype, route) of
+    ``routes`` (bf16 on sm90 and f32 on tf32x3 when None), q, k and v from
+    ``make_qkv(dtype)``: each against its plain version, a second launch
+    bitwise equal, and the kernel, plain and SDPA times beside the bound.
+    Returns {dtype: {kernel: numbers}}."""
+    b, s, h, d = shape
+    out = {}
+    for dtype, route in routes or ((torch.bfloat16, "sm90"), (torch.float32, "tf32x3")):
+        dname = dtype_name(dtype)
+        q, k, v = make_qkv(dtype)
+        do = torch.randn(shape, generator=gen, device=dev).to(dtype)
         check(route_of(fa, (q, k, v)) == route_of(fa, (q, k, v, do)) == route,
-              f"BERT's {dname} views do not take the {route} route")
+              f"{what} {dname} q, k, v do not take the {route} route")
         scale = d ** -0.5
         with flash_launch_log(fa) as log:
-            o, lse = fa.flash_attention_fwd(q, k, v, scale, False)
-            o2, lse2 = fa.flash_attention_fwd(q, k, v, scale, False)
+            o, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, scale, causal)
             delta = fa.bwd_delta(o, do)
-            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
-            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
-            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
-            dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
-        check(len(log) == 6 and all(r == route and not c for _, r, c in log),
-              f"BERT's kernels at {dname} launched {log}")
-        o_p, lse_p = fa.fwd_plain(q, k, v, scale, False)
-        ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, False)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+            dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+            dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+        check(len(log) == 6 and all(r == route and c == causal for _, r, c in log),
+              f"{what} kernels at {dname} launched {log}")
+        o_p, lse_p = fa.fwd_plain(q, k, v, scale, causal)
+        ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, causal)
         torch.cuda.synchronize()
         err_fwd = max((o.float() - o_p.float()).abs().max().item(),
                       (lse - lse_p).abs().max().item())
@@ -2827,38 +2868,41 @@ def bert_noncausal_kernels(torch, fa, gen, dev):
               f"max|d dK, dV|={err_dkv:.3e} max|d dQ|={err_dq:.3e} tol={GRAD_TOL[dname]:g}; "
               f"second launches bitwise equal: {bitwise}")
         check(err_fwd <= TOL[dname] and max(err_dkv, err_dq) <= GRAD_TOL[dname],
-              f"BERT's {dname} kernels disagree with their plain versions")
-        check(bitwise, f"BERT's {dname} kernels are not bitwise equal on a second launch")
+              f"{what} {dname} kernels disagree with their plain versions")
+        check(bitwise, f"{what} {dname} kernels are not bitwise equal on a second launch")
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-        o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                                                 is_causal=causal)
         do_t = do.transpose(1, 2)
         fwd = dict(max_abs_err=err_fwd, route=route,
-                   ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, False)),
-                   plain_ms=time_ms(lambda: fa.fwd_plain(q, k, v, scale, False), reps=10),
+                   ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal)),
+                   plain_ms=time_ms(lambda: fa.fwd_plain(q, k, v, scale, causal), reps=10),
                    library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                       qt, kt, vt, scale=scale)))
-        fwd.update(attention_bound_ms(b, s, h, d, dname, False))
-        plain_bwd = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, False), reps=10)
+                       qt, kt, vt, scale=scale, is_causal=causal)))
+        fwd.update(attention_bound_ms(b, s, h, d, dname, causal))
+        plain_bwd = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, causal),
+                            reps=10)
         library_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
                                                           retain_graph=True))
         dkv = dict(max_abs_err=err_dkv, route=route, plain_ms=plain_bwd, library_ms=library_bwd,
                    ms=time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                                                 False)))
-        dkv.update(bwd_bound_ms("dkv", b, s, h, d, dname, False))
+                                                                 causal)))
+        dkv.update(bwd_bound_ms("dkv", b, s, h, d, dname, causal))
         dq_t = dict(max_abs_err=err_dq, route=route, plain_ms=plain_bwd, library_ms=None,
                     ms=time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
-                                                                 False)))
-        dq_t.update(bwd_bound_ms("dq", b, s, h, d, dname, False))
+                                                                 causal)))
+        dq_t.update(bwd_bound_ms("dq", b, s, h, d, dname, causal))
         pair_ms = time_ms(lambda: (fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                                              False),
+                                                              causal),
                                    fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
-                                                             False)))
+                                                             causal)))
         for name, t in (("fwd", fwd), ("dkv", dkv), ("dq", dq_t)):
             print(f"  {dname} {name}: kernel_ms={t['ms']:.4f} ({route}) plain_ms="
                   f"{t['plain_ms']:.4f} {bound_text(t)}; kernel at "
                   f"{t['bound_ms'] / t['ms']:.1%} of bound")
-            check_share(f"BERT {name} {dname}", t["bound_ms"], t["ms"])
-        print(f"  {dname}: SDPA forward (is_causal=False) {fwd['library_ms']:.4f} ms, "
+            check_share(f"{what} {name} {dname}", t["bound_ms"], t["ms"])
+        sdpa = f"SDPA forward (is_causal={causal})"
+        print(f"  {dname}: {sdpa} {fwd['library_ms']:.4f} ms, "
               f"{route} / SDPA {fwd['ms'] / fwd['library_ms']:.2f}x; the {route} pair dK/dV + "
               f"dQ {pair_ms:.4f} ms against SDPA's backward (all three gradients) "
               f"{library_bwd:.4f} ms, {pair_ms / library_bwd:.2f}x")
@@ -4192,6 +4236,32 @@ TRACE_TITLES = {"gpt": "[8] torch.profiler trace of one replayed step (phase 7's
                         "7d's AdamW step, in a process of its own)",
                 "ernie": "[15b] torch.profiler trace of one replayed ERNIE CTR dense step "
                          "(config 5, f32, in a process of its own)"}
+def slice20_alone(torch) -> int:
+    """``python3 chip_smoke.py --phase18``: phase 18 alone, after building the
+    libraries its paths launch (the sm90 and tf32x3 flash kernels)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    print(card)
+    t0 = time.perf_counter()
+    sources = [fa.TF32_FWD_KERNEL_NAME, fa.TF32_BWD_KERNEL_NAME, fa.SM90_FWD_KERNEL_NAME,
+               fa.SM90_DKV_KERNEL_NAME, fa.SM90_DQ_KERNEL_NAME]
+    _build.build(sources)
+    print(f"built {sources} in {time.perf_counter() - t0:.1f} s")
+    out = slice20(torch, pt, fa, torch.device("cuda", 0), card)
+    print(json.dumps({"phase18": out}, default=str))
+    return 0
+
+
 TRACE_CHILD_TIMEOUT_S = 300
 
 
@@ -4835,12 +4905,12 @@ FROZEN_STEPS = 3       # per-op steps, and captured steps after the warm-up, hel
 O1_SHAPE = (8192, 1024, 4096)  # 14b: an (m, k) by (k, n) product
 TOL_O1_PRODUCT = 3e-2  # bf16 operands and result against the f32 product, of its largest entry
 TOL_O1_F32 = 1e-5      # f32 results of bf16 inputs against torch's f32 op on the same values
-LINALG_N = 4096        # 14c: one f32 matrix of this size ...
+LINALG_N = 2048        # 14c: one f32 matrix of this size ...
 LINALG_BATCH = (256, 64, 64)  # ... and a batch of this shape
 LINALG_EIG_N = 1024    # eig and eigvals: the general eigenproblem runs on the host
 # 14c: a residual (relative, Frobenius) of a decomposition or solve of a
 # well-conditioned f32 matrix (condition numbers below ~10): the rounding of
-# sums of up to 4096 terms, ~sqrt(n) * eps * cond, with a margin
+# sums of up to LINALG_N terms, ~sqrt(n) * eps * cond, with a margin
 TOL_LINALG_RESIDUAL = 1e-4
 # the card against the port on the CPU for the same inputs: cuSOLVER and
 # LAPACK factor in other orders, so their results differ by ~cond * eps
@@ -5447,70 +5517,12 @@ def ernie_kernels(torch, fa, gen, dev):
     """15a: the tf32x3 kernels at config 5's shape (head dim 32), f32,
     non-causal: against their plain versions, a second launch bitwise equal,
     timed beside SDPA f32 and the 3xTF32 bound. Returns {kernel: numbers}."""
-    b, s, h, d = ERNIE_SHAPE
     print(f"[15a] the tf32x3 flash kernels at config 5's shape {ERNIE_SHAPE}, f32, non-causal "
           f"(launch_fwd<32> and the backward's head-dim-32 instantiation)")
-    q, k, v = qkv_on_card(ERNIE_SHAPE, torch.float32, "separate", gen, dev)
-    do = torch.randn(ERNIE_SHAPE, generator=gen, device=dev)
-    check(route_of(fa, (q, k, v)) == route_of(fa, (q, k, v, do)) == "tf32x3",
-          "config 5's f32 attention does not take the tf32x3 route")
-    scale = d ** -0.5
-    with flash_launch_log(fa) as log:
-        o, lse = fa.flash_attention_fwd(q, k, v, scale, False)
-        o2, lse2 = fa.flash_attention_fwd(q, k, v, scale, False)
-        delta = fa.bwd_delta(o, do)
-        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
-        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
-        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False)
-        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)
-    check(len(log) == 6 and all(r == "tf32x3" and not c for _, r, c in log),
-          f"config 5's kernels launched {log}")
-    o_p, lse_p = fa.fwd_plain(q, k, v, scale, False)
-    ref = fa.bwd_plain(q, k, v, do, lse, delta, scale, False)
-    torch.cuda.synchronize()
-    err_fwd = max((o - o_p).abs().max().item(), (lse - lse_p).abs().max().item())
-    err_dq = (dq - ref[0]).abs().max().item()
-    err_dkv = max((g - r).abs().max().item() for g, r in zip((dk, dv), ref[1:]))
-    bitwise = (torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(dk, dk2)
-               and torch.equal(dv, dv2) and torch.equal(dq, dq2))
-    print(f"  max|d O, lse|={err_fwd:.3e} tol={TOL['float32']:g}; max|d dK, dV|={err_dkv:.3e} "
-          f"max|d dQ|={err_dq:.3e} tol={GRAD_TOL['float32']:g}; second launches bitwise "
-          f"equal: {bitwise}")
-    check(err_fwd <= TOL["float32"] and max(err_dkv, err_dq) <= GRAD_TOL["float32"],
-          "config 5's kernels disagree with their plain versions")
-    check(bitwise, "config 5's kernels are not bitwise equal on a second launch")
-    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
-    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, scale=scale)
-    do_t = do.transpose(1, 2)
-    fwd = dict(max_abs_err=err_fwd, route="tf32x3",
-               ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, False)),
-               plain_ms=time_ms(lambda: fa.fwd_plain(q, k, v, scale, False), reps=10),
-               library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   qt, kt, vt, scale=scale)))
-    fwd.update(attention_bound_ms(b, s, h, d, "float32", False))
-    plain_bwd = time_ms(lambda: fa.bwd_plain(q, k, v, do, lse, delta, scale, False), reps=10)
-    library_bwd = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
-                                                      retain_graph=True))
-    dkv = dict(max_abs_err=err_dkv, route="tf32x3", plain_ms=plain_bwd, library_ms=library_bwd,
-               ms=time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
-                                                             False)))
-    dkv.update(bwd_bound_ms("dkv", b, s, h, d, "float32", False))
-    dq_t = dict(max_abs_err=err_dq, route="tf32x3", plain_ms=plain_bwd, library_ms=None,
-                ms=time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
-                                                             False)))
-    dq_t.update(bwd_bound_ms("dq", b, s, h, d, "float32", False))
-    pair_ms = time_ms(lambda: (fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, False),
-                               fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, False)))
-    for name, t in (("fwd", fwd), ("dkv", dkv), ("dq", dq_t)):
-        print(f"  {name}: kernel_ms={t['ms']:.4f} (tf32x3) plain_ms={t['plain_ms']:.4f} "
-              f"{bound_text(t)}; kernel at {t['bound_ms'] / t['ms']:.1%} of bound")
-        check_share(f"config 5 {name}", t["bound_ms"], t["ms"])
-    print(f"  SDPA f32 forward {fwd['library_ms']:.4f} ms, tf32x3 / SDPA "
-          f"{fwd['ms'] / fwd['library_ms']:.2f}x; the tf32x3 pair dK/dV + dQ {pair_ms:.4f} ms "
-          f"against SDPA's f32 backward (all three gradients) {library_bwd:.4f} ms, "
-          f"{pair_ms / library_bwd:.2f}x")
-    del qt, kt, vt, o_lib
-    return {"fwd": fwd, "dkv": dkv, "dq": dq_t, "pair_ms": pair_ms}
+    return flash_kernels_at(
+        torch, fa, gen, dev, ERNIE_SHAPE, False,
+        lambda dtype: qkv_on_card(ERNIE_SHAPE, dtype, "separate", gen, dev), "config 5's",
+        routes=((torch.float32, "tf32x3"),))["float32"]
 
 
 class CountingTable:
@@ -6967,7 +6979,7 @@ def slice18_alone(torch) -> int:
 # 17b's budget sits halfway between the planner's peak of the unplanned O2
 # step and of the use_recompute step (the uniform per-block plan)
 PLAN_STEPS = 3  # steps held bitwise, planned against unplanned (2 eager, 1 captured)
-PLAN_TIMED = 5  # rounds of replays timed in turns
+PLAN_TIMED = 3  # rounds of replays timed in turns
 OFFLOAD_STEPS = 3  # steps held bitwise, offload on against off, per regime
 # 17c: the share of the parked bytes the card must hold less at a step's
 # peak. The moments come back (per-op) or are staged (captured) only for the
@@ -7622,6 +7634,852 @@ def slice19_alone(torch) -> int:
     return 0
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 18: multi-GPU, part one. The ranks are processes of their own,
+# started by the port's launcher on the one card; each imports torch and the
+# port alone and prints one "PHASE18 {json}" line that the parent reads from
+# its log. One card: NCCL runs at world size 1, and ranks that share the card
+# run over gloo, which stages the card's tensors through the host. No number
+# of these phases is a scaling figure.
+# ---------------------------------------------------------------------------
+P18_RANKS = 8                # 18b-18c: ranks sharing the card over gloo
+P18_DEGREES = {"dp": 2, "mp": 2, "sharding": 2}
+P18_ZERO3 = {"mp": 2, "sharding": 4}
+P18_STEPS = 3                # steps held against the single card
+# 18b: steps at hidden and attention dropout 0.1, replicated parameters held
+# bitwise; the attention's masks drawn from the RNG tracker's mp stream
+P18_DROPOUT_STEPS = 1
+P18_DROPOUT = 0.1
+# a rank's attention in 18b and 18c: 8 x 1024 split over dp x sharding (4),
+# 16 heads over mp (2)
+P18_SHAPE = (2, 1024, 8, 64)
+P18_F32_LAYERS = 4           # 18c: the f32 parity's depth, at full width
+P18_MOMENTS = ("moment1", "moment2")  # 18c: AdamW's state, held shard by shard
+P18_COLL_RANKS = 4           # 18a: the ranks of the gloo collectives
+P18_COLL_MB = 64             # 18a: each timed collective's input per rank
+P18_COLL_REPS = 3
+P18_LR = 1e-4                # bench.py main()'s AdamW
+P18_CHILD_TIMEOUT_S = 900
+# 18b: phase 7's O2 tolerance (tests/test_torch_train.py's O2 step against the
+# JAX one): bf16 products in another split order over mp and the ranks' sums
+TOL_P18_BF16 = 3e-2
+# 18c: the JAX package's sharded-against-single tolerance
+# (tests/test_distributed.py:147-149)
+TOL_P18_F32 = dict(rtol=1e-4, atol=1e-5)
+# 18a: gloo sums each collective's inputs in its own order against numpy's
+TOL_P18_COLL = 1e-5
+
+
+def p18_launch(torch, directory, kind, devices, env=None):
+    """Run ``chip_smoke.py --phase18-child KIND DIR`` under the port's launcher
+    on ``devices``; the ranks' results (each rank's last PHASE18 line), in
+    rank order. Fails with the logs' tails when the launcher does."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(directory, f"logs_{kind}")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch", "--devices", devices,
+           "--log_dir", log_dir, os.path.abspath(__file__), "--phase18-child", kind, directory]
+    full_env = dict(os.environ, **(env or {}), P18_LAUNCHED_AT=repr(time.time()))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=full_env, capture_output=True, text=True,
+                          timeout=P18_CHILD_TIMEOUT_S)
+    n = len(devices.split(","))
+    logs = []
+    for r in range(n):
+        path = os.path.join(log_dir, f"workerlog.{r}")
+        logs.append(open(path).read() if os.path.exists(path) else "")
+    print(f"  ({kind}: {n} rank(s) through the launcher, exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0:
+        print(proc.stdout[-2000:] + proc.stderr[-2000:])
+        for r, log in enumerate(logs):
+            print(f"  --- workerlog.{r} (tail) ---\n{log[-3000:]}")
+    check(proc.returncode == 0, f"the phase 18 {kind} ranks failed")
+    out = []
+    for r, log in enumerate(logs):
+        lines = [line for line in log.splitlines() if line.startswith("PHASE18 ")]
+        check(bool(lines), f"rank {r} of {kind} printed no result")
+        out.append(json.loads(lines[-1][len("PHASE18 "):]))
+    return out
+
+
+def p18_gpt_cfg(layers=None):
+    from paddle_tpu_torch.models.gpt import gpt2_345m
+
+    cfg = gpt2_345m(dropout=0.0, attn_dropout=0.0)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def p18_reference_f32(torch, pt, dev, directory, ids):
+    """18c's single-card reference: the f32 GPT at full width and
+    ``P18_F32_LAYERS`` layers from SEED, ``P18_STEPS`` eager steps of
+    ``compile_train_step`` (its warm-up made that long: the rule's update,
+    as the sharded step's). Saves the final parameters and Adam moments;
+    returns the losses."""
+    import numpy as np
+
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion
+
+    cfg = p18_gpt_cfg(P18_F32_LAYERS)
+    pt.seed(SEED)
+    model = GPTForPretraining(cfg, device=dev)
+    crit = GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.AdamW(learning_rate=P18_LR, parameters=model.parameters(),
+                             weight_decay=0.01)
+    warmup, pt.jit.WARMUP_STEPS = pt.jit.WARMUP_STEPS, P18_STEPS
+    try:
+        step = pt.jit.compile_train_step(model, lambda lo, la: crit(lo, la), opt)
+        x = torch.as_tensor(ids[:, :-1], device=dev)
+        y = torch.as_tensor(ids[:, 1:], device=dev)
+        losses = [float(step(x, y)) for _ in range(P18_STEPS)]
+    finally:
+        pt.jit.WARMUP_STEPS = warmup
+    np.savez(os.path.join(directory, "ref_f32.npz"),
+             **{k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
+    np.savez(os.path.join(directory, "ref_f32_moments.npz"),
+             **{f"{n}:{key}": v.detach().cpu().numpy()
+                for n, p in model.named_parameters()
+                for key, v in opt._accumulators[id(p)].items() if key in P18_MOMENTS})
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return losses
+
+
+def p18_reference_o2(torch, pt, dev, ids):
+    """18b's single-card losses where phase 7 did not run: bench.py main()'s
+    O2 step through ``compile_train_step`` from SEED (phase 7's)."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion
+
+    cfg = p18_gpt_cfg()
+    pt.seed(SEED)
+    model = pt.amp.decorate(GPTForPretraining(cfg, device=dev), level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion(cfg)
+    opt = pt.optimizer.AdamW(learning_rate=P18_LR, parameters=model.parameters(),
+                             weight_decay=0.01)
+    step = pt.jit.compile_train_step(model, lambda lo, la: crit(lo.float(), la), opt)
+    x = torch.as_tensor(ids[:, :-1], device=dev)
+    y = torch.as_tensor(ids[:, 1:], device=dev)
+    losses = [float(step(x, y)) for _ in range(P18_STEPS)]
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return losses
+
+
+def slice20(torch, pt, fa, dev, card, phase7=None):
+    """Phase 18 (18a-18d). ``phase7``: phase 7's first losses and batch, the
+    18b reference. Returns the ranks' flash launches and the numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    print(f"[18] multi-GPU, part one, on one card ({card}): ranks as processes of their own "
+          f"through paddle_tpu_torch.distributed.launch; NCCL at world size 1, ranks sharing "
+          f"the card over gloo (host-staged): no figure of this phase is a scaling figure")
+    print(f"[18] the flash kernels at a rank's shape {P18_SHAPE}, causal, on fused-qkv views")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    kernels = flash_kernels_at(
+        torch, fa, gen, dev, P18_SHAPE, True,
+        lambda dtype: qkv_on_card(P18_SHAPE, dtype, "fused", gen, dev), "phase 18's")
+    print(f"  {time.perf_counter() - t0:.1f} s in")
+    directory = tempfile.mkdtemp(prefix="phase18_")
+    try:
+        if phase7 is not None:
+            ids, ref_o2 = phase7["ids"], phase7["first_losses"][:P18_STEPS]
+            print(f"  18b's reference: phase 7's first {P18_STEPS} losses on its batch")
+        else:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            cfg = p18_gpt_cfg()
+            ids = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1), generator=gen,
+                                device=dev).cpu().numpy()
+            ref_o2 = p18_reference_o2(torch, pt, dev, ids)
+            print(f"  18b's reference: bench.py main()'s O2 step on one card, {ref_o2}")
+        np.save(os.path.join(directory, "ids.npy"), ids)
+        t1 = time.perf_counter()
+        ref_f32 = p18_reference_f32(torch, pt, dev, directory, ids)
+        print(f"  18c's reference: the f32 {P18_F32_LAYERS}-layer step on one card, losses "
+              + " ".join(f"{v:.6f}" for v in ref_f32) + f" ({time.perf_counter() - t1:.1f} s)")
+        with open(os.path.join(directory, "plan.json"), "w") as f:
+            json.dump({"ref_o2": ref_o2, "ref_f32": ref_f32}, f)
+        # NCCL on a shared card: the launcher refuses before any rank starts
+        # (its own entry point, called here: a process of its own would only
+        # add the port's import)
+        from paddle_tpu_torch.distributed.launch import launch
+
+        t1, saved = time.perf_counter(), os.environ.get("PADDLE_DISTRI_BACKEND")
+        os.environ["PADDLE_DISTRI_BACKEND"] = "nccl"
+        try:
+            launch(["--devices", "0,0", "--log_dir", os.path.join(directory, "logs_refused"),
+                    os.path.abspath(__file__), "--phase18-child", "world1", directory])
+            said = None
+        except SystemExit as e:
+            said = str(e)
+        finally:
+            if saved is None:
+                del os.environ["PADDLE_DISTRI_BACKEND"]
+            else:
+                os.environ["PADDLE_DISTRI_BACKEND"] = saved
+        print(f"  NCCL with --devices 0,0: {said} ({time.perf_counter() - t1:.2f} s)")
+        check(said is not None and "Duplicate GPU" in said,
+              "the launcher did not refuse NCCL on a shared card")
+        (w1,) = p18_launch(torch, directory, "world1", "0")
+        ranks = p18_launch(torch, directory, "ranks", ",".join(["0"] * P18_RANKS),
+                           {"PADDLE_DISTRI_BACKEND": "gloo"})
+        out = p18_report(w1, ranks, ref_o2, ref_f32)
+        out["kernels"] = kernels
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"  phase 18 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def p18_report(w1, ranks, ref_o2, ref_f32):
+    """Print and gate what the ranks reported; the flash launches summed."""
+    # 18a
+    c1 = w1["collectives"]
+    print(f"[18a] world 1 under NCCL ({w1['backend']}), every collective on card tensors, "
+          f"max |got - want|: " + ", ".join(f"{k} {v:.1e}" for k, v in c1.items()))
+    check(all(v == 0.0 for v in c1.values()), "a world-1 NCCL collective changed its input")
+    coll = [r["a"] for r in ranks if r["a"] is not None]
+    check(len(coll) == P18_COLL_RANKS, "the gloo collectives ran on the wrong ranks")
+    errs = {k: max(c["errors"][k] for c in coll) for k in coll[0]["errors"]}
+    print(f"[18a] {P18_COLL_RANKS} ranks on one H100 over gloo, card tensors, each collective "
+          f"against numpy, max |got - want|: " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                                          errs.items()))
+    check(all(v <= TOL_P18_COLL for v in errs.values()),
+          f"a gloo collective disagrees with numpy: {errs}")
+    print(f"  gloo's own collectives on card tensors (torch {coll[0]['torch']}): "
+          + ", ".join(f"{k}: {v}" for k, v in coll[0]["native"].items()))
+    ms = {k: max(c["ms"][k] for c in coll) for k in coll[0]["ms"]}
+    print(f"  {P18_COLL_MB} MB per rank, {P18_COLL_RANKS} ranks on one H100 over gloo, "
+          f"host-staged, ms (median of {P18_COLL_REPS}, the slowest rank): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()))
+    # 18b
+    b = [r["b"] for r in ranks]
+    print(f"[18b] GPT-2 345M as dp2 x mp2 x sharding2 (ZeRO-2), O2 bf16, AdamW, global batch "
+          f"8 x 1024, {P18_RANKS} ranks on one H100 over gloo (not a scaling figure)")
+    worst = max(abs(a - w) for r in b for a, w in zip(r["losses"], ref_o2))
+    print("  losses (rank 0): " + " ".join(f"{v:.4f}" for v in b[0]["losses"])
+          + "; the single card's: " + " ".join(f"{v:.4f}" for v in ref_o2)
+          + f"; max |d| over the ranks {worst:.3e} (tol {TOL_P18_BF16:g})")
+    check(all(r["losses"] == b[0]["losses"] for r in b), "the ranks' losses differ")
+    check(worst <= TOL_P18_BF16, "the hybrid step's losses stray from the single card's")
+    layers = p18_gpt_cfg().num_layers
+    for r, rb in enumerate(b):
+        for i, per in enumerate(rb["launches_per_step"]):
+            # attention dropout takes the dense attention, as in the JAX package
+            want = ({"fwd_sm90": layers, "dkv_sm90": layers, "dq_sm90": layers}
+                    if i < P18_STEPS else {})
+            got = {k: v for k, v in per.items() if v}
+            check(got == want, f"rank {r} step {i}: flash launches {got}, expected {want}")
+        check(rb["shapes"] == [list(P18_SHAPE)],
+              f"rank {r}: flash launches at {rb['shapes']}, expected {P18_SHAPE}")
+    print(f"  every rank: {layers} sm90 forward, {layers} dK/dV and {layers} dQ launches a "
+          f"step, at {P18_SHAPE} bf16 causal, steps 0-{P18_STEPS - 1}; none in the "
+          f"{P18_DROPOUT_STEPS} at attention dropout {P18_DROPOUT} (the flash route takes no "
+          f"dropout: the dense attention runs there, as in the JAX package)")
+    masks = [rb["attn_masks"] for rb in b]
+    check(all(m["draws"] == layers * P18_DROPOUT_STEPS for m in masks),
+          f"attention dropout draws per rank {[m['draws'] for m in masks]}, expected "
+          f"{layers * P18_DROPOUT_STEPS}")
+    by_mp = {}
+    for rb, m in zip(b, masks):
+        by_mp.setdefault(rb["mp_rank"], set()).add(m["first"])
+    print(f"  attention dropout: {layers * P18_DROPOUT_STEPS} draws a rank; the first layer's "
+          f"dropped positions by mp rank: "
+          + ", ".join(f"mp {k}: {sorted(v)}" for k, v in sorted(by_mp.items())))
+    check(all(len(v) == 1 for v in by_mp.values()) and len(by_mp) == P18_DEGREES["mp"]
+          and len(set().union(*by_mp.values())) == P18_DEGREES["mp"],
+          "the attention's masks are not one stream per mp rank (the RNG tracker's "
+          "model_parallel_rng): equal within an mp rank, different across them")
+    step_ms = [statistics.median(r["step_ms"][1:]) for r in b]
+    coll_ms = [statistics.median(r["coll_ms"][1:]) for r in b]
+    for r, rb in enumerate(b):
+        print(f"  rank {r}: step {step_ms[r]:.1f} ms (median of steps 1-{len(rb['step_ms']) - 1}; "
+              f"step 0 {rb['step_ms'][0]:.1f}), collectives {coll_ms[r]:.1f} ms, compute "
+              f"{step_ms[r] - coll_ms[r]:.1f} ms; peak memory {rb['peak_gb']:.2f} GB; moments "
+              f"held {rb['moment_share']:.3f} of the parameters' elements")
+    tokens = 8 * 1024 / (max(step_ms) / 1e3)
+    print(f"  the {P18_RANKS} ranks: {tokens:.0f} tokens/s (8 ranks on one H100 over gloo, not "
+          f"a scaling figure); peak memory summed {sum(r['peak_gb'] for r in b):.2f} GB")
+    check(all(abs(r["moment_share"] - 0.5) < 0.01 for r in b),
+          "a rank does not hold half of its moments")
+    for i in range(P18_STEPS + P18_DROPOUT_STEPS):
+        for name, layout in b[0]["layout"].items():
+            mp_dim = layout[0]
+            groups = {}
+            for r, rb in enumerate(b):
+                key = rb["mp_rank"] if mp_dim is not None else 0
+                groups.setdefault(key, set()).add(rb["hashes"][i][name])
+            check(all(len(v) == 1 for v in groups.values()),
+                  f"step {i}: {name} differs across the ranks that replicate it")
+    print(f"  every replicated parameter bitwise equal across its group after each of the "
+          f"{P18_STEPS} steps and the {P18_DROPOUT_STEPS} at hidden and attention dropout "
+          f"{P18_DROPOUT}")
+    # 18c
+    for j, c in enumerate(ranks[0]["c"]):
+        print(f"[18c] f32, full width, {P18_F32_LAYERS} layers, {c['label']}: losses "
+              + " ".join(f"{v:.6f}" for v in c["losses"]) + "; the single card's "
+              + " ".join(f"{v:.6f}" for v in ref_f32)
+              + f"; worst parameter excess over rtol {TOL_P18_F32['rtol']:g} atol "
+              f"{TOL_P18_F32['atol']:g}: {c['worst'][0]} {c['worst'][1]:.3e}; flash launches a "
+              f"step {c['launches_per_step']}")
+        check(all(math.isclose(a, w, rel_tol=TOL_P18_F32["rtol"], abs_tol=TOL_P18_F32["atol"])
+                  for a, w in zip(c["losses"], ref_f32)),
+              f"18c {c['label']}: losses stray from the single card's")
+        check(c["worst"][1] <= 0.0, f"18c {c['label']}: {c['worst'][0]} strays")
+        cm = [r["c"][j]["moments"] for r in ranks]
+        worst_m = max((m["worst"] for m in cm), key=lambda w: w[1])
+        rel_m = max(m["rel"] for m in cm)
+        print(f"  AdamW moments, each rank's shards against the single card's cut alike "
+              f"({cm[0]['counted']} a rank): worst excess {worst_m[0]} {worst_m[1]:.3e}; "
+              f"largest |got - want| / |want| (2-norm) {rel_m:.3e} (tol {TOL_P18_F32['rtol']:g})")
+        check(worst_m[1] <= 0.0 and rel_m <= TOL_P18_F32["rtol"],
+              f"18c {c['label']}: the moment shards stray from the single card's")
+        want = {f"{k}_tf32x3": P18_F32_LAYERS for k in ("fwd", "dkv", "dq")}
+        check(c["launches_per_step"] == want,
+              f"18c {c['label']}: flash launches a step {c['launches_per_step']}, expected {want}")
+        if "rest_share" in c:
+            print(f"  ZeRO-3 at rest: each rank holds {c['rest_share']:.4f} of each cut "
+                  f"parameter's global elements ({c['cut']} parameters cut)")
+            check(c["rest_ok"], "a ZeRO-3 parameter at rest is not 1/4 of its global size "
+                                "on its mp shard")
+    # 18d
+    d = w1["fleet1"]
+    print(f"[18d] world 1 under NCCL through fleet (all degrees 1), bench.py main()'s O2 step: "
+          f"losses " + " ".join(f"{v:.6f}" for v in d["losses"]) + f"; the eager "
+          f"compile_train_step copy's " + " ".join(f"{v:.6f}" for v in d["copy_losses"])
+          + f"; bitwise: losses {d['losses'] == d['copy_losses']}, parameters "
+          f"{d['params_equal']}{'' if d['params_equal'] else ' (first differing: ' + str(d['first_diff']) + ')'}; "
+          f"step {d['step_ms']:.1f} ms (fleet) against {d['copy_ms']:.1f} ms (copy), host clock")
+    check(d["losses"] == d["copy_losses"] and d["params_equal"],
+          "the world-1 fleet step is not bitwise the eager compile_train_step copy")
+    launches = {"fwd_sm90": 0, "dkv_sm90": 0, "dq_sm90": 0, "fwd_tf32x3": 0, "dkv_tf32x3": 0,
+                "dq_tf32x3": 0}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in w1["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"  flash launches over phase 18's paths (all ranks): {launches}")
+    print(f"  seconds in the ranks (the slowest rank; start is the launcher's and the "
+          f"interpreter's, set-up the port's import and the rendezvous): world 1 "
+          + ", ".join(f"{k} {v:.1f}" for k, v in w1["laps"].items()) + f"; the "
+          f"{P18_RANKS} ranks "
+          + ", ".join(f"{k} {max(r['laps'][k] for r in ranks):.1f}" for k in ranks[0]["laps"]))
+    return {"launches": launches, "step_ms": max(step_ms), "tokens_per_s": tokens,
+            "coll_ms": ms, "peak_gb": [r["peak_gb"] for r in b]}
+
+
+# -- the ranks ----------------------------------------------------------------
+def p18_child(kind, directory) -> int:
+    """``chip_smoke.py --phase18-child KIND DIR``: one rank of phase 18."""
+    launched = float(os.environ.get("P18_LAUNCHED_AT", time.time()))
+    laps, t0 = {"start": time.time() - launched}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        laps[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(directory, "plan.json")) as f:
+        plan = json.load(f)
+    pt.distributed.init_parallel_env()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    import numpy as np
+
+    ids = np.load(os.path.join(directory, "ids.npy"))
+    lap("set-up")
+    if kind == "world1":
+        out = {"backend": pt.distributed.get_group().backend,
+               "collectives": p18_world1_collectives(torch, pt, dev)}
+        lap("18a")
+        reset_flash_counts(fa)
+        out["fleet1"] = p18_fleet_world1(torch, pt, fa, dev, ids)
+        lap("18d")
+        out["launches"] = {k: v for k, v in flash_counts(fa).items() if v}
+    else:
+        reset_flash_counts(fa)
+        out = {"a": p18_gloo_collectives(torch, pt, dev)}
+        lap("18a")
+        out["b"] = p18_hybrid_345m(torch, pt, fa, dev, ids)
+        lap("18b")
+        out["c"] = []
+        for degrees, stage in ((P18_DEGREES, 2), (P18_ZERO3, 3)):
+            out["c"].append(p18_f32_parity(torch, pt, fa, dev, ids, directory, plan, degrees,
+                                           stage))
+            lap(f"18c ZeRO-{stage}")
+        out["launches"] = {k: v for k, v in flash_counts(fa).items() if v}
+    laps["to its result"] = time.time() - launched
+    out["laps"] = laps
+    print("PHASE18 " + json.dumps(out), flush=True)
+    # no rank leaves while another still talks to it
+    pt.distributed.barrier()
+    pt.distributed.destroy_process_group()
+    return 0
+
+
+def p18_world1_collectives(torch, pt, dev):
+    """Every collective of the world-1 NCCL group on card tensors; the
+    largest change each made to what world 1 gives (0 for all)."""
+    from paddle_tpu_torch.distributed import collective as C
+
+    x = torch.arange(24, dtype=torch.float32, device=dev).reshape(4, 6) / 7.0
+    out = {}
+
+    def diff(a, b):
+        return float((a - b).abs().max())
+
+    for name, op in (("sum", C.ReduceOp.SUM), ("max", C.ReduceOp.MAX), ("min", C.ReduceOp.MIN),
+                     ("prod", C.ReduceOp.PROD), ("avg", C.ReduceOp.AVG)):
+        t = x.clone()
+        C.all_reduce(t, op)
+        out[f"all_reduce_{name}"] = diff(t, x)
+    got = []
+    C.all_gather(got, x)
+    out["all_gather"] = diff(torch.stack(got), x[None])
+    t = x.clone()
+    C.broadcast(t, src=0)
+    out["broadcast"] = diff(t, x)
+    t = x.clone()
+    C.reduce(t, dst=0)
+    out["reduce"] = diff(t, x)
+    t = torch.empty_like(x)
+    C.scatter(t, [x], src=0)
+    out["scatter"] = diff(t, x)
+    t = torch.empty_like(x)
+    C.reduce_scatter(t, x)
+    out["reduce_scatter"] = diff(t, x)
+    out["alltoall"] = diff(torch.stack(C.alltoall([x])), x[None])
+    out["alltoall_single"] = diff(C.alltoall_single(x), x)
+    out["shift_wrap"] = diff(C.shift(x, 1, wrap=True), x)
+    out["ppermute"] = diff(C.ppermute(x, [(0, 0)]), x)
+    C.barrier()
+    C.wait(x)
+    obj = C.all_gather_object([], {"rank": 0})
+    out["all_gather_object"] = 0.0 if obj == [{"rank": 0}] else 1.0
+    return out
+
+
+def p18_fleet_world1(torch, pt, fa, dev, ids):
+    """18d: bench.py main()'s O2 step through fleet at world 1 against an
+    eager ``compile_train_step`` copy (its warm-up made ``P18_STEPS`` long)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion
+
+    strategy = fleet.DistributedStrategy()
+    strategy.amp = True
+    strategy.amp_configs = {"use_pure_bf16": True}
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = p18_gpt_cfg()
+    pt.seed(SEED)
+    model = GPTForPretraining(cfg, device=dev)
+    twin = copy.deepcopy(model)
+    model = fleet.distributed_model(pt.amp.decorate(model, level="O2", dtype="bfloat16"))
+    twin = pt.amp.decorate(twin, level="O2", dtype="bfloat16")
+    crit = GPTPretrainingCriterion(cfg)
+
+    def loss_fn(logits, labels):
+        return crit(logits.float(), labels)
+
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=P18_LR, parameters=model.parameters(), weight_decay=0.01))
+    step = fleet.distributed_train_step(model, loss_fn, opt)
+    opt_t = pt.optimizer.AdamW(learning_rate=P18_LR, parameters=twin.parameters(),
+                               weight_decay=0.01)
+    x = torch.as_tensor(ids[:, :-1], device=dev)
+    y = torch.as_tensor(ids[:, 1:], device=dev)
+
+    def run(fn):
+        losses, times = [], []
+        for _ in range(P18_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(fn(x, y)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, statistics.median(times[1:])
+
+    losses, step_ms = run(step)
+    warmup, pt.jit.WARMUP_STEPS = pt.jit.WARMUP_STEPS, P18_STEPS
+    try:
+        copy_losses, copy_ms = run(pt.jit.compile_train_step(twin, loss_fn, opt_t))
+    finally:
+        pt.jit.WARMUP_STEPS = warmup
+    first = next((n for (n, a), (_, b) in zip(model.named_parameters(),
+                                              twin.named_parameters())
+                  if not torch.equal(a, b)), None)
+    return {"losses": losses, "copy_losses": copy_losses, "params_equal": first is None,
+            "first_diff": first, "step_ms": step_ms, "copy_ms": copy_ms}
+
+
+def p18_gloo_collectives(torch, pt, dev):
+    """18a: ranks 0-3 of the world over gloo, card tensors: each collective
+    against numpy, gloo's own support of the card's tensors, and each
+    collective's ms at ``P18_COLL_MB`` per rank. None on the other ranks."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import collective as C
+
+    group = C.new_group(list(range(P18_COLL_RANKS)), backend="gloo")
+    rank, n = pt.distributed.get_rank(), P18_COLL_RANKS
+    if rank >= n:
+        C.barrier()
+        return None
+    shape = (8, 6)
+
+    def inp(r):
+        return np.random.default_rng(SEED + r).standard_normal(shape).astype(np.float32)
+
+    xs = [inp(r) for r in range(n)]
+    x = torch.as_tensor(xs[rank], device=dev)
+    errs = {}
+
+    def err(name, got, want):
+        got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        errs[name] = float(np.max(np.abs(got - np.asarray(want))))
+
+    for name, op, ref in (("sum", C.ReduceOp.SUM, np.sum), ("max", C.ReduceOp.MAX, np.max),
+                          ("avg", C.ReduceOp.AVG, np.mean)):
+        t = x.clone()
+        C.all_reduce(t, op, group)
+        err(f"all_reduce_{name}", t, ref(np.stack(xs), axis=0))
+    got = []
+    C.all_gather(got, x, group)
+    err("all_gather", torch.stack(got), np.stack(xs))
+    t = x.clone()
+    C.broadcast(t, src=n - 1, group=group)
+    err("broadcast", t, xs[-1])
+    t = x.clone()
+    C.reduce(t, dst=0, group=group)
+    err("reduce", t, np.sum(xs, axis=0) if rank == 0 else xs[rank])
+    parts = [torch.as_tensor(inp(100 + i), device=dev) for i in range(n)]
+    t = torch.empty_like(x)
+    C.scatter(t, parts, src=0, group=group)
+    err("scatter", t, inp(100 + rank))
+    t = torch.empty((shape[0] // n,) + shape[1:], device=dev)
+    C.reduce_scatter(t, x, group=group)
+    err("reduce_scatter", t, np.split(np.sum(xs, axis=0), n)[rank])
+    outs = C.alltoall(list(x.chunk(n)), group=group)
+    err("alltoall", torch.stack(outs), np.stack([np.split(xs[i], n)[rank] for i in range(n)]))
+    err("alltoall_single", C.alltoall_single(x, group=group),
+        np.concatenate([np.split(xs[i], n)[rank] for i in range(n)]))
+    err("shift", C.shift(x, 1, group=group), xs[rank - 1] if rank else np.zeros(shape))
+    t = x.clone()
+    if rank == 0:
+        C.send(t, dst=n - 1, group=group)
+    elif rank == n - 1:
+        C.recv(t, src=0, group=group)
+    err("send_recv", t, xs[0] if rank == n - 1 else xs[rank])
+    # gloo's own collectives on card tensors (a probe: the port hands these to
+    # gloo as they are, and stages only scatter and the point-to-point sends
+    # through the host itself)
+    native = {}
+    big = torch.ones(n * 4, device=dev)
+    for name, fn in (
+            ("all_gather", lambda: dist.all_gather([torch.empty(4, device=dev)
+                                                    for _ in range(n)], big[:4], group=group.pg)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(n * 4, device=dev), big[:4], group=group.pg)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(4, device=dev), big, group=group.pg)),
+            ("all_to_all_single", lambda: dist.all_to_all_single(
+                torch.empty(n * 4, device=dev), big, group=group.pg)),
+            ("all_to_all", lambda: dist.all_to_all(
+                [torch.empty(4, device=dev) for _ in range(n)], list(big.chunk(n)),
+                group=group.pg))):
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fn()
+            torch.cuda.synchronize()
+            native[name] = "takes them"
+        except Exception as e:  # the probe's answer, printed
+            native[name] = f"refuses ({type(e).__name__}: {str(e).splitlines()[0][:80]})"
+    # each collective's time at P18_COLL_MB per rank
+    elems = P18_COLL_MB * 2 ** 20 // 4
+    big = torch.randn(elems, device=dev)
+    ops = {
+        "all_reduce": lambda: C.all_reduce(big.clone(), group=group),
+        "all_gather": lambda: C.all_gather([], big, group=group),
+        "reduce_scatter": lambda: C.reduce_scatter(torch.empty(elems // n, device=dev), big,
+                                                   group=group),
+        "broadcast": lambda: C.broadcast(big, src=0, group=group),
+        "alltoall_single": lambda: C.alltoall_single(big, group=group),
+    }
+    ms = {}
+    for name, fn in ops.items():
+        times = []
+        for _ in range(P18_COLL_REPS + 1):
+            C.barrier(group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times[1:])
+    del big
+    C.barrier()
+    return {"errors": errs, "native": native, "ms": ms, "torch": torch.__version__}
+
+
+class _CollectiveTimer:
+    """Host time spent in the port's collectives (each call synchronised
+    with the card on both sides), while installed."""
+
+    def __init__(self, torch, C):
+        self.torch, self.C, self.ms, self.depth = torch, C, 0.0, 0
+        self.saved = {n: getattr(C, n) for n in ("all_reduce_", "all_gather_cat",
+                                                 "reduce_scatter_dim")}
+        for name, fn in self.saved.items():
+            setattr(C, name, self._timed(fn))
+
+    def _timed(self, fn):
+        def call(*a, **k):
+            if self.depth:  # inside another timed collective
+                return fn(*a, **k)
+            self.depth += 1
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.depth -= 1
+        return call
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.C, name, fn)
+
+
+def p18_shapes(fa):
+    """Record the (shape) of every flash launch while installed; ``close()``."""
+    seen = set()
+    saved = {n: getattr(fa, n) for n in ("_fwd_cuda", "_bwd_dkv_cuda", "_bwd_dq_cuda")}
+
+    def wrap(fn):
+        def call(q, *a, **k):
+            seen.add(tuple(q.shape))
+            return fn(q, *a, **k)
+        return call
+
+    for n, fn in saved.items():
+        setattr(fa, n, wrap(fn))
+
+    def close():
+        for n, fn in saved.items():
+            setattr(fa, n, fn)
+        return sorted(list(s) for s in seen)
+    return close
+
+
+def p18_attention_masks(torch):
+    """Record the attention's dropout draws while installed (the dense
+    attention's ``nn_ops.dropout`` over [b, h, s, s] probabilities); the
+    call returns their count and the hash of the first one's dropped
+    positions, and uninstalls."""
+    from paddle_tpu_torch.ops import nn_ops
+
+    saved = nn_ops.dropout
+    seen = []
+
+    def call(x, *a, **k):
+        y = saved(x, *a, **k)
+        if x.dim() == 4:
+            if not seen:
+                seen.append(_p18_hash(torch, (y == 0) & (x != 0)))
+            else:
+                seen.append(None)
+        return y
+
+    nn_ops.dropout = call
+
+    def close():
+        nn_ops.dropout = saved
+        return {"draws": len(seen), "first": seen[0] if seen else None}
+    return close
+
+
+def _p18_hash(torch, t):
+    import hashlib
+
+    raw = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha1(raw.tobytes()).hexdigest()[:20]
+
+
+def p18_hybrid_345m(torch, pt, fa, dev, ids):
+    """18b: GPT-2 345M at full width as dp2 x mp2 x sharding2 (ZeRO-2), O2
+    bf16, AdamW, the global batch on every rank."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import (GPTAttention, GPTForPretraining,
+                                             GPTPretrainingCriterion)
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {f"{k}_degree": v for k, v in P18_DEGREES.items()}
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 2}
+    strategy.amp = True
+    strategy.amp_configs = {"use_pure_bf16": True}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    cfg = p18_gpt_cfg()
+    with pt.parallel.topology.use_mesh(None):  # the whole model from SEED: phase 7's weights
+        pt.seed(SEED)
+        whole = GPTForPretraining(cfg, device=dev).state_dict()
+    model = GPTForPretraining(cfg, device=dev)
+    convert.load_global_state(model, whole)
+    del whole
+    torch.cuda.empty_cache()
+    model = fleet.distributed_model(pt.amp.decorate(model, level="O2", dtype="bfloat16"))
+    crit = GPTPretrainingCriterion(cfg)
+
+    def loss_fn(logits, labels):
+        return crit(logits.float(), labels)
+
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=P18_LR, parameters=model.parameters(), weight_decay=0.01))
+    step = fleet.distributed_train_step(model, loss_fn, opt)
+    x = torch.as_tensor(ids[:, :-1], device=dev)
+    y = torch.as_tensor(ids[:, 1:], device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "step_ms": [], "coll_ms": [], "launches_per_step": [], "hashes": [],
+           "mp_rank": hcg.get_model_parallel_rank(), "layout": convert.model_layout(model)}
+    timer = _CollectiveTimer(torch, C)
+    close_shapes = p18_shapes(fa)
+    masks = None
+    try:
+        for i in range(P18_STEPS + P18_DROPOUT_STEPS):
+            if i == P18_STEPS:
+                for m in model.modules():
+                    if isinstance(m, pt.nn.Dropout):
+                        m.p = P18_DROPOUT
+                    if isinstance(m, GPTAttention):  # read in its forward
+                        m.cfg = dataclasses.replace(m.cfg, attn_dropout=P18_DROPOUT)
+                masks = p18_attention_masks(torch)
+            before = flash_counts(fa)
+            timer.ms = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(x, y))
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["coll_ms"].append(timer.ms)
+            out["launches_per_step"].append(
+                {k: v - before[k] for k, v in flash_counts(fa).items()})
+            if i < P18_STEPS:
+                out["losses"].append(loss)
+            out["hashes"].append({n: _p18_hash(torch, p) for n, p in model.named_parameters()})
+    finally:
+        timer.close()
+        out["shapes"] = close_shapes()
+        if masks is not None:
+            out["attn_masks"] = masks()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    held = sum(opt._accumulators[id(p)]["moment1"].numel() for p in model.parameters())
+    out["moment_share"] = held / sum(p.numel() for p in model.parameters())
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def p18_f32_parity(torch, pt, fa, dev, ids, directory, plan, degrees, stage):
+    """18c: the f32 GPT at full width and ``P18_F32_LAYERS`` layers at
+    ``degrees`` and ZeRO ``stage`` against the single card; rank 0 compares
+    every gathered parameter."""
+    import numpy as np
+
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, GPTPretrainingCriterion
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": stage}
+    fleet.init(is_collective=True, strategy=strategy)
+    cfg = p18_gpt_cfg(P18_F32_LAYERS)
+    with pt.parallel.topology.use_mesh(None):
+        pt.seed(SEED)
+        whole = GPTForPretraining(cfg, device=dev).state_dict()
+    model = GPTForPretraining(cfg, device=dev)
+    convert.load_global_state(model, whole)
+    model = fleet.distributed_model(model)
+    label = " x ".join(f"{k}{v}" for k, v in degrees.items()) + f" (ZeRO-{stage})"
+    out = {"label": label}
+    if stage == 3:
+        layout = convert.model_layout(model)
+        cut = [(n, p) for n, p in model.named_parameters() if layout[n][1] is not None]
+        shares = []
+        for n, p in cut:
+            mp = degrees["mp"] if layout[n][0] is not None else 1
+            shares.append(p.numel() * mp / whole[n].numel())
+        out["cut"] = len(cut)
+        out["rest_share"] = max(shares)
+        out["rest_ok"] = bool(cut) and all(abs(s - 1 / degrees["sharding"]) < 1e-9
+                                           for s in shares)
+    del whole
+    crit = GPTPretrainingCriterion(cfg)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=P18_LR, parameters=model.parameters(), weight_decay=0.01))
+    step = fleet.distributed_train_step(model, lambda lo, la: crit(lo, la), opt)
+    x = torch.as_tensor(ids[:, :-1], device=dev)
+    y = torch.as_tensor(ids[:, 1:], device=dev)
+    before = flash_counts(fa)
+    out["losses"] = [float(step(x, y)) for _ in range(P18_STEPS)]
+    out["launches_per_step"] = {k: (v - before[k]) // P18_STEPS
+                                for k, v in flash_counts(fa).items() if v - before[k]}
+    # each rank's moment shards against the single card's moments cut as the
+    # sharded step cuts them: a gradient averaged over the wrong ranks, or
+    # summed, leaves AdamW's update and so the parameters nearly as they are,
+    # but not the moments
+    inner = getattr(opt, "_inner", opt)
+    ref_m = np.load(os.path.join(directory, "ref_f32_moments.npz"))
+    worst_m, rel_m, counted = ("", -1.0), 0.0, 0
+    for name, p in model.named_parameters():
+        for key in P18_MOMENTS:
+            want = np.asarray(convert.shard_moment(ref_m[f"{name}:{key}"], p))
+            got = inner._accumulators[id(p)][key].detach().cpu().numpy()
+            check(got.shape == want.shape, f"18c {label}: {name} {key} holds {got.shape}, "
+                                           f"expected {want.shape}")
+            excess = float(np.max(np.abs(got - want) - TOL_P18_F32["atol"]
+                                  - TOL_P18_F32["rtol"] * np.abs(want)))
+            if excess > worst_m[1]:
+                worst_m = (f"{name} {key}", excess)
+            rel_m = max(rel_m, float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                                      1e-30)))
+            counted += 1
+    out["moments"] = {"worst": worst_m, "rel": rel_m, "counted": counted}
+    state = convert.gather_model_state(model)
+    worst = ("", -1.0)
+    if pt.distributed.get_rank() == 0:
+        ref = np.load(os.path.join(directory, "ref_f32.npz"))
+        for name, got in state.items():
+            want = ref[name]
+            excess = float(np.max(np.abs(got - want) - TOL_P18_F32["atol"]
+                                  - TOL_P18_F32["rtol"] * np.abs(want)))
+            if excess > worst[1]:
+                worst = (name, excess)
+    out["worst"] = worst
+    del model, opt, step, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if "--scrape-child" in sys.argv:
         return scrape_child(sys.argv[sys.argv.index("--scrape-child") + 1])
@@ -7644,6 +8502,11 @@ def main() -> int:
         return slice18_alone(torch)
     if "--phase17" in sys.argv:
         return slice19_alone(torch)
+    if "--phase18" in sys.argv:
+        return slice20_alone(torch)
+    if "--phase18-child" in sys.argv:
+        at = sys.argv.index("--phase18-child")
+        return p18_child(sys.argv[at + 1], sys.argv[at + 2])
     if "--profile16" in sys.argv:
         return profiler_child()
     if "--host-cost-child" in sys.argv:
@@ -7908,12 +8771,18 @@ def main() -> int:
     p17 = slice19(torch, pt, fa, fu, dev, card)
     lap("17")
     l17 = p17["remat"]["launches"]
+    # 18. multi-GPU, part one: the collectives, fleet's hybrid GPT step and
+    # ZeRO, ranks as processes of their own on the one card
+    torch.cuda.empty_cache()
+    p18 = slice20(torch, pt, fa, dev, card, train)
+    lap("18")
+    l18 = p18["launches"]
 
-    # 18. per-kernel numbers, then the result
+    # 19. per-kernel numbers, then the result
     fwd16, fwd32 = fwd[(FWD_MAIN_SHAPE, "bfloat16")], fwd[(FWD_MAIN_SHAPE, "float32")]
     fwd16_train = fwd[(BWD_MAIN_SHAPE, "bfloat16")]
     bwd16 = bwd["bfloat16"]
-    print(f"[18] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
+    print(f"[19] side by side, bf16, ms: forward at {FWD_MAIN_SHAPE} sm90 {fwd16['ms']:.4f} "
           f"SIMT {fwd16['simt_ms']:.4f} SDPA {fwd16['library_ms']:.4f}; forward at "
           f"{BWD_MAIN_SHAPE} sm90 {fwd16_train['ms']:.4f} SIMT {fwd16_train['simt_ms']:.4f} "
           f"SDPA {fwd16_train['library_ms']:.4f}; at {BWD_MAIN_SHAPE}: dK/dV sm90 "
@@ -7962,6 +8831,18 @@ def main() -> int:
           f"{bk32['fwd']['bound_ms']:.4f}); dK/dV tf32x3 {bk32['dkv']['ms']:.4f}, dQ "
           f"{bk32['dq']['ms']:.4f}, the pair {bk32['pair_ms']:.4f} against SDPA's "
           f"{bk32['dkv']['library_ms']:.4f}")
+    pk16, pk32 = p18["kernels"]["bfloat16"], p18["kernels"]["float32"]
+    print(f"    a rank's attention in phase 18 at {P18_SHAPE} causal, fused-qkv views: bf16 "
+          f"forward sm90 {pk16['fwd']['ms']:.4f} SDPA {pk16['fwd']['library_ms']:.4f} (bound "
+          f"{pk16['fwd']['bound_ms']:.4f}); dK/dV sm90 {pk16['dkv']['ms']:.4f} (bound "
+          f"{pk16['dkv']['bound_ms']:.4f}), dQ sm90 {pk16['dq']['ms']:.4f} (bound "
+          f"{pk16['dq']['bound_ms']:.4f}), the pair {pk16['pair_ms']:.4f} against SDPA's "
+          f"backward {pk16['dkv']['library_ms']:.4f}; f32 forward tf32x3 "
+          f"{pk32['fwd']['ms']:.4f} SDPA {pk32['fwd']['library_ms']:.4f} (bound "
+          f"{pk32['fwd']['bound_ms']:.4f}); dK/dV tf32x3 {pk32['dkv']['ms']:.4f} (bound "
+          f"{pk32['dkv']['bound_ms']:.4f}), dQ {pk32['dq']['ms']:.4f} (bound "
+          f"{pk32['dq']['bound_ms']:.4f}), the pair {pk32['pair_ms']:.4f} against SDPA's "
+          f"{pk32['dkv']['library_ms']:.4f}")
     print(f"    BERT-base steps, ms per replay: AdamW bf16 {bert['adamw']['step_ms']:.3f} "
           f"({bert['adamw']['tokens_per_s']:.1f} tokens/s), Lamb (f32 after its first update) "
           f"{bert['lamb']['step_ms']:.3f}, masked with dropout 0.1 (dense attention, f32 after "
@@ -8021,28 +8902,31 @@ def main() -> int:
         row("flash_attention_fwd", "flash_attention_fwd_sm90.cu", 69,
             inference["fwd_sm90"] + train["launches"]["fwd_sm90"] + resume["fwd_sm90"]
             + recompute["launches"]["fwd_sm90"] + o1["launches"]["fwd_sm90"]
-            + enc["fwd_sm90"] + l17["fwd_sm90"], fwd16),
+            + enc["fwd_sm90"] + l17["fwd_sm90"] + l18["fwd_sm90"], fwd16),
         row("flash_attention_fwd_tf32", "flash_attention_fwd_tf32.cu", 69,
             inference["fwd_tf32x3"] + f32_train["fwd_tf32x3"] + sf["fwd_tf32x3"]
-            + enc["fwd_tf32x3"] + l13["fwd_tf32x3"] + l14["fwd_tf32x3"], fwd32),
+            + enc["fwd_tf32x3"] + l13["fwd_tf32x3"] + l14["fwd_tf32x3"] + l18["fwd_tf32x3"],
+            fwd32),
         # the SIMT kernel at the main f32 shape, on the tf32x3 case's inputs
         row("flash_attention_fwd_simt", "flash_attention_fwd.cu", 69, simt_path["fwd_simt"],
             dict(fwd32, ms=fwd32["simt_ms"], max_abs_err=fwd32["simt_max_abs_err"])),
         row("flash_attention_bwd_dkv", "flash_attention_bwd_dkv_sm90.cu", 151,
             train["launches"]["dkv_sm90"] + resume["dkv_sm90"] + recompute["launches"]["dkv_sm90"]
-            + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"] + l17["dkv_sm90"],
+            + o1["launches"]["dkv_sm90"] + enc["dkv_sm90"] + l17["dkv_sm90"] + l18["dkv_sm90"],
             bwd["bfloat16"]["dkv"]),
         row("flash_attention_bwd_dkv_tf32", "flash_attention_bwd_tf32.cu", 151,
-            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"] + l13["dkv_tf32x3"] + l14["dkv_tf32x3"],
+            f32_train["dkv_tf32x3"] + sf["dkv_tf32x3"] + l13["dkv_tf32x3"] + l14["dkv_tf32x3"]
+            + l18["dkv_tf32x3"],
             bwd32["dkv"]),
         row("flash_attention_bwd_dkv_simt", "flash_attention_bwd.cu", 151,
             simt_path["dkv_simt"], bwd32["dkv_simt"]),
         row("flash_attention_bwd_dq", "flash_attention_bwd_dq_sm90.cu", 197,
             train["launches"]["dq_sm90"] + resume["dq_sm90"] + recompute["launches"]["dq_sm90"]
-            + o1["launches"]["dq_sm90"] + enc["dq_sm90"] + l17["dq_sm90"],
+            + o1["launches"]["dq_sm90"] + enc["dq_sm90"] + l17["dq_sm90"] + l18["dq_sm90"],
             bwd["bfloat16"]["dq"]),
         row("flash_attention_bwd_dq_tf32", "flash_attention_bwd_tf32.cu", 197,
-            f32_train["dq_tf32x3"] + sf["dq_tf32x3"] + l13["dq_tf32x3"] + l14["dq_tf32x3"],
+            f32_train["dq_tf32x3"] + sf["dq_tf32x3"] + l13["dq_tf32x3"] + l14["dq_tf32x3"]
+            + l18["dq_tf32x3"],
             bwd32["dq"]),
         row("flash_attention_bwd_dq_simt", "flash_attention_bwd.cu", 197,
             simt_path["dq_simt"], bwd32["dq_simt"]),
@@ -8132,7 +9016,7 @@ def main() -> int:
           f"{o17['per_op']['step_ms_on']:.2f}, captured {o17['captured']['step_ms_off']:.2f} / "
           f"{o17['captured']['step_ms_on']:.2f}; the planner's pool overhead "
           f"{d17['ratio']:.3f}x the measured one")
-    print(f"[18] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
+    print(f"[19] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s after the CUDA "
           f"check")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,7 @@ from . import (  # noqa: F401,E402
     nn, optimizer, profiler, regularizer, resilience, serving, utils,
 )
 from .autograd import grad  # noqa: F401,E402
+from .distributed.parallel import DataParallel  # noqa: F401,E402
 from .batch import batch  # noqa: F401,E402
 from .framework.io_utils import load, save  # noqa: F401,E402
 from .nn.param_attr import ParamAttr  # noqa: F401,E402
@@ -64,7 +65,8 @@ get_cuda_rng_state = get_rng_state
 set_cuda_rng_state = set_rng_state
 
 __all__ = sorted(set(_tensor_api.__all__) | {
-    "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "CustomPlace", "DType", "Generator",
+    "CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "CustomPlace", "DataParallel", "DType",
+    "Generator",
     "ParamAttr", "vision",
     "IPUPlace", "MLUPlace", "NPUPlace", "Place", "TPUPlace", "Tensor", "XPUPlace", "amp",
     "autograd", "batch", "bfloat16", "device", "bool", "bool_", "complex64", "complex128",

@@ -407,7 +407,7 @@ def program_diff(a, b, label_a: str = "A", label_b: str = "B", extra_outputs_a: 
                  extra_outputs_b: int = 0) -> Tuple[EquivalenceCertificate, List[str]]:
     """(certificate, printable diff lines) between two recorded programs:
     the op-histogram delta and the first divergence when the proof fails.
-    (The collective schedule of the JAX diff waits for item 13.)"""
+    (The collective schedule of the JAX diff waits for item 13c.)"""
     A, B = canonicalize(a), canonicalize(b)
     cert = prove_equivalent(A, B, label_a=label_a, label_b=label_b,
                             extra_outputs_a=extra_outputs_a,

@@ -17,7 +17,7 @@ chased through views and casts. Severities are the JAX package's:
           float scatter);
   INFO    worth knowing (a transpose pair that fuses, a bf16 long sum).
 
-The collective and rank-variant halves of ``determinism`` wait for item 13
+The collective and rank-variant halves of ``determinism`` wait for item 13c
 (multi-GPU): a one-card program has no collective.
 """
 from __future__ import annotations

@@ -507,7 +507,7 @@ define_flag("eager_capture_donate", True,
 define_flag("eager_capture_sharded", True,
             "mesh-aware whole-step capture in the JAX package; the port has no "
             "mesh, so every capture is single-card and only the default is "
-            "accepted (ROADMAP queue 1 item 13)", later="item 13")
+            "accepted (ROADMAP queue 1 item 13c)", later="item 13c")
 define_flag("check_programs", 0,
             "the program verifier: 0 off; 1 runs the analysis passes over each lazy "
             "segment's first flush, the captured step's donation gate and "

@@ -88,7 +88,7 @@ path and raises ``ProgramVerificationError`` at the end of ``step()``
 (``equivalence_unprovable``). Under FLAGS_check_programs >= 1 each replay
 first passes the donation gate. ``captured_step_program``,
 ``captured_step_certificate`` and ``captured_step_handle`` expose the last
-replayed capture. Left to item 13: mesh-aware and sharded capture.
+replayed capture. Left to item 13c: mesh-aware and sharded capture.
 
 **Decode-mode capture** (``serve_program``, ``reset_serve_programs``,
 ``serve_capture_state``). A serving engine knows its step boundaries
@@ -2132,13 +2132,13 @@ def captured_step_handle() -> _CapturedStepHandle:
 
 
 def captured_step_shard_info():
-    """A sharded capture's mesh and specs: not ported (item 13)."""
-    _later("lazy.captured_step_shard_info (sharded capture)", "item 13")
+    """A sharded capture's mesh and specs: not ported (item 13c)."""
+    _later("lazy.captured_step_shard_info (sharded capture)", "item 13c")
 
 
 def captured_step_donation_verdicts():
-    """A sharded capture's donation proofs: not ported (item 13)."""
-    _later("lazy.captured_step_donation_verdicts (sharded capture)", "item 13")
+    """A sharded capture's donation proofs: not ported (item 13c)."""
+    _later("lazy.captured_step_donation_verdicts (sharded capture)", "item 13c")
 
 
 def reset_lazy_state():

@@ -440,6 +440,11 @@ def _next_param_name() -> str:
     return f"param_{_param_count[0]}"
 
 
+# a parameter's sharded layout (``distributed.fleet.meta_parallel``,
+# ``parallel.sharding``): kept by ``copy.deepcopy``
+SHARD_ATTRS = ("dist_spec", "global_shape", "zero_dim", "zero_shape")
+
+
 class Parameter(torch.nn.Parameter):
     """The port's ``paddle.nn.Parameter`` (``paddle_tpu/nn/layer_base.py:38``):
     a ``torch.nn.Parameter``, so torch modules register it and autograd and
@@ -485,6 +490,9 @@ class Parameter(torch.nn.Parameter):
             return memo[id(self)]
         out = type(self)(self.data.clone(memory_format=torch.preserve_format),
                          self.requires_grad, self.name)
+        for attr in SHARD_ATTRS:  # a tensor-parallel or ZeRO layout goes with it
+            if attr in self.__dict__:
+                setattr(out, attr, self.__dict__[attr])
         memo[id(self)] = out
         return out
 

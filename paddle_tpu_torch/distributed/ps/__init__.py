@@ -23,7 +23,7 @@ dispatch (``core/lazy.py``) its host read ends the pending segment, so it is
 never deferred nor captured.
 
 ``TheOnePSRuntime`` (and ``the_one_ps.py``, ``ps/utils/ps_factory.py``)
-needs ``fleet.init`` in PS mode: ROADMAP, open items, queue 1 item 13.
+needs ``fleet.init`` in PS mode: ROADMAP, open items, queue 1 item 13c.
 """
 from __future__ import annotations
 
@@ -415,7 +415,7 @@ class TheOnePSRuntime:
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "TheOnePSRuntime (and the_one_ps, ps.utils.ps_factory) needs fleet.init in PS "
-            "mode, which is not ported yet (ROADMAP, open items, queue 1 item 13); use "
+            "mode, which is not ported yet (ROADMAP, open items, queue 1 item 13c); use "
             "MemorySparseTable, or PsServer / PsClient / DistributedSparseTable directly"
         )
 

@@ -74,8 +74,9 @@ captured; under FLAGS_check_programs >= 1 every call scans the parameters
 and states the step writes in place for live external aliases
 (``analysis.memory.donation_gate``).
 
-Not ported yet (ROADMAP, open items, queue 1 item 13): meshes and input
-shardings.
+Not ported yet (ROADMAP, open items, queue 1 item 13c): meshes and input
+shardings (a sharded step captured whole over NCCL; the eager sharded step
+is ``parallel.sharding.ShardedTrainStep``).
 """
 from __future__ import annotations
 
@@ -472,6 +473,6 @@ def compile_train_step(model, loss_fn, optimizer, mesh=None, in_shardings=None,
         if given:
             raise NotImplementedError(
                 f"compile_train_step({what}=...) is not ported yet (ROADMAP, open "
-                "items, queue 1 item 13)"
+                "items, queue 1 item 13c)"
             )
     return CompiledTrainStep(model, loss_fn, optimizer, grad_input_idx, memory_plan)

@@ -3,8 +3,11 @@
 Same configuration, parameter names and layouts as the JAX model, so a
 ``state_dict`` carries across (``convert.state_dict_from_numpy``):
 
-  - attention and MLP are built from the fleet tensor-parallel layers at
-    world size 1, with ``[in, out]`` weights;
+  - attention and MLP are built from the fleet tensor-parallel layers, with
+    ``[in, out]`` weights: at an mp degree above 1 (``fleet.init`` before
+    the model is built) each rank holds its shard and attends over its
+    ``num_heads / mp`` heads, since the heads-major qkv layout makes a
+    contiguous column shard whole heads;
   - the fused qkv projection is heads-major: ``[b, s, H, 3, hd]``, unbound
     on axis 3;
   - the full-sequence forward goes through ``F.scaled_dot_product_attention``,
@@ -13,7 +16,10 @@ Same configuration, parameter names and layouts as the JAX model, so a
     (``ops/nn_ops.cached_attention``); a non-dict cache is the serving
     engine's paged view (``serving.PagedCacheView``,
     ``ops/nn_ops.paged_decode_attention``);
-  - the LM head is tied to the word embeddings: ``h @ W_embᵀ``.
+  - the LM head is tied to the word embeddings: ``h @ W_embᵀ``; at mp > 1
+    the logits stay vocab-sharded (the forward returns the rank's columns)
+    and ``GPTPretrainingCriterion`` takes them through
+    ``ParallelCrossEntropy``; ``generate()`` gathers them over mp.
 
 ``GPTPretrainingCriterion`` is the training loss: token cross-entropy,
 masked mean.
@@ -21,11 +27,12 @@ masked mean.
 With ``use_recompute`` each decoder layer without a cache is one recompute
 segment (``incubate.recompute``), as in the JAX model.
 
-Not ported yet: ring and ulysses sequence parallelism (multi-GPU); it raises
-NotImplementedError when asked for.
+Not ported yet: ring and ulysses sequence parallelism (ROADMAP queue 1 item
+13b); it raises NotImplementedError when asked for.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -37,6 +44,7 @@ from .. import amp as _amp
 from .. import nn
 from ..core import random as _random
 from ..core.place import torch_device
+from ..distributed.fleet import meta_parallel as _mp
 from ..distributed.fleet.meta_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -85,7 +93,10 @@ class GPTAttention(nn.Layer):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.num_heads = cfg.num_heads
+        mp = _mp.mp_degree()
+        if cfg.num_heads % mp:
+            raise ValueError(f"{cfg.num_heads} heads do not divide over mp {mp}")
+        self.num_heads = cfg.num_heads // mp  # this rank's heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         init = I.Normal(0.0, cfg.initializer_range)
         self.qkv_proj = ColumnParallelLinear(
@@ -127,14 +138,17 @@ class GPTAttention(nn.Layer):
             return self.out_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         if cfg.sequence_parallel and cfg.sequence_parallel_mode in ("ring", "ulysses"):
             raise NotImplementedError(
-                f"{cfg.sequence_parallel_mode} attention is not ported yet: it "
-                "comes with the multi-GPU work"
+                f"{cfg.sequence_parallel_mode} attention is not ported yet: it comes with "
+                "the multi-GPU work's sequence parallelism (ROADMAP, open items, queue 1 "
+                "item 13b)"
             )
-        out = F.scaled_dot_product_attention(
-            q, k, v, is_causal=True,
-            dropout_p=cfg.attn_dropout if self.training else 0.0,
-            training=self.training,
-        )
+        p = cfg.attn_dropout if self.training else 0.0
+        # a rank's heads draw their masks from its own stream at mp > 1
+        rng = (_mp.get_rng_state_tracker().rng_state() if p > 0.0 and _mp.mp_degree() > 1
+               else contextlib.nullcontext())
+        with rng:
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True, dropout_p=p,
+                                                 training=self.training)
         return self.out_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -240,8 +254,10 @@ class GPTForPretraining(nn.Layer):
         return self._tied_head(self.gpt.final_ln(h))
 
     def _tied_head(self, h):
-        # paddle.matmul in the JAX head: the O1 "matmul" cast
-        h, w = _amp.maybe_cast_inputs("matmul", (h, self.gpt.embeddings.word_embeddings.weight))
+        # paddle.matmul in the JAX head: the O1 "matmul" cast; at mp > 1 the
+        # rank's vocab columns
+        h, w = _amp.maybe_cast_inputs("matmul", (_mp.copy_to_mp(h),
+                                                 self.gpt.embeddings.word_embeddings.weight))
         return torch.matmul(h, w.t())
 
     @torch.no_grad()
@@ -283,6 +299,7 @@ class GPTForPretraining(nn.Layer):
                 else:  # one new token
                     feed = torch.as_tensor(buf[:, cur - 1:cur], device=device)
                     step_t = self(feed, caches=caches, pos_offset=cur - 1)[:, 0, :]
+                step_t = _mp.gather_from_mp(step_t)  # the whole vocabulary at mp > 1
                 if top_k is not None:
                     t = max(float(temperature), 1e-6)
                     k_eff = min(int(top_k), step_t.shape[-1])
@@ -309,13 +326,14 @@ class GPTForPretraining(nn.Layer):
 
 class GPTPretrainingCriterion(nn.Layer):
     """Cross-entropy of the LM logits against the shifted labels; with a
-    ``loss_mask``, the mean over the positions it keeps."""
+    ``loss_mask``, the mean over the positions it keeps. At mp > 1 the logits
+    are vocab-sharded and go through ``ParallelCrossEntropy``."""
 
     def __init__(self, cfg: Optional[GPTConfig] = None):
         super().__init__()
 
     def forward(self, logits, labels, loss_mask=None):
-        loss = F.cross_entropy(logits, labels, reduction="none")
+        loss = _mp.parallel_cross_entropy(logits, labels)
         if loss_mask is not None:
             loss = loss * loss_mask
             # the JAX Tensor.sum and Tensor.mean: the O1 "sum" and "mean" casts

@@ -305,7 +305,7 @@ def _ir_profile(program, top_k: int = 5) -> Dict[str, Any]:
         "eqns": len(program.ops),
         "flops_est": int(flops),
         "bytes_est": int(bytes_est),
-        # one card: no collectives (the sharded cost model is item 13)
+        # one card: no collectives (the sharded cost model is item 13c)
         "comm_bytes": 0,
         "collective_count": 0,
         "top_ops": [

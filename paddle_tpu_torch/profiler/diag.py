@@ -28,7 +28,7 @@ snapshots, so a scrape never blocks or tears a training step:
 
 ``start()`` is idempotent and a no-op while FLAGS_diag_port is -1; serving
 engines register themselves (weakly) at construction. Host code, copied;
-the elastic-rescale section of /statusz comes with item 13. The "memory
+the elastic-rescale section of /statusz comes with item 13c. The "memory
 plan & offload" section lists the last remat plan per source
 (``analysis.plan.state()``) and every offload scheduler
 (``optimizer.offload.state()``), when there are any.

@@ -17,7 +17,7 @@ that fits ``--memory-budget-mb`` (``analysis.plan.plan_program``);
 divergence (``analysis.equivalence.program_diff``). It runs on the card
 unless ``--device cpu``. Exit status 1 when a diagnostic at or above
 ``--fail-on`` (default: error) is found, or a diff is not proven; else 0.
-``--mesh`` (the per-shard analyzer) waits for ROADMAP queue 1 item 13.
+``--mesh`` (the per-shard analyzer) waits for ROADMAP queue 1 item 13c.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def main(argv=None) -> int:
     ap.add_argument("--builder-b", default=None, metavar="NAME",
                     help="builder name in the --diff file (default: --builder)")
     ap.add_argument("--mesh", default=None, metavar="AXES",
-                    help="the per-shard analyzer (ROADMAP queue 1 item 13)")
+                    help="the per-shard analyzer (ROADMAP queue 1 item 13c)")
     ap.add_argument("--device", default=None,
                     help="where the subject runs: the card unless 'cpu'")
     ap.add_argument("--fail-on", default="error", choices=["info", "warning", "error"],
@@ -97,7 +97,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.mesh:
         raise SystemExit("graph_lint: --mesh, the per-shard analyzer, is not ported yet "
-                         "(ROADMAP, open items, queue 1 item 13)")
+                         "(ROADMAP, open items, queue 1 item 13c)")
 
     repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     if repo_root not in sys.path:

@@ -1677,3 +1677,29 @@ def test_default_engine_pool_sized_from_the_free_memory_on_the_card():
     assert int(extra[0]) == 1 and int(extra[-1]) == 1
     del extra
     eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nprocs,backend", [(1, "nccl"), (2, "gloo")])
+def test_collectives_of_card_tensors(tmp_path, nprocs, backend):
+    """NCCL at world size 1, and two ranks sharing the card over gloo: the
+    collectives of card tensors through ``paddle.distributed.spawn`` (the
+    ranks are fresh processes: the test's own keeps its CUDA context)."""
+    import json
+
+    from tests import torch_dist_cases
+
+    _card()
+    pt.distributed.spawn(torch_dist_cases.card_collectives, (str(tmp_path),), nprocs=nprocs,
+                         gpus=",".join(["0"] * nprocs), backend=backend)
+    xs = [np.arange(4 * nprocs, dtype=np.float32) + 100 * r for r in range(nprocs)]
+    total = np.sum(xs, axis=0)
+    for r in range(nprocs):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got["backend"] == backend and got["device"].startswith("cuda")
+        np.testing.assert_array_equal(got["all_reduce"], total)
+        np.testing.assert_array_equal(got["all_gather"], np.stack(xs))
+        np.testing.assert_array_equal(got["reduce_scatter"], np.split(total, nprocs)[r])
+        np.testing.assert_array_equal(
+            got["alltoall_single"],
+            np.concatenate([np.split(xs[i], nprocs)[r] for i in range(nprocs)]))
